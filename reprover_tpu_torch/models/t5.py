@@ -1,0 +1,505 @@
+"""T5 (ByT5) encoder-decoder in PyTorch: the counterpart of
+:mod:`reprover_tpu.models.t5`.
+
+Parameters are a plain nested dict of tensors in the JAX package's layout,
+so one tree serves both packages through :mod:`reprover_tpu_torch.models.bridge`:
+
+- dense weights are ``[in, out]`` (``y = x @ W``);
+- per-layer weights are stacked on a leading ``[num_layers, ...]`` axis;
+- the MLP is either split (``wi_0``/``wi_1``) or fused (``wi`` = gate|up).
+
+Numerics follow the JAX package: RMSNorm statistics, softmax and the logits
+run in float32; matrix products take ``compute_dtype`` inputs and accumulate
+in float32 (cuBLAS does so for bfloat16, then rounds the output to bfloat16,
+which is what ``preferred_element_type=float32`` followed by ``astype`` does).
+
+The encoder's self-attention goes through
+:func:`reprover_tpu_torch.ops.flash_attention.encoder_flash_attention`: on a
+CUDA tensor that is the hand-written kernel, on a CPU tensor its plain
+version. The incremental decoder uses plain attention, as the JAX package
+leaves it to XLA. Its attention scores are the matrix product's output in
+``compute_dtype`` before the float32 softmax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from reprover_tpu_torch.ops.flash_attention import encoder_flash_attention
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e10
+
+# Weights that feed a matrix product; the loaders store them in
+# ``compute_dtype`` once instead of casting on every call.
+MATMUL_WEIGHTS = frozenset(
+    {"q", "k", "v", "o", "wi", "wi_0", "wi_1", "wo", "shared_embedding", "lm_head"}
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 384
+    d_model: int = 1472
+    d_kv: int = 64
+    d_ff: int = 3584
+    num_heads: int = 6
+    num_encoder_layers: int = 12
+    num_decoder_layers: int = 4
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    tie_word_embeddings: bool = False
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+    compute_dtype: torch.dtype = torch.float32
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_heads * self.d_kv
+
+
+def byt5_small(**overrides: Any) -> T5Config:
+    """google/byt5-small geometry (300M params)."""
+    return T5Config(**overrides)
+
+
+# ------------------------------------------------------------------ #
+# Parameter init
+# ------------------------------------------------------------------ #
+
+
+def _normal(g: torch.Generator, shape: Tuple[int, ...], std: float) -> torch.Tensor:
+    return torch.randn(shape, generator=g, dtype=torch.float32) * std
+
+
+def _attn_init(g: torch.Generator, cfg: T5Config) -> Params:
+    # T5 init: q ~ N(0, (d_model*d_kv)^-0.5), k/v ~ N(0, d_model^-0.5),
+    # o ~ N(0, inner^-0.5).
+    d, inner = cfg.d_model, cfg.inner_dim
+    return {
+        "q": _normal(g, (d, inner), (d * cfg.d_kv) ** -0.5),
+        "k": _normal(g, (d, inner), d ** -0.5),
+        "v": _normal(g, (d, inner), d ** -0.5),
+        "o": _normal(g, (inner, d), inner ** -0.5),
+    }
+
+
+def _mlp_init(g: torch.Generator, cfg: T5Config) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi_0": _normal(g, (d, f), d ** -0.5),
+        "wi_1": _normal(g, (d, f), d ** -0.5),
+        "wo": _normal(g, (f, d), f ** -0.5),
+    }
+
+
+def _stack(trees: list) -> Params:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: T5Config, generator: torch.Generator) -> Params:
+    """Random float32 CPU parameters with the T5 initialization scheme
+    (the JAX package's ``init_params``; the draws themselves differ)."""
+    g = generator
+    ones = lambda: torch.ones(cfg.d_model)  # noqa: E731
+    enc_layers = [
+        {
+            "attn": _attn_init(g, cfg),
+            "attn_norm": ones(),
+            "mlp": _mlp_init(g, cfg),
+            "mlp_norm": ones(),
+        }
+        for _ in range(cfg.num_encoder_layers)
+    ]
+    dec_layers = [
+        {
+            "self_attn": _attn_init(g, cfg),
+            "self_norm": ones(),
+            "cross_attn": _attn_init(g, cfg),
+            "cross_norm": ones(),
+            "mlp": _mlp_init(g, cfg),
+            "mlp_norm": ones(),
+        }
+        for _ in range(cfg.num_decoder_layers)
+    ]
+    nb, h = cfg.relative_attention_num_buckets, cfg.num_heads
+    params: Params = {
+        "shared_embedding": _normal(g, (cfg.vocab_size, cfg.d_model), 1.0),
+        "encoder": {
+            "rel_bias": _normal(g, (nb, h), cfg.d_model ** -0.5),
+            "layers": _stack(enc_layers),
+            "final_norm": ones(),
+        },
+        "decoder": {
+            "rel_bias": _normal(g, (nb, h), cfg.d_model ** -0.5),
+            "layers": _stack(dec_layers),
+            "final_norm": ones(),
+        },
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = _normal(g, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5)
+    return params
+
+
+def fuse_mlp_params(params: Params) -> Params:
+    """Concatenate each MLP's gate/up projections into one ``[D, 2F]``
+    weight (one wider matrix product; numerics are unchanged)."""
+    if isinstance(params, dict):
+        if "wi_0" in params and "wi_1" in params:
+            out = {k: v for k, v in params.items() if k not in ("wi_0", "wi_1")}
+            out["wi"] = torch.cat([params["wi_0"], params["wi_1"]], dim=-1)
+            return out
+        return {k: fuse_mlp_params(v) for k, v in params.items()}
+    return params
+
+
+def place_params(params: Params, cfg: T5Config, device: Any) -> Params:
+    """Move ``params`` to ``device``; matrix-product weights are stored in
+    ``cfg.compute_dtype``, norms and bias tables stay float32."""
+
+    def place(tree: Any, name: str) -> Any:
+        if isinstance(tree, dict):
+            return {k: place(v, k) for k, v in tree.items()}
+        dtype = cfg.compute_dtype if name in MATMUL_WEIGHTS else torch.float32
+        return tree.to(device=device, dtype=dtype).contiguous()
+
+    return place(params, "")
+
+
+def default_dtype(device: torch.device) -> torch.dtype:
+    """bfloat16 on a card, float32 on the CPU (the JAX loaders' TPU/CPU rule)."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def resolve_device(device: Any) -> torch.device:
+    """``torch.device(device)``; a CUDA device with no card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is False")
+    return dev
+
+
+def layer_params(stacked: Params, i: int) -> Params:
+    """Slice layer ``i`` out of a stacked ``[num_layers, ...]`` tree (views)."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+# ------------------------------------------------------------------ #
+# Building blocks
+# ------------------------------------------------------------------ #
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """T5 LayerNorm: RMS-only, no mean subtraction, fp32 statistics."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU (HF 'gelu_new'), matching T5 gated-GELU."""
+    return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0))))
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def relative_position_bucket(
+    relative_position: torch.Tensor,
+    bidirectional: bool,
+    num_buckets: int,
+    max_distance: int,
+) -> torch.Tensor:
+    """T5 log-binned relative position bucketing (exact HF semantics; the
+    log is taken in float32, as the JAX package takes it)."""
+    rel = relative_position.to(torch.int32)
+    ret = torch.zeros_like(rel)
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (rel > 0).to(torch.int32) * num_buckets
+        rp = rel.abs()
+    else:
+        rp = -torch.clamp(rel, max=0)
+    max_exact = num_buckets // 2
+    is_small = rp < max_exact
+    scale = torch.tensor(math.log(max_distance / max_exact), dtype=torch.float32)
+    rp_large = max_exact + (
+        torch.log(rp.float() / max_exact + 1e-20) / scale * (num_buckets - max_exact)
+    ).to(torch.int32)
+    rp_large = torch.clamp(rp_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, rp, rp_large)
+
+
+def compute_position_bias(
+    rel_bias: torch.Tensor,  # [num_buckets, H] fp32
+    query_positions: torch.Tensor,
+    key_positions: torch.Tensor,
+    bidirectional: bool,
+    cfg: T5Config,
+) -> torch.Tensor:
+    """Relative position bias ``[1, H, Q, K]`` fp32 from position vectors."""
+    rel = key_positions[None, :] - query_positions[:, None]
+    buckets = relative_position_bucket(
+        rel,
+        bidirectional,
+        cfg.relative_attention_num_buckets,
+        cfg.relative_attention_max_distance,
+    )
+    bias = rel_bias.float()[buckets.long()]  # [Q, K, H]
+    return bias.permute(2, 0, 1)[None]
+
+
+def _split_heads(x: torch.Tensor, num_heads: int, d_kv: int) -> torch.Tensor:
+    b, l, _ = x.shape
+    return x.view(b, l, num_heads, d_kv).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+def attention(
+    q: torch.Tensor,  # [..., Q, d]
+    k: torch.Tensor,  # [..., K, d]
+    v: torch.Tensor,  # [..., K, d]
+    bias: Optional[torch.Tensor],  # additive fp32, broadcastable to [..., Q, K]
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Unscaled dot-product attention with fp32 softmax (T5 has no 1/sqrt(d))."""
+    scores = torch.matmul(q.to(dtype), k.to(dtype).transpose(-1, -2)).float()
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.matmul(probs, v.to(dtype))
+
+
+def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config) -> torch.Tensor:
+    dtype = cfg.compute_dtype
+    if "wi" in p:
+        gate, up = _dense(x, p["wi"], dtype).chunk(2, dim=-1)
+    else:
+        gate, up = _dense(x, p["wi_0"], dtype), _dense(x, p["wi_1"], dtype)
+    return _dense(gelu_new(gate) * up, p["wo"], dtype)
+
+
+def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    """``[B, K]`` {0,1} mask -> additive fp32 bias ``[B, 1, 1, K]``."""
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    return torch.where(mask[:, None, None, :].bool(), zero, NEG_INF)
+
+
+def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor) -> torch.Tensor:
+    """Logits in float32 from ``compute_dtype`` operands, as the JAX
+    package's ``preferred_element_type=float32`` gives them."""
+    dtype = cfg.compute_dtype
+    if cfg.tie_word_embeddings:
+        h = h * (cfg.d_model ** -0.5)
+        w = params["shared_embedding"].t()
+    else:
+        w = params["lm_head"]
+    return torch.matmul(h.to(dtype).float(), w.to(dtype).float())
+
+
+# ------------------------------------------------------------------ #
+# Encoder
+# ------------------------------------------------------------------ #
+
+
+def encode(
+    params: Params,
+    cfg: T5Config,
+    input_ids: torch.Tensor,  # int [B, L]
+    attention_mask: torch.Tensor,  # int [B, L]
+    attention_fn: Callable[..., torch.Tensor] = encoder_flash_attention,
+) -> torch.Tensor:
+    """Encoder forward -> last hidden states ``[B, L, d_model]``.
+
+    Self-attention runs through ``encoder_flash_attention`` at any ``L``:
+    the kernel masks its own ragged tile, so no length condition applies.
+    ``attention_fn`` lets a check run the plain version on the card instead.
+    """
+    dtype = cfg.compute_dtype
+    enc = params["encoder"]
+    eps = cfg.layer_norm_epsilon
+    h = params["shared_embedding"].to(dtype)[input_ids]
+    for i in range(cfg.num_encoder_layers):
+        lp = layer_params(enc["layers"], i)
+        p = lp["attn"]
+        n = rms_norm(h, lp["attn_norm"], eps)
+        attn = attention_fn(
+            _dense(n, p["q"], dtype),
+            _dense(n, p["k"], dtype),
+            _dense(n, p["v"], dtype),
+            attention_mask,
+            enc["rel_bias"],
+            num_heads=cfg.num_heads,
+            num_buckets=cfg.relative_attention_num_buckets,
+            max_distance=cfg.relative_attention_max_distance,
+        )
+        h = h + _dense(attn, p["o"], dtype)
+        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+    return rms_norm(h, enc["final_norm"], eps)
+
+
+# ------------------------------------------------------------------ #
+# Incremental decoding (KV cache) for beam search
+# ------------------------------------------------------------------ #
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Decoder state for incremental decoding over ``N = B * num_beams`` rows.
+
+    ``self_k``/``self_v``: ``[L, N, H, max_len, d_kv]`` KV cache, written in
+    place by :func:`decode_step`.
+    ``cross_k``/``cross_v``: ``[L, B, H, S, d_kv]``, computed once per source.
+    Rows ``b * num_beams .. (b + 1) * num_beams - 1`` share source ``b``, so
+    the cross cache is read once per source, not once per beam (the JAX
+    package tiles it per beam; the dot products are the same).
+    ``cross_bias``: ``[B, 1, 1, S]`` additive fp32 source mask.
+    ``step``: number of tokens already written.
+    """
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    cross_bias: torch.Tensor
+    num_beams: int
+    step: int = 0
+
+
+def init_decode_state(
+    params: Params,
+    cfg: T5Config,
+    encoder_hidden: torch.Tensor,  # [B, S, d_model]
+    encoder_mask: torch.Tensor,  # [B, S]
+    max_decode_len: int,
+    num_beams: int = 1,
+) -> DecodeState:
+    """Allocate the KV cache and precompute cross-attention keys/values."""
+    dtype = cfg.compute_dtype
+    b = encoder_hidden.shape[0]
+    dec_layers = params["decoder"]["layers"]
+    enc_h = encoder_hidden.to(dtype)
+    ks, vs = [], []
+    for i in range(cfg.num_decoder_layers):
+        ca = layer_params(dec_layers, i)["cross_attn"]
+        ks.append(_split_heads(_dense(enc_h, ca["k"], dtype), cfg.num_heads, cfg.d_kv))
+        vs.append(_split_heads(_dense(enc_h, ca["v"], dtype), cfg.num_heads, cfg.d_kv))
+    shape = (
+        cfg.num_decoder_layers,
+        b * num_beams,
+        cfg.num_heads,
+        max_decode_len,
+        cfg.d_kv,
+    )
+    dev = encoder_hidden.device
+    return DecodeState(
+        self_k=torch.zeros(shape, dtype=dtype, device=dev),
+        self_v=torch.zeros(shape, dtype=dtype, device=dev),
+        cross_k=torch.stack(ks),
+        cross_v=torch.stack(vs),
+        cross_bias=_mask_bias(encoder_mask),
+        num_beams=num_beams,
+    )
+
+
+def _cross_attention(
+    q: torch.Tensor,  # [N, H, 1, d]
+    ck: torch.Tensor,  # [B, H, S, d]
+    cv: torch.Tensor,  # [B, H, S, d]
+    bias: torch.Tensor,  # [B, 1, 1, S]
+    num_beams: int,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Beams of one source attend as a ``[H, num_beams, S]`` block."""
+    n, h, _, d = q.shape
+    b = n // num_beams
+    qb = q.view(b, num_beams, h, d).transpose(1, 2)  # [B, H, K, d]
+    out = attention(qb, ck, cv, bias, dtype)  # [B, H, K, d]
+    return out.transpose(1, 2).reshape(n, h, 1, d)
+
+
+def decode_step(
+    params: Params,
+    cfg: T5Config,
+    state: DecodeState,
+    token: torch.Tensor,  # int [N] — token at position ``state.step``
+) -> Tuple[torch.Tensor, DecodeState]:
+    """One incremental decoder step -> (logits ``[N, vocab]`` fp32, state).
+
+    The self-attention cache is updated in place (the returned state shares
+    its tensors); attention reads only the ``step + 1`` filled positions,
+    which is what the JAX package's masked full-length read computes.
+    """
+    dtype = cfg.compute_dtype
+    dec = params["decoder"]
+    eps = cfg.layer_norm_epsilon
+    pos = state.step
+    dev = token.device
+
+    h = params["shared_embedding"].to(dtype)[token][:, None, :]  # [N, 1, D]
+    self_bias = compute_position_bias(
+        dec["rel_bias"],
+        torch.tensor([pos], device=dev),
+        torch.arange(pos + 1, device=dev),
+        False,
+        cfg,
+    )  # [1, H, 1, pos + 1]
+
+    for i in range(cfg.num_decoder_layers):
+        lp = layer_params(dec["layers"], i)
+        sa, ca = lp["self_attn"], lp["cross_attn"]
+
+        n = rms_norm(h, lp["self_norm"], eps)
+        q = _split_heads(_dense(n, sa["q"], dtype), cfg.num_heads, cfg.d_kv)
+        k_new = _split_heads(_dense(n, sa["k"], dtype), cfg.num_heads, cfg.d_kv)
+        v_new = _split_heads(_dense(n, sa["v"], dtype), cfg.num_heads, cfg.d_kv)
+        state.self_k[i, :, :, pos] = k_new[:, :, 0]
+        state.self_v[i, :, :, pos] = v_new[:, :, 0]
+        attn = attention(
+            q,
+            state.self_k[i, :, :, : pos + 1],
+            state.self_v[i, :, :, : pos + 1],
+            self_bias,
+            dtype,
+        )
+        h = h + _dense(_merge_heads(attn), sa["o"], dtype)
+
+        n = rms_norm(h, lp["cross_norm"], eps)
+        q = _split_heads(_dense(n, ca["q"], dtype), cfg.num_heads, cfg.d_kv)
+        attn = _cross_attention(
+            q, state.cross_k[i], state.cross_v[i], state.cross_bias, state.num_beams, dtype
+        )
+        h = h + _dense(_merge_heads(attn), ca["o"], dtype)
+
+        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+
+    h = rms_norm(h, dec["final_norm"], eps)
+    logits = _lm_logits(params, cfg, h)[:, 0, :]
+    return logits, dataclasses.replace(state, step=pos + 1)
+
+
+def reorder_decode_state(state: DecodeState, flat_parent: torch.Tensor) -> DecodeState:
+    """Make row ``i`` of the self-attention cache a copy of row
+    ``flat_parent[i]`` (beam search's per-step reorder). Only the filled
+    positions are copied; parents never cross sources, so the cross cache
+    stays as it is."""
+    n = state.step
+    state.self_k[:, :, :, :n] = state.self_k[:, flat_parent, :, :n]
+    state.self_v[:, :, :, :n] = state.self_v[:, flat_parent, :, :n]
+    return state

@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` file under ``reprover_tpu_torch/csrc/`` is compiled by
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first use, into
+``build/kernels/<hash>/`` at the root of the checkout (listed in
+``.gitignore``), keyed by a hash of the sources and the flags, so an edit
+rebuilds and an unchanged tree reuses the library. Nothing is built when the
+package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "libreprover_torch_kernels.so"
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class BuildInfo:
+    """What the last :func:`load_library` call did (for logs and reports)."""
+
+    seconds: float = 0.0
+    built: bool = False
+    path: str = ""
+    log: str = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of reprover_tpu_torch cannot be built"
+    )
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.encoder_attn_forward.argtypes = [vp] * 7 + [i] * 5 + [vp]
+    lib.encoder_attn_forward.restype = i
+    lib.kernel_error_string.argtypes = [i]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        if not sources:
+            raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in sorted(CSRC_DIR.glob("*.cu*")):
+            digest.update(path.name.encode())
+            digest.update(path.read_bytes())
+        out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+        lib_path = out_dir / LIB_NAME
+        t0 = time.perf_counter()
+        if not lib_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            # Build under a private name, then rename: processes that build
+            # at the same time never load a half-written library.
+            tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, lib_path)
+            BuildInfo.built = True
+            BuildInfo.log = proc.stdout + proc.stderr
+        BuildInfo.seconds = time.perf_counter() - t0
+        BuildInfo.path = str(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        _declare(lib)
+        _lib = lib
+        return lib
