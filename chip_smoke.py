@@ -22,14 +22,41 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    kernel and in fp32 through the plain version agree to a per-row cosine
    >= 0.99.
 
+6. kernel backward vs plain: the encoder attention's autograd (forward
+   kernel + the dQ and dK/dV kernels) against autograd of
+   ``encoder_attention_reference``, H=6, d=64, at the training shapes (the
+   data module's batches at ``max_seq_len`` 1024, printed, and contexts at
+   the 1024 cap), ragged masks, an empty row, a masked key >= 100 above its
+   row and a length that is not a multiple of 64; fp32 within 1e-4 (d_rel
+   1e-3) and bf16 within 2e-2 of max(1, max|ref|); times from CUDA events;
+7. training: ``reprover_tpu_torch.retrieval.main.main(["fit", ...])`` at full
+   byt5-small encoder width (bf16 over fp32 masters, seeded random init,
+   InfoNCE, batch 8, 3 negatives with 1 in-file, ``max_seq_len`` 1024, remat
+   on) for 20 steps, one validation that re-indexes the corpus, and a
+   checkpoint; every logged loss finite, both backward kernels launched,
+   ``metrics.jsonl`` with Recall@10_val, MRR and emb_eff_rank, and
+   ``validate --ckpt_dir`` restoring the saved parameters bit for bit;
+8. train step: on one fixed batch without warmup, 20 steps whose loss must
+   fall, timed by part (forward, backward, optimizer) with CUDA events,
+   peak memory, and the attention kernels' share of a profiled step; then
+   the same timing at the 1024 cap.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 2 and
 prints no result.
+
+Rehearse the training phases on the CPU at tiny width (a few seconds)::
+
+    import chip_smoke, torch
+    bench = chip_smoke.make_bench("/tmp/smoke")
+    chip_smoke.phase_train(torch.device("cpu"), "/tmp/smoke", bench, tiny=True)
+    chip_smoke.phase_train_steps(torch.device("cpu"), bench, tiny=True)
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,6 +72,12 @@ RAGGED_SHAPE = (3, 1000)  # length not a multiple of the 64-key tile
 NUM_HEADS, HEAD_DIM = 6, 64
 FP32_TOL = 1e-4
 BF16_REL_TOL = 2e-2
+DREL_FP32_TOL = 1e-3  # d_rel sums L^2 terms with atomics, in any order
+
+# Retriever training at the reference data settings.
+TRAIN = dict(batch_size=8, num_negatives=3, num_in_file_negatives=1, max_seq_len=1024,
+             eval_batch_size=64, steps=20, log_interval=5, lr=1e-4, seed=3407)
+CONTEXT_CAP_SHAPE = (TRAIN["batch_size"], TRAIN["max_seq_len"])  # contexts at the length cap
 
 SLICE = dict(
     num_files=300,
@@ -163,6 +196,109 @@ def phase_kernel(device) -> list:
     return rows
 
 
+def _fit_argv(device, work: str, bench: str, tiny: bool) -> list:
+    """``retrieval.main`` flags of the training phases: the reference data
+    settings, InfoNCE, remat on, seeded random init (or the tiny model)."""
+    return [
+        "--device", device.type,
+        "--model.tiny" if tiny else "--model.random_init", "true",
+        "--model.loss", "infonce",
+        "--model.remat", "true",
+        "--data.data_path", os.path.join(bench, "random"),
+        "--data.corpus_path", os.path.join(bench, "corpus.jsonl"),
+        "--data.batch_size", str(TRAIN["batch_size"]),
+        "--data.num_negatives", str(TRAIN["num_negatives"]),
+        "--data.num_in_file_negatives", str(TRAIN["num_in_file_negatives"]),
+        "--data.max_seq_len", str(TRAIN["max_seq_len"]),
+        "--data.eval_batch_size", str(TRAIN["eval_batch_size"]),
+        "--seed", str(TRAIN["seed"]),
+        "--log_dir", os.path.join(work, "logs"),
+    ]
+
+
+def data_shapes(bench: str) -> list:
+    """(batch, length) of the encoder calls of the first training batches at
+    ``max_seq_len`` 1024: contexts and premises, or their stack when the two
+    lengths agree (the losses then encode once)."""
+    from reprover_tpu.retrieval.datamodule import RetrievalDataModule
+
+    dm = RetrievalDataModule(
+        os.path.join(bench, "random"), os.path.join(bench, "corpus.jsonl"),
+        TRAIN["num_negatives"], TRAIN["num_in_file_negatives"], TRAIN["batch_size"],
+        TRAIN["eval_batch_size"], TRAIN["max_seq_len"], seed=TRAIN["seed"])
+    dm.setup("fit")
+    shapes = set()
+    for i, batch in enumerate(dm.train_dataloader()):
+        (bc, lc), (bp, lp) = batch["context_ids"].shape, batch["premise_ids"].shape
+        shapes |= {(bc + bp, lc)} if lc == lp else {(bc, lc), (bp, lp)}
+        if i >= 20:
+            break
+    log(f"[kernel_bwd] data module batches at max_seq_len {TRAIN['max_seq_len']}: "
+        f"contexts [{bc}, {lc}], premises [{bp}, {lp}]; encoder calls {sorted(shapes)}")
+    return sorted(shapes)
+
+
+def phase_kernel_backward(device, shapes: list) -> list:
+    """Autograd through the kernels vs autograd of the plain version at
+    ``shapes`` plus the 1024 context cap and the ragged case, fp32 and bf16;
+    times of the whole backward and of each backward kernel alone."""
+    import torch
+
+    from reprover_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(1)
+    rows = []
+    for b, l in [CONTEXT_CAP_SHAPE] + list(shapes) + [RAGGED_SHAPE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, rel = _attention_case(b, l, dtype, gen, device)
+            mask[-1] = 0  # a row with no valid key: zero gradients
+            dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+
+            def grads(fn):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
+                out = fn(leaves[0], leaves[1], leaves[2], mask, leaves[3], num_heads=NUM_HEADS)
+                return out, leaves, torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+            out_k, leaves_k, got = grads(tfa.encoder_flash_attention)
+            out_p, leaves_p, want = grads(tfa.encoder_attention_reference)
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for name, g, w in zip(("dq", "dk", "dv", "d_rel"), got, want):
+                tol = BF16_REL_TOL if dtype == torch.bfloat16 else (
+                    DREL_FP32_TOL if name == "d_rel" else FP32_TOL)
+                tol *= max(1.0, w.float().abs().max().item())
+                errs[name] = (g.float() - w.float()).abs().max().item()
+                ok &= bool(torch.isfinite(g).all()) and errs[name] <= tol
+            ok &= all(g[-1].abs().max().item() == 0.0 for g in got[:3])
+            iters = 10 if b * l <= 32 * 1024 else 5
+            ms = _time_ms(lambda: torch.autograd.grad(out_k, leaves_k, dout, retain_graph=True),
+                          iters)
+            plain_ms = _time_ms(
+                lambda: torch.autograd.grad(out_p, leaves_p, dout, retain_graph=True), iters)
+            # Each backward kernel alone, on the forward's LSE.
+            mask32, rel32, table = tfa._kernel_operands(mask, rel, 32, 128)
+            out, lse = tfa._forward_cuda(q, k, v, mask32, rel32, table, NUM_HEADS, 128, True)
+            delta = tfa.row_delta(dout, out, NUM_HEADS)
+            bins = torch.zeros((NUM_HEADS, 257), device=device)
+            bufs = (torch.empty_like(q), torch.empty_like(q))
+            common = (q, k, v, dout, mask32, rel32, table, lse, delta)
+            dq_ms = _time_ms(lambda: tfa._backward_cuda(
+                "encoder_attn_bwd_dq", *common, bufs[0], bins, NUM_HEADS, 128), iters)
+            dkv_ms = _time_ms(lambda: tfa._backward_cuda(
+                "encoder_attn_bwd_dkv", *common, *bufs, NUM_HEADS, 128), iters)
+            row = dict(B=b, L=l, dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok,
+                       bwd_ms=ms, plain_bwd_ms=plain_ms, dq_ms=dq_ms, dkv_ms=dkv_ms)
+            log(f"[kernel_bwd] {json.dumps(row)}")
+            rows.append(row)
+            del out_k, out_p, leaves_k, leaves_p, got, want
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"backward kernels disagree with the plain version: {bad}")
+    return rows
+
+
 def _full_width_models(device):
     import torch
 
@@ -179,7 +315,21 @@ def _full_width_models(device):
             place_params(fuse_mlp_params(ret_params), cfg, device))
 
 
-def phase_slice(device, work: str, cfg, gen_params, ret_params) -> dict:
+def make_bench(work: str) -> str:
+    """The synthetic LeanDojo-format benchmark (12,900 premises) under
+    ``work``; returns its directory."""
+    bench = os.path.join(work, "bench")
+    subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "make_synthetic_benchmark.py"),
+         "--out", bench, "--num-files", str(SLICE["num_files"]),
+         "--premises-per-file", str(SLICE["premises_per_file"]),
+         "--num-theorems", str(SLICE["num_theorems_made"])],
+        check=True, cwd=REPO, capture_output=True, timeout=300,
+    )
+    return bench
+
+
+def phase_slice(device, bench: str, cfg, gen_params, ret_params) -> dict:
     import torch
 
     from reprover_tpu.prover.environment import environment_from_dataset
@@ -190,14 +340,6 @@ def phase_slice(device, work: str, cfg, gen_params, ret_params) -> dict:
     from reprover_tpu_torch.ops import flash_attention as tfa
     from reprover_tpu_torch.retrieval import PremiseRetriever
 
-    bench = os.path.join(work, "bench")
-    subprocess.run(
-        [sys.executable, os.path.join(REPO, "scripts", "make_synthetic_benchmark.py"),
-         "--out", bench, "--num-files", str(SLICE["num_files"]),
-         "--premises-per-file", str(SLICE["premises_per_file"]),
-         "--num-theorems", str(SLICE["num_theorems_made"])],
-        check=True, cwd=REPO, capture_output=True, timeout=300,
-    )
     data_path = os.path.join(bench, "random")
     with open(os.path.join(data_path, "val.json")) as f:
         environment = environment_from_dataset(json.load(f))
@@ -208,7 +350,7 @@ def phase_slice(device, work: str, cfg, gen_params, ret_params) -> dict:
         gen_params, cfg, SLICE["max_inp_seq_len"], SLICE["max_oup_seq_len"])
     n_premises = len(retriever.corpus)
 
-    tfa.KERNEL_LAUNCHES = 0
+    tfa.reset_launch_counts()
     t0 = time.perf_counter()
     retriever.reindex_corpus(batch_size=32)
     emb = retriever.corpus_embeddings
@@ -218,7 +360,7 @@ def phase_slice(device, work: str, cfg, gen_params, ret_params) -> dict:
     if emb.shape != (n_premises, cfg.d_model) or not bool(
             torch.isfinite(emb).all()) or (norms - 1).abs().max().item() > 1e-3:
         raise AssertionError("corpus embeddings are not finite unit vectors of the right shape")
-    reindex_launches = tfa.KERNEL_LAUNCHES
+    reindex_launches = tfa.KERNEL_LAUNCHES["encoder_attn"]
     log(f"[slice] reindex {n_premises} premises in {reindex_s:.3f}s "
         f"({n_premises / reindex_s:.1f} premises/s), {reindex_launches} kernel launches")
 
@@ -236,14 +378,14 @@ def phase_slice(device, work: str, cfg, gen_params, ret_params) -> dict:
     finally:
         service.stop()
     eval_s = time.perf_counter() - t0
-    launches = tfa.KERNEL_LAUNCHES
+    launches = tfa.KERNEL_LAUNCHES["encoder_attn"]
     stats = service.stats_snapshot()
     requests = int(stats["requests"])
     per_request = stats["device_time"] / max(requests, 1)
     log(f"[slice] evaluate {SLICE['num_theorems']} theorems with {SLICE['num_workers']} workers "
         f"in {eval_s:.3f}s: {requests} requests in {int(stats['batches'])} batches, "
         f"{per_request:.3f} s/request (service time per request), Pass@1 {pass_1}")
-    log(f"[slice] KERNEL_LAUNCHES {launches} ({launches - reindex_launches} while serving)")
+    log(f"[slice] encoder_attn launches {launches} ({launches - reindex_launches} while serving)")
     if len(results) != SLICE["num_theorems"] or any(r is None for r in results):
         raise AssertionError(f"searches failed or were discarded: {results}")
     if requests < 1 or any(r.num_searched_nodes < 1 for r in results):
@@ -361,34 +503,234 @@ def phase_sanity(device, cfg, ret_params) -> float:
     return worst
 
 
+def phase_train(device, work: str, bench: str, tiny: bool = False) -> dict:
+    """Retriever training through the CLI entry point: 20 steps, one
+    validation (re-indexing the corpus) and a checkpoint, then ``validate
+    --ckpt_dir`` restoring the checkpoint."""
+    import torch
+
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.retrieval.main import main as retrieval_main
+
+    ckpt = os.path.join(work, "ckpts")
+    argv = _fit_argv(device, work, bench, tiny) + [
+        "--trainer.max_steps", str(TRAIN["steps"]),
+        "--trainer.val_interval", str(TRAIN["steps"]),
+        "--trainer.log_interval", str(TRAIN["log_interval"]),
+        "--trainer.patience", "99",
+        "--trainer.ckpt_dir", ckpt,
+    ]
+    tfa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = retrieval_main(["fit"] + argv)
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    launches = dict(tfa.KERNEL_LAUNCHES)
+    with open(os.path.join(work, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    sps = [r["steps_per_sec"] for r in recs if "steps_per_sec" in r]
+    val = [r for r in recs if "Recall@10_val" in r]
+    log(f"[train] fit {state.step} steps in {fit_s:.3f}s (validation and checkpoint included); "
+        f"losses {losses}; steps/s per {TRAIN['log_interval']}-step window {sps}; "
+        f"kernel launches {launches}")
+    if val:
+        keys = ("Recall@1_val", "Recall@10_val", "MRR", "emb_eff_rank", "cos_offdiag_std")
+        log(f"[train] validation {json.dumps({k: val[-1].get(k) for k in keys})}")
+    if state.step != TRAIN["steps"] or len(losses) != TRAIN["steps"] // TRAIN["log_interval"]:
+        raise AssertionError(f"fit ran {state.step} steps and logged {len(losses)} losses")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not val or not {"MRR", "emb_eff_rank"} <= set(val[-1]):
+        raise AssertionError("metrics.jsonl lacks Recall@10_val, MRR or emb_eff_rank")
+    if device.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"training did not launch every attention kernel: {launches}")
+
+    saved = torch.load(os.path.join(ckpt, str(TRAIN["steps"]), "state.pt"),
+                       map_location="cpu", weights_only=True)["params"]
+    _, retriever = retrieval_main(["validate"] + argv + ["--ckpt_dir", ckpt])
+    mismatched = [name for name, t in _flat(retriever.params).items()
+                  if not torch.equal(t.detach().cpu(), _flat(saved)[name])]
+    if mismatched:
+        raise AssertionError(f"validate --ckpt_dir restored different parameters: {mismatched}")
+    log(f"[train] validate --ckpt_dir restored {len(_flat(saved))} parameter tensors bit-equal")
+    return dict(launches=launches, losses=losses, steps_per_sec=sps, fit_s=fit_s,
+                validation=val[-1])
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def _long_batch(batch: dict, gen) -> dict:
+    """The batch's layout at the 1024 cap: contexts [8, 1024] and premises
+    [32, 1024] of random bytes with ragged lengths, same labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(gen)
+    out = dict(batch)
+    length = TRAIN["max_seq_len"]
+    for side in ("context", "premise"):
+        rows = batch[f"{side}_ids"].shape[0]
+        lens = rng.integers(length // 4, length + 1, rows)
+        mask = (np.arange(length)[None, :] < lens[:, None]).astype(np.int32)
+        out[f"{side}_ids"] = rng.integers(3, 259, (rows, length)).astype(np.int32) * mask
+        out[f"{side}_mask"] = mask
+    return out
+
+
+def phase_train_steps(device, bench: str, tiny: bool = False) -> dict:
+    """One fixed batch, no warmup: 20 steps whose loss must fall, each timed
+    by part; peak memory; the attention kernels' share of a profiled step.
+    Then the same timing on the batch's layout at the 1024 cap."""
+    import torch
+
+    from reprover_tpu_torch.retrieval.main import LINKS, RetrievalConfig, _build
+    from reprover_tpu_torch.training.tasks import (
+        init_train_state, numeric_batch, retrieval_infonce_loss,
+    )
+    from reprover_tpu_torch.utils.config import parse_config
+
+    _, cfg = parse_config(RetrievalConfig, _fit_argv(device, "unused", bench, tiny), links=LINKS)
+    dm, retriever, model_cfg = _build(cfg)
+    dm.setup("fit")
+    state = init_train_state(retriever.params, TRAIN["lr"], warmup_steps=0)
+    host_batch = next(iter(dm.train_dataloader()))
+    cuda = device.type == "cuda"
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def ms_between(a, b) -> float:
+        return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+
+    def timed_steps(batch: dict, n: int) -> list:
+        """Per step: (loss tensor, forward ms, backward ms, optimizer ms)."""
+        out = []
+        for _ in range(n):
+            m0 = mark()
+            state.optimizer.zero_grad()
+            loss = retrieval_infonce_loss(state.params, model_cfg, batch)
+            m1 = mark()
+            loss.backward()
+            m2 = mark()
+            state.optimizer.step()
+            m3 = mark()
+            _sync(device)
+            out.append((loss.detach(), ms_between(m0, m1), ms_between(m1, m2), ms_between(m2, m3)))
+        return out
+
+    def profiled_share(batch: dict) -> dict:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                timed_steps(batch, 1)
+            by_name: dict = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        except Exception as ex:  # the share is a report; a profiler failure is not a phase failure
+            return {"profiler": f"not measured: {ex!r}"}
+        total = sum(by_name.values())
+        attn = {n: us for n, us in by_name.items() if "encoder_attn" in n}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        return dict(device_ms=total / 1e3, attention_ms=sum(attn.values()) / 1e3,
+                    attention_share=sum(attn.values()) / total if total else None,
+                    attention_kernels_ms={n[:70]: us / 1e3 for n, us in attn.items()},
+                    top_kernels_ms={n[:70]: us / 1e3 for n, us in top})
+
+    results = {}
+    for name, hb in (("data", host_batch), ("cap", _long_batch(host_batch, TRAIN["seed"]))):
+        batch = numeric_batch(hb, device)
+        shapes = {k: list(v.shape) for k, v in batch.items() if k.endswith("_ids")}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps = timed_steps(batch, TRAIN["steps"] if name == "data" else 5)
+        losses = [float(s[0]) for s in steps]
+        warm = steps[2:]
+        row = dict(batch=name, shapes=shapes, first_loss=losses[0], last_loss=losses[-1],
+                   forward_ms=sum(s[1] for s in warm) / len(warm),
+                   backward_ms=sum(s[2] for s in warm) / len(warm),
+                   optimizer_ms=sum(s[3] for s in warm) / len(warm))
+        row["step_ms"] = row["forward_ms"] + row["backward_ms"] + row["optimizer_ms"]
+        row["steps_per_sec"] = 1e3 / row["step_ms"]
+        if cuda:
+            row["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+            row.update(profiled_share(batch))
+        log(f"[train_step] {json.dumps(row)}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite loss on the fixed batch: {losses}")
+        if name == "data":
+            log(f"[train_step] repeated batch, lr {TRAIN['lr']} without warmup: loss "
+                f"{losses[0]:.6f} -> {losses[-1]:.6f} over {len(losses)} steps")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"the loss on one fixed batch did not fall: {losses}")
+        results[name] = row
+    return results
+
+
+def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
+                  row: dict, ms_key: str, plain_key: str) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": row[ms_key],
+            "plain_ms": row[plain_key]}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     info = phase_device()
     phase_build()
     rows = phase_kernel(device)
-    cfg, gen_params, ret_params = _full_width_models(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        sl = phase_slice(device, work, cfg, gen_params, ret_params)
-    phase_sanity(device, cfg, ret_params)
+        bench = make_bench(work)
+        bwd_rows = phase_kernel_backward(device, data_shapes(bench))
+        cfg, gen_params, ret_params = _full_width_models(device)
+        sl = phase_slice(device, bench, cfg, gen_params, ret_params)
+        phase_sanity(device, cfg, ret_params)
+        del gen_params, ret_params
+        torch.cuda.empty_cache()
+        tr = phase_train(device, work, bench)
+        phase_train_steps(device, bench)
+    log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
-    main_shape = next(r for r in rows if (r["B"], r["L"]) == KERNEL_SHAPES[0]
-                      and r["dtype"] == "bfloat16")
-    bf16_err = max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
-    print(json.dumps({"kernels": [{
-        "name": "encoder_attn",
-        "route": "cuda",
-        "source": "reprover_tpu_torch/csrc/encoder_attn.cu",
-        "replaces": "reprover_tpu/ops/flash_attention.py:176",
-        "launches": sl["launches"],
-        "max_abs_err": bf16_err,
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}), flush=True)
+    fwd_row = next(r for r in rows if (r["B"], r["L"]) == KERNEL_SHAPES[0]
+                   and r["dtype"] == "bfloat16")
+    bwd_row = next(r for r in bwd_rows if (r["B"], r["L"]) == CONTEXT_CAP_SHAPE
+                   and r["dtype"] == "bfloat16")
+    bf16_bwd = [r["errs"] for r in bwd_rows if r["dtype"] == "bfloat16"]
+    launches = tr["launches"]
+    src = "reprover_tpu_torch/csrc/"
+    print(json.dumps({"kernels": [
+        _kernel_entry("encoder_attn", src + "encoder_attn.cu",
+                      "reprover_tpu/ops/flash_attention.py:176",
+                      sl["launches"] + launches["encoder_attn"],
+                      max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
+                      fwd_row, "ms", "plain_ms"),
+        _kernel_entry("encoder_attn_bwd_dq", src + "encoder_attn_bwd.cu",
+                      "reprover_tpu/ops/flash_attention.py:607",
+                      launches["encoder_attn_bwd_dq"],
+                      max(max(e["dq"], e["d_rel"]) for e in bf16_bwd),
+                      bwd_row, "dq_ms", "plain_bwd_ms"),
+        _kernel_entry("encoder_attn_bwd_dkv", src + "encoder_attn_bwd.cu",
+                      "reprover_tpu/ops/flash_attention.py:715",
+                      launches["encoder_attn_bwd_dkv"],
+                      max(max(e["dk"], e["dv"]) for e in bf16_bwd),
+                      bwd_row, "dkv_ms", "plain_bwd_ms"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}), flush=True)
     return 0

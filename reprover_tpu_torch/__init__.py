@@ -6,10 +6,15 @@ that imports no JAX (``reprover_tpu.data``, ``reprover_tpu.tokenizer``,
 ``reprover_tpu.prover``) is reused by import.
 
 - ``models``     T5 (ByT5) encoder-decoder, HF import, weight bridge
-- ``ops``        the encoder-attention CUDA kernel and its plain version,
-                 pooling, masked top-k; ``csrc/`` holds the CUDA sources
+- ``ops``        the encoder-attention CUDA kernels (forward and backward)
+                 and their plain versions, pooling, masked top-k; ``csrc/``
+                 holds the CUDA sources
 - ``generation`` beam search and the tactic generator model
-- ``retrieval``  premise retriever and indexer CLI
+- ``retrieval``  premise retriever, indexer CLI, validation metrics and
+                 the retriever-training CLI (``retrieval.main``)
+- ``training``   optimizer, train state, retrieval losses, train step,
+                 trainer loop, training-health telemetry
+- ``utils``      config parsing, metric writers, checkpoints
 - ``prover``     tactic generators on the port's models and the
                  evaluation CLI
 """

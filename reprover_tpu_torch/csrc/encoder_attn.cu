@@ -10,6 +10,11 @@
 //   out_h = softmax(S) v_h              (exact, fp32; a row with no valid
 //                                        key gives 0)
 //
+// Under training it also writes each row's log-sum-exp, m + log(l) from the
+// running max and sum it already holds (one store per row), so the backward
+// (encoder_attn_bwd.cu) rebuilds P = exp(S - LSE) without a second sweep. A
+// row with no valid key gets LSE = +inf, so every P of that row is 0.
+//
 // What bounds it on the H100: the score work is 4*L*L*d operations per
 // (b, h) against 4*L*d elements moved, so at L >= 256 it is compute-bound;
 // the memory a naive version spends on the [B, H, L, L] fp32 score tensor
@@ -27,42 +32,13 @@
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "encoder_attn_common.cuh"
 
 namespace {
 
-constexpr int D = 64;          // head width
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per tile
-constexpr int THREADS = 256;   // a 16 x 16 grid of threads, 4 x 4 outputs each
-constexpr int PAD = D + 1;     // shared row stride: no bank conflicts on column reads
-constexpr int PPAD = BK + 1;   // probability tile row stride
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Max and sum over the 16 threads that share a query row (one half-warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using namespace encoder_attn;
 
 size_t shared_bytes(int max_distance) {
   return sizeof(float) * (size_t)(3 * BQ * PAD + BQ * PPAD + 2 * max_distance + 1) +
@@ -75,7 +51,9 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_kernel(
     const int* __restrict__ mask,          // [B, L], nonzero = valid key
     const float* __restrict__ rel_bias,    // [num_buckets, H]
     const int* __restrict__ bucket_table,  // [2*max_distance+1], by k - q + max_distance
-    T* __restrict__ out, int L, int H, int max_distance) {
+    T* __restrict__ out,
+    float* __restrict__ lse,               // [B, H, L] or null
+    int L, int H, int max_distance) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][PAD]
   float* ks = qs + BQ * PAD;         // [BK][PAD]
@@ -94,11 +72,8 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_kernel(
   const long base = (long)b * L * row_stride + (long)h * D;
   const int nrel = 2 * max_distance + 1;
 
-  for (int r = tid; r < nrel; r += THREADS) bias[r] = rel_bias[bucket_table[r] * H + h];
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D, qi = q0 + r;
-    qs[r * PAD + c] = qi < L ? to_float(q[base + (long)qi * row_stride + c]) : 0.f;
-  }
+  load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
+  load_tile(qs, q, base, row_stride, q0, L, tid);
 
   float m[4], l[4], acc[4][4];
 #pragma unroll
@@ -111,13 +86,7 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_kernel(
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, c = idx % D, kj = k0 + r;
-      const bool in = kj < L;
-      const long off = base + (long)kj * row_stride + c;
-      ks[r * PAD + c] = in ? to_float(k[off]) : 0.f;
-      vs[r * PAD + c] = in ? to_float(v[off]) : 0.f;
-    }
+    load_tile_pair(ks, vs, k, v, base, row_stride, k0, L, tid);
     if (tid < BK) {
       const int kj = k0 + tid;
       key_ok[tid] = kj < L && mask[(long)b * L + kj] != 0;
@@ -150,8 +119,7 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kc = tx + 16 * j;
         if (key_ok[kc]) {
-          const int rel = min(max(k0 + kc - qi, -max_distance), max_distance);
-          s[i][j] += bias[rel + max_distance];
+          s[i][j] += bias[clamp_rel(k0 + kc - qi, max_distance) + max_distance];
           tile_max = fmaxf(tile_max, s[i][j]);
         }
       }
@@ -196,14 +164,17 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         out[base + (long)qi * row_stride + tx + 16 * j] = from_float<T>(acc[i][j] * inv);
+      // m and l are the same in the 16 threads of a row: one of them stores.
+      if (lse != nullptr && tx == 0)
+        lse[((long)b * H + h) * L + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     }
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* rel_bias,
-           const void* bucket_table, void* out, int batch, int length, int num_heads,
-           int max_distance, cudaStream_t stream) {
+           const void* bucket_table, void* out, void* lse, int batch, int length,
+           int num_heads, int max_distance, cudaStream_t stream) {
   const size_t smem = shared_bytes(max_distance);
   cudaError_t err = cudaFuncSetAttribute(
       encoder_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -212,8 +183,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
   encoder_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(mask), static_cast<const float*>(rel_bias),
-      static_cast<const int*>(bucket_table), static_cast<T*>(out), length, num_heads,
-      max_distance);
+      static_cast<const int*>(bucket_table), static_cast<T*>(out), static_cast<float*>(lse),
+      length, num_heads, max_distance);
   return (int)cudaGetLastError();
 }
 
@@ -224,17 +195,18 @@ extern "C" {
 // q, k, v, out: [batch, length, num_heads * 64], contiguous, fp32 (is_bf16 = 0)
 // or bf16 (is_bf16 = 1). mask: int32 [batch, length]. rel_bias: fp32
 // [num_buckets, num_heads]. bucket_table: int32 [2 * max_distance + 1].
+// lse: fp32 [batch, num_heads, length], or null to skip it.
 // Returns a cudaError_t value; 0 is success.
 int encoder_attn_forward(const void* q, const void* k, const void* v, const void* mask,
-                         const void* rel_bias, const void* bucket_table, void* out, int batch,
-                         int length, int num_heads, int max_distance, int is_bf16,
+                         const void* rel_bias, const void* bucket_table, void* out, void* lse,
+                         int batch, int length, int num_heads, int max_distance, int is_bf16,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, mask, rel_bias, bucket_table, out, batch, length,
-                                 num_heads, max_distance, s);
-  return launch<float>(q, k, v, mask, rel_bias, bucket_table, out, batch, length, num_heads,
-                       max_distance, s);
+    return launch<__nv_bfloat16>(q, k, v, mask, rel_bias, bucket_table, out, lse, batch,
+                                 length, num_heads, max_distance, s);
+  return launch<float>(q, k, v, mask, rel_bias, bucket_table, out, lse, batch, length,
+                       num_heads, max_distance, s);
 }
 
 const char* kernel_error_string(int err) {

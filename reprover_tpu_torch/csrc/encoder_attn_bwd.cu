@@ -1,0 +1,439 @@
+// T5 encoder self-attention backward for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of the encoder attention's custom VJP
+// (reprover_tpu/ops/flash_attention.py, called from _backward_impl):
+//
+//   _bwd_dq_kernel  (:607)  -> encoder_attn_bwd_dq_kernel: dQ and the
+//                              relative-bias gradient;
+//   _bwd_dkv_kernel (:715)  -> encoder_attn_bwd_dkv_kernel: dK and dV.
+//
+// Both take the forward's per-row log-sum-exp LSE [B, H, L] (written by
+// encoder_attn.cu) and delta = rowsum(dO * O) [B, H, L] (plain torch), and
+// rebuild each probability exactly as P = exp(S - LSE) with
+// S = q k^T + rel_bias[bucket(k - q), h] over valid keys; masked keys and
+// query rows past L give P = 0, and a row with no valid key (LSE = +inf)
+// gives zero gradients. Then dP = dO v^T, dS = P * (dP - delta), and
+//
+//   dQ = dS K,   dK = dS^T Q,   dV = P^T dO,
+//   d_rel[bucket, h] = sum of dS over the (q, k) whose k - q falls in it.
+//
+// What bounds it on the H100: about 5x the forward's 2*L*L*d products per
+// (b, h) (S and dP recomputed in each kernel, then dQ, dK, dV) against
+// O(L*d) elements moved, so it is compute-bound; the plain version's cost
+// is the several [B, H, L, L] fp32 tensors its autograd saves and reads
+// back. Design: nothing of size L*L leaves the SM, arithmetic is fp32 FMA
+// loops over shared-memory tiles (tensor cores come in a later change).
+//
+// - dK/dV: one block per (64-key tile, head, batch row) loops over 64-query
+//   tiles, recomputes S^T, P^T and dS^T for the tile, and accumulates dV and
+//   dK in registers; each output tile is written once, with no atomics. A
+//   key tile with no valid key writes zeros and skips the loop.
+// - dQ: one block per (64-query tile, head, batch row) loops over key tiles
+//   and accumulates dQ the same way. The TPU kernel summed d_rel in SMEM
+//   across its sequential grid; Hopper's blocks run in no order, so here
+//   each block bins dS by clamp(k - q, -max_distance, max_distance) (the
+//   index of the forward's bucket table) into 2*max_distance+1 shared fp32
+//   bins, keeps the two saturated bins in registers (every far pair lands
+//   there), and atomically adds its bins into a global [H, 2*max_distance+1]
+//   buffer. The caller folds the bins into the buckets with the bucket
+//   table. The atomics make d_rel's summation order, and so its last bits,
+//   vary from run to run; dQ, dK and dV are deterministic.
+//
+// The C entry points launch on the caller's stream, allocate nothing (the
+// caller zeroes the bin buffer) and return cudaGetLastError().
+
+#include <math.h>
+
+#include "encoder_attn_common.cuh"
+
+namespace {
+
+using namespace encoder_attn;
+
+size_t dq_shared_bytes(int max_distance) {
+  const int nrel = 2 * max_distance + 1;
+  return sizeof(float) * (size_t)(4 * BQ * PAD + BQ * PPAD + 2 * nrel + 2 * BQ) +
+         sizeof(int) * BK;
+}
+
+size_t dkv_shared_bytes(int max_distance) {
+  const int nrel = 2 * max_distance + 1;
+  return sizeof(float) * (size_t)(4 * BK * PAD + 2 * BK * PPAD + nrel + 2 * BQ) +
+         sizeof(int) * BK;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout,
+    const int* __restrict__ mask,          // [B, L], nonzero = valid key
+    const float* __restrict__ rel_bias,    // [num_buckets, H]
+    const int* __restrict__ bucket_table,  // [2*max_distance+1]
+    const float* __restrict__ lse,         // [B, H, L]
+    const float* __restrict__ delta,       // [B, H, L]
+    T* __restrict__ dq,                    // [B, L, H*D]
+    float* __restrict__ dbins,             // [H, 2*max_distance+1], accumulated
+    int L, int H, int max_distance) {
+  const int nrel = 2 * max_distance + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                  // [BQ][PAD]
+  float* dos = qs + BQ * PAD;        // [BQ][PAD]
+  float* ks = dos + BQ * PAD;        // [BK][PAD]
+  float* vs = ks + BK * PAD;         // [BK][PAD]
+  float* dss = vs + BK * PAD;        // [BQ][PPAD]
+  float* bias = dss + BQ * PPAD;     // [nrel]
+  float* bins = bias + nrel;         // [nrel]
+  float* row_lse = bins + nrel;      // [BQ]
+  float* row_delta = row_lse + BQ;   // [BQ]
+  int* key_ok = reinterpret_cast<int*>(row_delta + BQ);  // [BK]
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // query rows ty*4 .. ty*4+3
+  const int tx = tid % 16;  // key columns (and dQ columns) tx, tx+16, tx+32, tx+48
+  const long row_stride = (long)H * D;
+  const long base = (long)b * L * row_stride + (long)h * D;
+  const long stat_base = ((long)b * H + h) * L;
+
+  load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
+  for (int r = tid; r < nrel; r += THREADS) bins[r] = 0.f;
+  load_tile_pair(qs, dos, q, dout, base, row_stride, q0, L, tid);
+  if (tid < BQ) {
+    const int qi = q0 + tid;
+    row_lse[tid] = qi < L ? lse[stat_base + qi] : INFINITY;
+    row_delta[tid] = qi < L ? delta[stat_base + qi] : 0.f;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // dS of pairs with k - q >= max_distance / <= -max_distance: their bins
+  // saturate, so they are summed here and added once at the end.
+  float sat_hi = 0.f, sat_lo = 0.f;
+
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    __syncthreads();  // the previous tile is no longer read
+    load_tile_pair(ks, vs, k, v, base, row_stride, k0, L, tid);
+    if (tid < BK) {
+      const int kj = k0 + tid;
+      key_ok[tid] = kj < L && mask[(long)b * L + kj] != 0;
+    }
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float qv[4], dov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = qs[(ty * 4 + i) * PAD + c];
+        dov[i] = dos[(ty * 4 + i) * PAD + c];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = ks[(tx + 16 * j) * PAD + c];
+        vv[j] = vs[(tx + 16 * j) * PAD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+      const int qi = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = tx + 16 * j;
+        float ds = 0.f;
+        if (key_ok[kc] && qi < L) {
+          const int rel = k0 + kc - qi;
+          const float p =
+              expf(s[i][j] + bias[clamp_rel(rel, max_distance) + max_distance] - row_lse[r]);
+          ds = p * (dp[i][j] - row_delta[r]);
+          if (rel >= max_distance)
+            sat_hi += ds;
+          else if (rel <= -max_distance)
+            sat_lo += ds;
+          else
+            atomicAdd(&bins[rel + max_distance], ds);
+        }
+        dss[r * PPAD + kc] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty * 4 + i) * PPAD + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[kk * PAD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi < L) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dq[base + (long)qi * row_stride + tx + 16 * j] = from_float<T>(acc[i][j]);
+    }
+  }
+
+  // Saturated bins: a warp sum, then one shared atomic per warp.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sat_hi += __shfl_xor_sync(0xffffffffu, sat_hi, off);
+    sat_lo += __shfl_xor_sync(0xffffffffu, sat_lo, off);
+  }
+  if ((tid & 31) == 0) {
+    atomicAdd(&bins[2 * max_distance], sat_hi);
+    atomicAdd(&bins[0], sat_lo);
+  }
+  __syncthreads();
+  for (int r = tid; r < nrel; r += THREADS)
+    if (bins[r] != 0.f) atomicAdd(&dbins[(long)h * nrel + r], bins[r]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout,
+    const int* __restrict__ mask,          // [B, L], nonzero = valid key
+    const float* __restrict__ rel_bias,    // [num_buckets, H]
+    const int* __restrict__ bucket_table,  // [2*max_distance+1]
+    const float* __restrict__ lse,         // [B, H, L]
+    const float* __restrict__ delta,       // [B, H, L]
+    T* __restrict__ dk,                    // [B, L, H*D]
+    T* __restrict__ dv,                    // [B, L, H*D]
+    int L, int H, int max_distance) {
+  const int nrel = 2 * max_distance + 1;
+  extern __shared__ float smem[];
+  float* ks = smem;                  // [BK][PAD]
+  float* vs = ks + BK * PAD;         // [BK][PAD]
+  float* qs = vs + BK * PAD;         // [BQ][PAD]
+  float* dos = qs + BQ * PAD;        // [BQ][PAD]
+  float* pts = dos + BQ * PAD;       // P^T  [BK][PPAD] (columns are queries)
+  float* dsts = pts + BK * PPAD;     // dS^T [BK][PPAD]
+  float* bias = dsts + BK * PPAD;    // [nrel]
+  float* col_lse = bias + nrel;      // [BQ]
+  float* col_delta = col_lse + BQ;   // [BQ]
+  int* key_ok = reinterpret_cast<int*>(col_delta + BQ);  // [BK]
+
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // key rows ty*4 .. ty*4+3
+  const int tx = tid % 16;  // query columns (and dK/dV columns) tx, tx+16, tx+32, tx+48
+  const long row_stride = (long)H * D;
+  const long base = (long)b * L * row_stride + (long)h * D;
+  const long stat_base = ((long)b * H + h) * L;
+
+  load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
+  load_tile_pair(ks, vs, k, v, base, row_stride, k0, L, tid);
+  int ok = 0;
+  if (tid < BK) {
+    const int kj = k0 + tid;
+    ok = kj < L && mask[(long)b * L + kj] != 0;
+    key_ok[tid] = ok;
+  }
+  const bool any_key = __syncthreads_or(ok) != 0;
+
+  float acc_dk[4][4], acc_dv[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
+
+  for (int q0 = 0; any_key && q0 < L; q0 += BQ) {
+    __syncthreads();  // the previous tile is no longer read
+    load_tile_pair(qs, dos, q, dout, base, row_stride, q0, L, tid);
+    if (tid < BQ) {
+      const int qi = q0 + tid;
+      col_lse[tid] = qi < L ? lse[stat_base + qi] : INFINITY;
+      col_delta[tid] = qi < L ? delta[stat_base + qi] : 0.f;
+    }
+    __syncthreads();
+
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float kv[4], vv[4], qv[4], dov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kv[i] = ks[(ty * 4 + i) * PAD + c];
+        vv[i] = vs[(ty * 4 + i) * PAD + c];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qv[j] = qs[(tx + 16 * j) * PAD + c];
+        dov[j] = dos[(tx + 16 * j) * PAD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+          dpt[i][j] = fmaf(vv[i], dov[j], dpt[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+      const int kj = k0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tx + 16 * j;
+        const int qi = q0 + qc;
+        float p = 0.f, ds = 0.f;
+        if (key_ok[r] && qi < L) {
+          const int rel = clamp_rel(kj - qi, max_distance);
+          p = expf(st[i][j] + bias[rel + max_distance] - col_lse[qc]);
+          ds = p * (dpt[i][j] - col_delta[qc]);
+        }
+        pts[r * PPAD + qc] = p;
+        dsts[r * PPAD + qc] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int qq = 0; qq < BQ; ++qq) {
+      float pv[4], dsv[4], dov[4], qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = pts[(ty * 4 + i) * PPAD + qq];
+        dsv[i] = dsts[(ty * 4 + i) * PPAD + qq];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dov[j] = dos[qq * PAD + tx + 16 * j];
+        qv[j] = qs[qq * PAD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc_dv[i][j] = fmaf(pv[i], dov[j], acc_dv[i][j]);
+          acc_dk[i][j] = fmaf(dsv[i], qv[j], acc_dk[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + ty * 4 + i;
+    if (kj < L) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long off = base + (long)kj * row_stride + tx + 16 * j;
+        dk[off] = from_float<T>(acc_dk[i][j]);
+        dv[off] = from_float<T>(acc_dv[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+              const void* rel_bias, const void* bucket_table, const void* lse,
+              const void* delta, void* dq, void* dbins, int batch, int length, int num_heads,
+              int max_distance, cudaStream_t stream) {
+  const size_t smem = dq_shared_bytes(max_distance);
+  cudaError_t err = cudaFuncSetAttribute(
+      encoder_attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((length + BQ - 1) / BQ, num_heads, batch);
+  encoder_attn_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const int*>(mask),
+      static_cast<const float*>(rel_bias), static_cast<const int*>(bucket_table),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq),
+      static_cast<float*>(dbins), length, num_heads, max_distance);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+               const void* rel_bias, const void* bucket_table, const void* lse,
+               const void* delta, void* dk, void* dv, int batch, int length, int num_heads,
+               int max_distance, cudaStream_t stream) {
+  const size_t smem = dkv_shared_bytes(max_distance);
+  cudaError_t err = cudaFuncSetAttribute(
+      encoder_attn_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((length + BK - 1) / BK, num_heads, batch);
+  encoder_attn_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const int*>(mask),
+      static_cast<const float*>(rel_bias), static_cast<const int*>(bucket_table),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), length, num_heads, max_distance);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, dout, dq: [batch, length, num_heads * 64], contiguous, fp32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1). mask: int32 [batch, length].
+// rel_bias: fp32 [num_buckets, num_heads]. bucket_table: int32
+// [2 * max_distance + 1]. lse, delta: fp32 [batch, num_heads, length].
+// dbins: fp32 [num_heads, 2 * max_distance + 1], zeroed by the caller; the
+// kernel adds dS summed by clamped relative position into it.
+// Returns a cudaError_t value; 0 is success.
+int encoder_attn_backward_dq(const void* q, const void* k, const void* v, const void* dout,
+                             const void* mask, const void* rel_bias, const void* bucket_table,
+                             const void* lse, const void* delta, void* dq, void* dbins,
+                             int batch, int length, int num_heads, int max_distance,
+                             int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dq<__nv_bfloat16>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta,
+                                    dq, dbins, batch, length, num_heads, max_distance, s);
+  return launch_dq<float>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dq, dbins,
+                          batch, length, num_heads, max_distance, s);
+}
+
+// As above; dk, dv: [batch, length, num_heads * 64] in the input dtype.
+int encoder_attn_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
+                              const void* mask, const void* rel_bias, const void* bucket_table,
+                              const void* lse, const void* delta, void* dk, void* dv,
+                              int batch, int length, int num_heads, int max_distance,
+                              int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dkv<__nv_bfloat16>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta,
+                                     dk, dv, batch, length, num_heads, max_distance, s);
+  return launch_dkv<float>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dk, dv,
+                           batch, length, num_heads, max_distance, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,88 @@
+// Tile geometry and helpers shared by the T5 encoder-attention kernels
+// (encoder_attn.cu: forward; encoder_attn_bwd.cu: backward).
+//
+// Every kernel runs 256 threads as a 16 x 16 grid over a 64 x 64 tile; the
+// thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32,
+// tx+48, so the 16 threads of one row are one half-warp and row reductions
+// are four xor-shuffles. Tiles sit in shared memory as fp32 with a padded
+// row stride, so column reads hit 32 different banks.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace encoder_attn {
+
+constexpr int D = 64;          // head width
+constexpr int BQ = 64;         // query rows per tile
+constexpr int BK = 64;         // keys per tile
+constexpr int THREADS = 256;   // a 16 x 16 grid of threads, 4 x 4 outputs each
+constexpr int PAD = D + 1;     // shared row stride of a [rows][D] tile
+constexpr int PPAD = BK + 1;   // shared row stride of a [rows][BK] tile
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Max and sum over the 16 threads that share a row (one half-warp).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Load rows [r0, r0 + 64) of one head of a flat [*, L, H*D] tensor into a
+// [64][PAD] fp32 tile; rows at or past L read as 0.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src, long base,
+                                          long row_stride, int r0, int L, int tid) {
+  for (int idx = tid; idx < 64 * D; idx += THREADS) {
+    const int r = idx / D, c = idx % D, row = r0 + r;
+    tile[r * PAD + c] = row < L ? to_float(src[base + (long)row * row_stride + c]) : 0.f;
+  }
+}
+
+// The same rows of two tensors of one layout (K and V, or Q and dO) into two
+// tiles, in one loop: each thread keeps two global loads in flight, where two
+// load_tile calls keep one (measured: kernel 1 ran ~10% slower with two).
+template <typename T>
+__device__ __forceinline__ void load_tile_pair(float* tile_a, float* tile_b,
+                                               const T* __restrict__ a, const T* __restrict__ b,
+                                               long base, long row_stride, int r0, int L,
+                                               int tid) {
+  for (int idx = tid; idx < 64 * D; idx += THREADS) {
+    const int r = idx / D, c = idx % D, row = r0 + r;
+    const bool in = row < L;
+    const long off = base + (long)row * row_stride + c;
+    tile_a[r * PAD + c] = in ? to_float(a[off]) : 0.f;
+    tile_b[r * PAD + c] = in ? to_float(b[off]) : 0.f;
+  }
+}
+
+// The per-head bias of every clamped relative position k - q:
+// bias[r] = rel_bias[bucket_table[r], h] for r = rel + max_distance.
+__device__ __forceinline__ void load_bias(float* bias, const float* __restrict__ rel_bias,
+                                          const int* __restrict__ bucket_table, int nrel, int H,
+                                          int h, int tid) {
+  for (int r = tid; r < nrel; r += THREADS) bias[r] = rel_bias[bucket_table[r] * H + h];
+}
+
+__device__ __forceinline__ int clamp_rel(int rel, int max_distance) {
+  return min(max(rel, -max_distance), max_distance);
+}
+
+}  // namespace encoder_attn

@@ -10,6 +10,7 @@ from reprover_tpu_torch.models.t5 import (
     fuse_mlp_params,
     init_decode_state,
     init_params,
+    place_master_params,
     place_params,
 )
 from reprover_tpu_torch.models.hf_import import load_hf_t5, params_from_torch_state_dict
@@ -24,6 +25,7 @@ __all__ = [
     "fuse_mlp_params",
     "init_decode_state",
     "init_params",
+    "place_master_params",
     "place_params",
     "load_hf_t5",
     "params_from_torch_state_dict",

@@ -25,9 +25,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from reprover_tpu_torch.ops.flash_attention import encoder_flash_attention
 
@@ -59,6 +60,11 @@ class T5Config:
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     compute_dtype: torch.dtype = torch.float32
+    # Rematerialize each encoder layer's activations in backward
+    # (``torch.utils.checkpoint``): the JAX package's ``remat``. Only the
+    # "full" policy is ported; "lite" and "offload" raise.
+    remat: bool = False
+    remat_policy: str = "full"
 
     @property
     def inner_dim(self) -> int:
@@ -175,6 +181,16 @@ def place_params(params: Params, cfg: T5Config, device: Any) -> Params:
     return place(params, "")
 
 
+def place_master_params(params: Params, device: Any) -> Params:
+    """Move ``params`` to ``device`` as float32 leaves: the master weights of
+    training, which Adam updates in float32. Each matrix product casts its
+    weight to ``cfg.compute_dtype`` per call, as the JAX package's loaders
+    keep float32 params and cast them in ``_dense``."""
+    if isinstance(params, dict):
+        return {k: place_master_params(v, device) for k, v in params.items()}
+    return params.to(device=device, dtype=torch.float32).contiguous()
+
+
 def default_dtype(device: torch.device) -> torch.dtype:
     """bfloat16 on a card, float32 on the CPU (the JAX loaders' TPU/CPU rule)."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -193,6 +209,16 @@ def layer_params(stacked: Params, i: int) -> Params:
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def unbind_layers(stacked: Params, num_layers: int) -> List[Params]:
+    """All layers of a stacked tree as views, in one ``unbind`` per leaf: its
+    gradient is one ``stack`` of the layers' gradients, where slicing each
+    layer would add a full-size zero-filled tensor per layer."""
+    if isinstance(stacked, dict):
+        per_key = {k: unbind_layers(v, num_layers) for k, v in stacked.items()}
+        return [{k: per_key[k][i] for k in per_key} for i in range(num_layers)]
+    return list(stacked.unbind(0))
 
 
 # ------------------------------------------------------------------ #
@@ -318,6 +344,18 @@ def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ #
 
 
+REMAT_TODO = (
+    "remat_policy {!r} is not ported: only 'full' (torch.utils.checkpoint per "
+    "encoder layer) is (ROADMAP.md Queue 1 item 5)"
+)
+
+
+def check_remat_policy(cfg: T5Config) -> None:
+    """Raise ``NotImplementedError`` for a remat policy the port lacks."""
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(REMAT_TODO.format(cfg.remat_policy))
+
+
 def encode(
     params: Params,
     cfg: T5Config,
@@ -330,13 +368,15 @@ def encode(
     Self-attention runs through ``encoder_flash_attention`` at any ``L``:
     the kernel masks its own ragged tile, so no length condition applies.
     ``attention_fn`` lets a check run the plain version on the card instead.
+    With ``cfg.remat`` and grad on, each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in backward.
     """
+    check_remat_policy(cfg)
     dtype = cfg.compute_dtype
     enc = params["encoder"]
     eps = cfg.layer_norm_epsilon
-    h = params["shared_embedding"].to(dtype)[input_ids]
-    for i in range(cfg.num_encoder_layers):
-        lp = layer_params(enc["layers"], i)
+
+    def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
         p = lp["attn"]
         n = rms_norm(h, lp["attn_norm"], eps)
         attn = attention_fn(
@@ -350,7 +390,15 @@ def encode(
             max_distance=cfg.relative_attention_max_distance,
         )
         h = h + _dense(attn, p["o"], dtype)
-        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+        return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    h = params["shared_embedding"].to(dtype)[input_ids]
+    for lp in unbind_layers(enc["layers"], cfg.num_encoder_layers):
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(layer, h, lp, use_reentrant=False)
+        else:
+            h = layer(h, lp)
     return rms_norm(h, enc["final_norm"], eps)
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` file under ``reprover_tpu_torch/csrc/`` is compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, loaded with ``ctypes``. The build runs at first use, into
+Every ``*.cu`` file under ``reprover_tpu_torch/csrc/`` is compiled by its
+own ``nvcc`` for Hopper (``sm_90a``), all of them at once, and the objects
+are linked into one shared library with a plain C interface, loaded with
+``ctypes``. The build runs at first use, into
 ``build/kernels/<hash>/`` at the root of the checkout (listed in
 ``.gitignore``), keyed by a hash of the sources and the flags, so an edit
 rebuilds and an unchanged tree reuses the library. Nothing is built when the
@@ -19,13 +20,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libreprover_torch_kernels.so"
 
@@ -56,10 +57,19 @@ def _nvcc() -> str:
     )
 
 
+def _check(cmd: List[str], out: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.encoder_attn_forward.argtypes = [vp] * 7 + [i] * 5 + [vp]
+    lib.encoder_attn_forward.argtypes = [vp] * 8 + [i] * 5 + [vp]
     lib.encoder_attn_forward.restype = i
+    for name in ("encoder_attn_backward_dq", "encoder_attn_backward_dkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 11 + [i] * 5 + [vp]
+        fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 
@@ -82,19 +92,28 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            # Build under a private name, then rename: processes that build
+            # Build under private names, then rename: processes that build
             # at the same time never load a half-written library.
-            tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}"
-                )
+            tag = f"{os.getpid()}.tmp"
+            nvcc = _nvcc()
+            objects = [out_dir / f".{src.stem}.{tag}.o" for src in sources]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for cmd in cmds]
+            logs = [(cmd, proc.communicate()[0], proc.returncode)
+                    for cmd, proc in zip(cmds, procs)]
+            for cmd, out, rc in logs:
+                _check(cmd, out, rc)
+            tmp = out_dir / f".{LIB_NAME}.{tag}"
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            _check(link, proc.stdout, proc.returncode)
             os.replace(tmp, lib_path)
+            for obj in objects:
+                obj.unlink()
             BuildInfo.built = True
-            BuildInfo.log = proc.stdout + proc.stderr
+            BuildInfo.log = "".join(out for _, out, _ in logs)
         BuildInfo.seconds = time.perf_counter() - t0
         BuildInfo.path = str(lib_path)
         lib = ctypes.CDLL(str(lib_path))

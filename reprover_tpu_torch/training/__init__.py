@@ -1,0 +1,33 @@
+"""Training of the port: optimizer, train state, retrieval losses, train
+step, the trainer loop and training-health telemetry."""
+
+from reprover_tpu_torch.training.optim import (
+    AdamWClip,
+    clip_by_global_norm_,
+    constant_warmup_schedule,
+)
+from reprover_tpu_torch.training.tasks import (
+    TrainState,
+    init_train_state,
+    make_train_step,
+    numeric_batch,
+    param_leaves,
+    retrieval_infonce_loss,
+    retrieval_loss,
+)
+from reprover_tpu_torch.training.loop import Trainer, TrainerConfig
+
+__all__ = [
+    "AdamWClip",
+    "clip_by_global_norm_",
+    "constant_warmup_schedule",
+    "TrainState",
+    "init_train_state",
+    "make_train_step",
+    "numeric_batch",
+    "param_leaves",
+    "retrieval_infonce_loss",
+    "retrieval_loss",
+    "Trainer",
+    "TrainerConfig",
+]

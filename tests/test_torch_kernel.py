@@ -1,7 +1,8 @@
-"""PyTorch port on the card: the encoder-attention CUDA kernel against its
-plain version, and the encoder through the kernel against the encoder on
-the CPU. These tests need a CUDA card and skip elsewhere. The file imports
-no JAX, so it also runs on a machine without it:
+"""PyTorch port on the card: the encoder-attention CUDA kernels (forward and
+backward) against their plain versions, and the encoder through the kernels
+against the encoder on the CPU, forward and gradients. These tests need a
+CUDA card and skip elsewhere. The file imports no JAX, so it also runs on a
+machine without it:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest
 """
@@ -13,6 +14,8 @@ import torch
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.ops import flash_attention as tfa
 
+HEADS = 6
+
 
 @pytest.fixture
 def cuda_device():
@@ -23,25 +26,75 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _case(device, dtype, b, L, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, L, HEADS * 64)).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    mask = torch.from_numpy((rng.random((b, L)) > 0.2).astype(np.int32)).to(device)
+    if b > 1:
+        mask[-1] = 0  # a row with no valid key: output 0, zero gradients
+    mask[0, 0] = 1
+    rel = torch.from_numpy(rng.normal(size=(32, HEADS)).astype(np.float32)).to(device)
+    return q, k, v, mask, rel
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b, L", [(2, 200), (1, 64), (3, 7)])
 def test_kernel_matches_plain(cuda_device, dtype, b, L):
-    rng = np.random.default_rng(L)
-    heads = 6
-    q, k, v = (torch.from_numpy(rng.normal(size=(b, L, heads * 64)).astype(np.float32))
-               .to(cuda_device, dtype) for _ in range(3))
-    mask = torch.from_numpy((rng.random((b, L)) > 0.2).astype(np.int32)).to(cuda_device)
-    mask[-1] = 0  # a row with no valid key: output 0
-    rel = torch.from_numpy(rng.normal(size=(32, heads)).astype(np.float32)).to(cuda_device)
-    before = tfa.KERNEL_LAUNCHES
-    out = tfa.encoder_flash_attention(q, k, v, mask, rel, num_heads=heads)
+    q, k, v, mask, rel = _case(cuda_device, dtype, b, L, L)
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out = tfa.encoder_flash_attention(q, k, v, mask, rel, num_heads=HEADS)
     torch.cuda.synchronize()
-    assert tfa.KERNEL_LAUNCHES == before + 1
-    ref = tfa.encoder_attention_reference(q, k, v, mask, rel, num_heads=heads)
+    assert tfa.KERNEL_LAUNCHES["encoder_attn"] == before["encoder_attn"] + 1
+    ref = tfa.encoder_attention_reference(q, k, v, mask, rel, num_heads=HEADS)
     tol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol
-    assert out[-1].abs().max().item() == 0.0
+    if b > 1:
+        assert out[-1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, L, max_distance", [(2, 200, 128), (1, 64, 128), (3, 7, 128),
+                                                (2, 300, 32)])
+def test_backward_kernels_match_plain(cuda_device, dtype, b, L, max_distance):
+    """dq/dk/dv within 1e-4 (fp32) and d_rel within 1e-3 (its atomics sum
+    L^2 terms in any order) of max(1, max|ref|), everything within 2e-2 of it
+    in bf16, against autograd of the plain version; the LSE against its
+    plain version."""
+    q, k, v, mask, rel = _case(cuda_device, dtype, b, L, L + 1)
+    dout = torch.randn(q.shape, device=cuda_device).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out = tfa.encoder_flash_attention(leaves[0], leaves[1], leaves[2], mask, leaves[3],
+                                      num_heads=HEADS, max_distance=max_distance)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    for name in ("encoder_attn", "encoder_attn_bwd_dq", "encoder_attn_bwd_dkv"):
+        assert tfa.KERNEL_LAUNCHES[name] == before[name] + 1, name
+
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
+    ref = tfa.encoder_attention_reference(ref_leaves[0], ref_leaves[1], ref_leaves[2], mask,
+                                          ref_leaves[3], num_heads=HEADS,
+                                          max_distance=max_distance)
+    want = torch.autograd.grad(ref, ref_leaves, dout)
+    tols = (1e-4, 1e-4, 1e-4, 1e-3) if dtype == torch.float32 else (2e-2,) * 4
+    for name, g, w, tol in zip(("dq", "dk", "dv", "d_rel"), got, want, tols):
+        scale = max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+    if b > 1:
+        for g in got[:3]:
+            assert g[-1].abs().max().item() == 0.0
+
+    mask32, rel32, table = tfa._kernel_operands(mask, rel, 32, max_distance)
+    _, lse = tfa._forward_cuda(q, k, v, mask32, rel32, table, HEADS, max_distance, True)
+    lse_ref = tfa.encoder_attention_lse_reference(q, k, mask, rel, HEADS,
+                                                  max_distance=max_distance)
+    rows = mask.bool().any(dim=1)
+    assert torch.isinf(lse[~rows]).all()
+    assert (lse[rows] - lse_ref[rows]).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
@@ -57,7 +110,50 @@ def test_encode_on_card_matches_cpu(cuda_device):
     mask[1, 100:] = 0
     cpu = tt5.encode(params, cfg, ids, mask)
     on_card = tt5.place_params(params, cfg, cuda_device)
-    before = tfa.KERNEL_LAUNCHES
+    before = dict(tfa.KERNEL_LAUNCHES)
     gpu = tt5.encode(on_card, cfg, ids.to(cuda_device), mask.to(cuda_device)).cpu()
-    assert tfa.KERNEL_LAUNCHES == before + cfg.num_encoder_layers
+    assert tfa.KERNEL_LAUNCHES["encoder_attn"] == before["encoder_attn"] + cfg.num_encoder_layers
     np.testing.assert_allclose(gpu.numpy(), cpu.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_encode_gradients_on_card_match_cpu(cuda_device, remat):
+    """fp32 master params that require grad: every parameter gradient of a
+    pooled-embedding loss through the kernels equals the CPU's (plain
+    autograd). Before the backward kernels, the card path returned outputs
+    with no grad_fn and q/k/v/rel_bias silently got no gradient."""
+    from reprover_tpu_torch.ops.pooling import masked_mean_normalize
+    from reprover_tpu_torch.training.tasks import param_leaves
+
+    cfg = tt5.T5Config(d_model=128, d_kv=64, d_ff=256, num_heads=2, num_encoder_layers=2,
+                       num_decoder_layers=1, remat=remat)
+    full = tt5.init_params(cfg, torch.Generator().manual_seed(0))
+    base = tt5.fuse_mlp_params({"shared_embedding": full["shared_embedding"],
+                                "encoder": full["encoder"]})
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(3, 259, (3, 150)))
+    mask = torch.ones((3, 150), dtype=torch.int32)
+    mask[1, 90:] = 0
+    target = torch.from_numpy(rng.normal(size=(3, cfg.d_model)).astype(np.float32))
+
+    def grads(device):
+        params = tt5.place_master_params(base, device)
+        leaves = param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        emb = masked_mean_normalize(tt5.encode(params, cfg, ids.to(device), mask.to(device)),
+                                    mask.to(device))
+        (emb * target.to(device)).sum().backward()
+        return [t.grad.cpu() for t in leaves]
+
+    before = dict(tfa.KERNEL_LAUNCHES)
+    on_card = grads(cuda_device)
+    torch.cuda.synchronize()
+    for name in ("encoder_attn_bwd_dq", "encoder_attn_bwd_dkv"):
+        assert tfa.KERNEL_LAUNCHES[name] == before[name] + cfg.num_encoder_layers, name
+    cpu = grads(torch.device("cpu"))
+    for g, w in zip(on_card, cpu):
+        scale = max(1e-6, w.abs().max().item())
+        assert (g - w).abs().max().item() <= 1e-3 * scale
+        assert g.abs().max().item() > 0
