@@ -39,18 +39,45 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 8. train step: on one fixed batch without warmup, 20 steps whose loss must
    fall, timed by part (forward, backward, optimizer) with CUDA events,
    peak memory, and the attention kernels' share of a profiled step; then
-   the same timing at the 1024 cap.
+   the same timing at the 1024 cap;
+9. decoder kernels vs plain: ``causal_flash_attention`` and
+   ``cross_flash_attention``, forward and autograd backward, against their
+   plain versions at the generator's shapes (causal [8, 512] and a ragged
+   [3, 200]; cross T=512 against S=2304 at B=8 and a ragged [3, 200] x
+   [3, 1000]), ragged encoder masks, a masked key >= 100 above its row's
+   valid scores; fp32 within 1e-4 (d_rel 1e-3), bf16 within 2e-2 of
+   max(1, max|ref|); times from CUDA events, beside one
+   ``scaled_dot_product_attention`` call (and its autograd) on the same
+   inputs as the library's yardstick;
+10. generator training: ``retrieval.main predict`` from the retriever
+    checkpoint of phase 7 writes ``predictions.pickle``, then
+    ``reprover_tpu_torch.generation.main.main(["fit", ...])`` at full
+    byt5-small width (bf16 over fp32 masters, seeded random init, remat
+    full, batch 8, states augmented with the retrieved premises up to 2300
+    bytes, tactics up to 512) runs 20 steps, one validation (one batch,
+    greedy) and a checkpoint; every logged loss finite, all nine attention
+    kernels launched, ``validate --ckpt_dir`` restoring the parameters bit
+    for bit;
+11. generator train step: one fixed random batch at the reference cap
+    ([8, 2304] sources, [8, 512] targets, ragged), 20 steps without warmup
+    whose loss must fall, timed by part with CUDA events, peak memory, and
+    each attention kernel's share of a profiled step.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without a card the script exits 2 and
-prints no result.
+The line before the last is ``{"kernels": [...]}`` (the nine kernels, with
+their launches on the three main paths: serving, retriever training,
+generator training, and their times, bounds and library times at the
+generator-training shapes); the last line is ``{"ok": true, "device":
+{...}}``. Without a card the script exits 2 and prints no result.
 
-Rehearse the training phases on the CPU at tiny width (a few seconds)::
+Rehearse the training phases on the CPU at tiny width (a minute)::
 
     import chip_smoke, torch
-    bench = chip_smoke.make_bench("/tmp/smoke")
-    chip_smoke.phase_train(torch.device("cpu"), "/tmp/smoke", bench, tiny=True)
+    work = "smoke"  # any scratch directory
+    bench = chip_smoke.make_bench(work)
+    chip_smoke.phase_train(torch.device("cpu"), work, bench, tiny=True)
     chip_smoke.phase_train_steps(torch.device("cpu"), bench, tiny=True)
+    chip_smoke.phase_generator_train(torch.device("cpu"), work, bench, tiny=True)
+    chip_smoke.phase_generator_steps(torch.device("cpu"), tiny=True)
 """
 
 from __future__ import annotations
@@ -58,6 +85,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -65,9 +93,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# (batch, length) of the main path's encoder calls at byt5-small width:
-# generator sources at 2048, mid-length states, short premises.
-KERNEL_SHAPES = [(8, 2048), (32, 1024), (4, 384)]
+# (batch, length) of the main paths' encoder calls at byt5-small width:
+# generator-training sources at 2304, served sources at 2048, mid-length
+# states, short premises.
+KERNEL_SHAPES = [(8, 2304), (8, 2048), (32, 1024), (4, 384)]
+GEN_SHAPE = (8, 2304)  # generator training: 2300-byte sources padded to 2304
 RAGGED_SHAPE = (3, 1000)  # length not a multiple of the 64-key tile
 NUM_HEADS, HEAD_DIM = 6, 64
 FP32_TOL = 1e-4
@@ -78,6 +108,21 @@ DREL_FP32_TOL = 1e-3  # d_rel sums L^2 terms with atomics, in any order
 TRAIN = dict(batch_size=8, num_negatives=3, num_in_file_negatives=1, max_seq_len=1024,
              eval_batch_size=64, steps=20, log_interval=5, lr=1e-4, seed=3407)
 CONTEXT_CAP_SHAPE = (TRAIN["batch_size"], TRAIN["max_seq_len"])  # contexts at the length cap
+
+# Generator training at the reference data settings
+# (confs/generation_lean4_random.yaml), cut to 20 steps and one val batch.
+GEN = dict(batch_size=8, eval_batch_size=64, max_inp_seq_len=2300, max_oup_seq_len=512,
+           steps=20, log_interval=5, lr=1e-4, seed=3407)
+# (B, T) causal and (B, T, S) cross shapes: the generator's decoder at the
+# 512 cap over 2304-byte sources, and ragged cases.
+CAUSAL_SHAPES = [(8, 512), (3, 200)]
+CROSS_SHAPES = [(8, 512, 2304), (3, 200, 1000)]
+
+# The card's published peaks (H100 SXM): the bound of a kernel is the larger
+# of its operations over the bf16 tensor-core rate and its bytes over the
+# memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 SLICE = dict(
     num_files=300,
@@ -141,26 +186,197 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _attention_case(b: int, l: int, dtype, gen, device):
-    """Random q/k/v [b, l, 6*64], ragged mask, and in row 0 a masked key
-    whose score in head 0 lies >= 100 above query 0's best valid score."""
+def _attention_case(b: int, lq: int, lk: int, dtype, gen, device, causal: bool = False):
+    """Random q [b, lq, 6*64] and k/v [b, lk, 6*64], a ragged key mask (all
+    ones for causal self-attention), and in row 0 a key masked for query 0
+    (by the mask, or by causality) whose score in head 0 lies >= 100 above
+    query 0's best valid score."""
     import torch
 
-    shape = (b, l, NUM_HEADS * HEAD_DIM)
-    q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
-    lengths = torch.randint(l // 2, l + 1, (b,), generator=gen, device=device)
-    lengths[0] = l
-    mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).to(torch.int32)
-    j = l - 3
-    mask[0, j] = 0
+    inner = NUM_HEADS * HEAD_DIM
+    q = torch.randn((b, lq, inner), generator=gen, device=device)
+    k, v = (torch.randn((b, lk, inner), generator=gen, device=device) for _ in range(2))
+    lengths = torch.randint(lk // 2, lk + 1, (b,), generator=gen, device=device)
+    lengths[0] = lk
+    mask = (torch.arange(lk, device=device)[None, :] < lengths[:, None]).to(torch.int32)
+    j = lk - 3
+    if causal:
+        mask[:] = 1
+        valid0 = torch.zeros(lk, dtype=torch.bool, device=device)
+        valid0[0] = True  # query 0 sees key 0 only; key j > 0 is its future
+    else:
+        mask[0, j] = 0
+        valid0 = mask[0].bool()
     qh = q[0, 0, :HEAD_DIM]
-    valid_best = (k[0, :, :HEAD_DIM] @ qh)[mask[0].bool()].max()
+    valid_best = (k[0, :, :HEAD_DIM] @ qh)[valid0].max()
     k[0, j, :HEAD_DIM] = qh * ((valid_best + 120.0) / (qh @ qh))
     rel = torch.randn((32, NUM_HEADS), generator=gen, device=device)
     return q.to(dtype), k.to(dtype), v.to(dtype), mask, rel
 
 
+def _attention_fns(tfa, mode):
+    """(kernel path, plain version) of one attention, both as
+    ``fn(q, k, v, mask, rel_bias)``."""
+    h = NUM_HEADS
+    if mode == tfa.ENCODER:
+        return (lambda q, k, v, m, r: tfa.encoder_flash_attention(q, k, v, m, r, num_heads=h),
+                lambda q, k, v, m, r: tfa.encoder_attention_reference(q, k, v, m, r, num_heads=h))
+    if mode == tfa.CAUSAL:
+        return (lambda q, k, v, m, r: tfa.causal_flash_attention(q, k, v, r, num_heads=h),
+                lambda q, k, v, m, r: tfa.causal_attention_reference(q, k, v, r, num_heads=h))
+    return (lambda q, k, v, m, r: tfa.cross_flash_attention(q, k, v, m, num_heads=h),
+            lambda q, k, v, m, r: tfa.cross_attention_reference(q, k, v, m, num_heads=h))
+
+
+def _valid_pairs(tfa, mode, mask, lq: int) -> int:
+    """(query, key) pairs of one head that the attention keeps, summed over
+    the batch: the work this run's data needs."""
+    if mode == tfa.CAUSAL:
+        return mask.shape[0] * lq * (lq + 1) // 2
+    return lq * int(mask.sum().item())
+
+
+def _bound(part: str, b: int, lq: int, lk: int, pairs: int, itemsize: int):
+    """(least ms, "operations" or "bytes") of one kernel on the card: the
+    larger of its FMA work (per kept pair and head: 4d forward, 6d dQ, 8d
+    dK/dV operations) over the bf16 peak and of its bytes (each input read
+    once, each output written once) over the memory rate."""
+    inner = NUM_HEADS * HEAD_DIM
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[part] * HEAD_DIM * NUM_HEADS * pairs
+    stats = 8 * b * NUM_HEADS * lq  # LSE and delta, fp32
+    nbytes = {
+        "fwd": itemsize * inner * 2 * (b * lq + b * lk) + 4 * b * lk,
+        "dq": itemsize * inner * (3 * b * lq + 2 * b * lk) + 4 * b * lk + stats,
+        "dkv": itemsize * inner * (2 * b * lq + 4 * b * lk) + 4 * b * lk + stats,
+    }[part]
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _library(tfa, mode, q, k, v, mask, rel):
+    """Inputs of one ``scaled_dot_product_attention`` call computing the same
+    function: [B, H, L, d] views (leaves that require grad) and one float
+    mask, the bias plus -inf at the pairs the attention drops. Timed as the
+    library's yardstick only; the port never calls it."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def heads(x):
+        b, l, inner = x.shape
+        return x.view(b, l, NUM_HEADS, inner // NUM_HEADS).transpose(1, 2)
+
+    valid = tfa._valid(mode, mask, q)
+    attn = torch.zeros(valid.shape, device=q.device).masked_fill(~valid, float("-inf"))
+    if mode != tfa.CROSS:
+        attn = attn + tfa._bucket_bias(rel, q.shape[1], mode == tfa.ENCODER, 32, 128)
+    return leaves, [heads(t) for t in leaves], attn.to(q.dtype)
+
+
+def _forward_row(tfa, mode, b, lq, lk, dtype, gen, device) -> dict:
+    """The kernel's forward against its plain version (error, times) beside
+    the library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, mask, rel = _attention_case(b, lq, lk, dtype, gen, device, mode == tfa.CAUSAL)
+    args = (q, k, v, mask, rel)
+    kernel, plain = _attention_fns(tfa, mode)
+    out, ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = FP32_TOL if dtype == torch.float32 else (
+        BF16_REL_TOL * max(1.0, ref.float().abs().max().item()))
+    finite = bool(torch.isfinite(out).all())
+    iters = 20 if b * max(lq, lk) <= 32 * 1024 else 10
+    _, qkv, attn = _library(tfa, mode, *args)
+    with torch.no_grad():
+        row = dict(kernel=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk,
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol,
+                   ms=_time_ms(lambda: kernel(*args), iters),
+                   plain_ms=_time_ms(lambda: plain(*args), iters),
+                   library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                       *qkv, attn_mask=attn, scale=1.0), iters),
+                   ok=finite and err <= tol)
+    row["bound_ms"], row["bound_by"] = _bound(
+        "fwd", b, lq, lk, _valid_pairs(tfa, mode, mask, lq), q.element_size())
+    return row
+
+
+def _backward_row(tfa, mode, b, lq, lk, dtype, gen, device, empty_row: bool) -> dict:
+    """Autograd through the kernels against autograd of the plain version
+    (errors), the whole backward, each backward kernel alone on the forward's
+    LSE, the plain backward and the library call's autograd, and the two
+    kernels' bounds. ``empty_row``: the last batch row has no valid key and
+    must get zero gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, mask, rel = _attention_case(b, lq, lk, dtype, gen, device, mode == tfa.CAUSAL)
+    if empty_row:
+        mask[-1] = 0
+    dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    kernel, plain = _attention_fns(tfa, mode)
+    names = ("dq", "dk", "dv") if mode == tfa.CROSS else ("dq", "dk", "dv", "d_rel")
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)][: len(names)]
+        full = leaves + [rel] * (4 - len(leaves))
+        out = fn(full[0], full[1], full[2], mask, full[3])
+        return out, leaves, torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    out_k, leaves_k, got = grads(kernel)
+    out_p, leaves_p, want = grads(plain)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, g, w in zip(names, got, want):
+        tol = BF16_REL_TOL if dtype == torch.bfloat16 else (
+            DREL_FP32_TOL if name == "d_rel" else FP32_TOL)
+        tol *= max(1.0, w.float().abs().max().item())
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        ok &= bool(torch.isfinite(g).all()) and errs[name] <= tol
+    if empty_row:
+        ok &= all(g[-1].abs().max().item() == 0.0 for g in got[:3])
+    iters = 10 if b * max(lq, lk) <= 32 * 1024 else 5
+    ms = _time_ms(lambda: torch.autograd.grad(out_k, leaves_k, dout, retain_graph=True), iters)
+    plain_ms = _time_ms(lambda: torch.autograd.grad(out_p, leaves_p, dout, retain_graph=True),
+                        iters)
+    lib_leaves, qkv, attn = _library(tfa, mode, q, k, v, mask, rel)
+    out_l = F.scaled_dot_product_attention(*qkv, attn_mask=attn, scale=1.0)
+    dout_l = dout.view(b, lq, NUM_HEADS, HEAD_DIM).transpose(1, 2)
+    library_ms = _time_ms(
+        lambda: torch.autograd.grad(out_l, lib_leaves, dout_l, retain_graph=True), iters)
+    # Each backward kernel alone, on the forward's LSE.
+    md = 0 if mode == tfa.CROSS else 128
+    kmask = mask if mode != tfa.CAUSAL else torch.ones_like(mask)
+    mask32, rel32, table = tfa._kernel_operands(mode, kmask, rel, 32, 128)
+    out, lse = tfa._forward_cuda(mode, q, k, v, mask32, rel32, table, NUM_HEADS, 128, True)
+    delta = tfa.row_delta(dout, out, NUM_HEADS)
+    bins = None if mode == tfa.CROSS else torch.zeros((NUM_HEADS, 2 * md + 1), device=device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q, k, v, dout, mask32, rel32, table, lse, delta)
+    dq_ms = _time_ms(lambda: tfa._backward_cuda(mode, "dq", *common, dq, bins, NUM_HEADS, 128),
+                     iters)
+    dkv_ms = _time_ms(lambda: tfa._backward_cuda(mode, "dkv", *common, dk, dv, NUM_HEADS, 128),
+                      iters)
+    pairs = _valid_pairs(tfa, mode, mask, lq)
+    row = dict(kernel=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk,
+               dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok, bwd_ms=ms,
+               plain_bwd_ms=plain_ms, library_bwd_ms=library_ms, dq_ms=dq_ms, dkv_ms=dkv_ms)
+    row["dq_bound_ms"], row["dq_bound_by"] = _bound("dq", b, lq, lk, pairs, q.element_size())
+    row["dkv_bound_ms"], row["dkv_bound_by"] = _bound("dkv", b, lq, lk, pairs, q.element_size())
+    return row
+
+
+def _check_rows(rows: list, what: str) -> None:
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{what} disagree with the plain version: {bad}")
+
+
 def phase_kernel(device) -> list:
+    """The encoder forward kernel against its plain version at
+    ``KERNEL_SHAPES`` and the ragged case, fp32 and bf16."""
     import torch
 
     from reprover_tpu_torch.ops import flash_attention as tfa
@@ -171,28 +387,11 @@ def phase_kernel(device) -> list:
     rows = []
     for b, l in KERNEL_SHAPES + [RAGGED_SHAPE]:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, rel = _attention_case(b, l, dtype, gen, device)
-            args = (q, k, v, mask, rel)
-            out = tfa.encoder_flash_attention(*args, num_heads=NUM_HEADS)
-            ref = tfa.encoder_attention_reference(*args, num_heads=NUM_HEADS)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = FP32_TOL if dtype == torch.float32 else (
-                BF16_REL_TOL * max(1.0, ref.float().abs().max().item()))
-            finite = bool(torch.isfinite(out).all())
-            iters = 20 if b * l <= 32 * 1024 else 10
-            ms = _time_ms(lambda: tfa.encoder_flash_attention(*args, num_heads=NUM_HEADS), iters)
-            plain_ms = _time_ms(
-                lambda: tfa.encoder_attention_reference(*args, num_heads=NUM_HEADS), iters)
-            row = dict(B=b, L=l, dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain_ms, ok=finite and err <= tol)
+            row = _forward_row(tfa, tfa.ENCODER, b, l, l, dtype, gen, device)
             log(f"[kernel] {json.dumps(row)}")
             rows.append(row)
-            del q, k, v, out, ref
     torch.cuda.empty_cache()
-    bad = [r for r in rows if not r["ok"]]
-    if bad:
-        raise AssertionError(f"kernel disagrees with the plain version: {bad}")
+    _check_rows(rows, "the encoder kernel does")
     return rows
 
 
@@ -220,7 +419,7 @@ def data_shapes(bench: str) -> list:
     """(batch, length) of the encoder calls of the first training batches at
     ``max_seq_len`` 1024: contexts and premises, or their stack when the two
     lengths agree (the losses then encode once)."""
-    from reprover_tpu.retrieval.datamodule import RetrievalDataModule
+    from reprover_tpu_torch.retrieval.datamodule import RetrievalDataModule
 
     dm = RetrievalDataModule(
         os.path.join(bench, "random"), os.path.join(bench, "corpus.jsonl"),
@@ -239,9 +438,10 @@ def data_shapes(bench: str) -> list:
 
 
 def phase_kernel_backward(device, shapes: list) -> list:
-    """Autograd through the kernels vs autograd of the plain version at
-    ``shapes`` plus the 1024 context cap and the ragged case, fp32 and bf16;
-    times of the whole backward and of each backward kernel alone."""
+    """Autograd through the encoder kernels vs autograd of the plain version
+    at the generator's [8, 2304], ``shapes``, the 1024 context cap and the
+    ragged case, fp32 and bf16; times of the whole backward and of each
+    backward kernel alone."""
     import torch
 
     from reprover_tpu_torch.ops import flash_attention as tfa
@@ -249,54 +449,43 @@ def phase_kernel_backward(device, shapes: list) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
-    for b, l in [CONTEXT_CAP_SHAPE] + list(shapes) + [RAGGED_SHAPE]:
+    for b, l in [GEN_SHAPE, CONTEXT_CAP_SHAPE] + list(shapes) + [RAGGED_SHAPE]:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, rel = _attention_case(b, l, dtype, gen, device)
-            mask[-1] = 0  # a row with no valid key: zero gradients
-            dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
-
-            def grads(fn):
-                leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
-                out = fn(leaves[0], leaves[1], leaves[2], mask, leaves[3], num_heads=NUM_HEADS)
-                return out, leaves, torch.autograd.grad(out, leaves, dout, retain_graph=True)
-
-            out_k, leaves_k, got = grads(tfa.encoder_flash_attention)
-            out_p, leaves_p, want = grads(tfa.encoder_attention_reference)
-            torch.cuda.synchronize()
-            errs, ok = {}, True
-            for name, g, w in zip(("dq", "dk", "dv", "d_rel"), got, want):
-                tol = BF16_REL_TOL if dtype == torch.bfloat16 else (
-                    DREL_FP32_TOL if name == "d_rel" else FP32_TOL)
-                tol *= max(1.0, w.float().abs().max().item())
-                errs[name] = (g.float() - w.float()).abs().max().item()
-                ok &= bool(torch.isfinite(g).all()) and errs[name] <= tol
-            ok &= all(g[-1].abs().max().item() == 0.0 for g in got[:3])
-            iters = 10 if b * l <= 32 * 1024 else 5
-            ms = _time_ms(lambda: torch.autograd.grad(out_k, leaves_k, dout, retain_graph=True),
-                          iters)
-            plain_ms = _time_ms(
-                lambda: torch.autograd.grad(out_p, leaves_p, dout, retain_graph=True), iters)
-            # Each backward kernel alone, on the forward's LSE.
-            mask32, rel32, table = tfa._kernel_operands(mask, rel, 32, 128)
-            out, lse = tfa._forward_cuda(q, k, v, mask32, rel32, table, NUM_HEADS, 128, True)
-            delta = tfa.row_delta(dout, out, NUM_HEADS)
-            bins = torch.zeros((NUM_HEADS, 257), device=device)
-            bufs = (torch.empty_like(q), torch.empty_like(q))
-            common = (q, k, v, dout, mask32, rel32, table, lse, delta)
-            dq_ms = _time_ms(lambda: tfa._backward_cuda(
-                "encoder_attn_bwd_dq", *common, bufs[0], bins, NUM_HEADS, 128), iters)
-            dkv_ms = _time_ms(lambda: tfa._backward_cuda(
-                "encoder_attn_bwd_dkv", *common, *bufs, NUM_HEADS, 128), iters)
-            row = dict(B=b, L=l, dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok,
-                       bwd_ms=ms, plain_bwd_ms=plain_ms, dq_ms=dq_ms, dkv_ms=dkv_ms)
+            row = _backward_row(tfa, tfa.ENCODER, b, l, l, dtype, gen, device, empty_row=True)
             log(f"[kernel_bwd] {json.dumps(row)}")
             rows.append(row)
-            del out_k, out_p, leaves_k, leaves_p, got, want
-    torch.cuda.empty_cache()
-    bad = [r for r in rows if not r["ok"]]
-    if bad:
-        raise AssertionError(f"backward kernels disagree with the plain version: {bad}")
+            torch.cuda.empty_cache()
+    _check_rows(rows, "the encoder backward kernels")
     return rows
+
+
+def phase_decoder_kernels(device) -> tuple:
+    """The causal and cross kernels against their plain versions, forward and
+    autograd backward, at ``CAUSAL_SHAPES`` and ``CROSS_SHAPES``, fp32 and
+    bf16 -> (forward rows, backward rows)."""
+    import torch
+
+    from reprover_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = [(tfa.CAUSAL, b, t, t) for b, t in CAUSAL_SHAPES] + [
+        (tfa.CROSS, b, t, s) for b, t, s in CROSS_SHAPES]
+    fwd, bwd = [], []
+    for mode, b, lq, lk in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = _forward_row(tfa, mode, b, lq, lk, dtype, gen, device)
+            log(f"[decoder_kernel] {json.dumps(row)}")
+            fwd.append(row)
+            # A ragged cross case also holds a source with no valid key.
+            empty = mode == tfa.CROSS and b < 8
+            row = _backward_row(tfa, mode, b, lq, lk, dtype, gen, device, empty_row=empty)
+            log(f"[decoder_kernel_bwd] {json.dumps(row)}")
+            bwd.append(row)
+            torch.cuda.empty_cache()
+    _check_rows(fwd, "the causal or cross forward kernels")
+    _check_rows(bwd, "the causal or cross backward kernels")
+    return fwd, bwd
 
 
 def _full_width_models(device):
@@ -332,12 +521,12 @@ def make_bench(work: str) -> str:
 def phase_slice(device, bench: str, cfg, gen_params, ret_params) -> dict:
     import torch
 
-    from reprover_tpu.prover.environment import environment_from_dataset
-    from reprover_tpu.prover.evaluate import evaluate
-    from reprover_tpu.prover.service import InferenceService
-    from reprover_tpu.prover.tactic_generator import FixedTacticGenerator
     from reprover_tpu_torch.generation import TacticGeneratorModel
     from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.prover.environment import environment_from_dataset
+    from reprover_tpu_torch.prover.evaluate import evaluate
+    from reprover_tpu_torch.prover.service import InferenceService
+    from reprover_tpu_torch.prover.tactic_generator import FixedTacticGenerator
     from reprover_tpu_torch.retrieval import PremiseRetriever
 
     data_path = os.path.join(bench, "random")
@@ -407,7 +596,7 @@ def phase_breakdown(device, generator, retriever, thm: dict) -> dict:
     run over the wall time of the unprofiled one)."""
     import torch
 
-    from reprover_tpu.data import Context, Pos, format_augmented_state, remove_marks
+    from reprover_tpu_torch.data import Context, Pos, format_augmented_state, remove_marks
     from reprover_tpu_torch.generation.beam_search import beam_search
     from reprover_tpu_torch.models.t5 import (
         decode_step, encode, init_decode_state, reorder_decode_state,
@@ -479,10 +668,10 @@ def phase_sanity(device, cfg, ret_params) -> float:
 
     import torch
 
-    from reprover_tpu.tokenizer import ByT5Tokenizer
     from reprover_tpu_torch.models.t5 import encode, place_params
     from reprover_tpu_torch.ops.flash_attention import encoder_attention_reference
     from reprover_tpu_torch.ops.pooling import masked_mean_normalize
+    from reprover_tpu_torch.tokenizer import ByT5Tokenizer
 
     texts = [f"theorem sanity_{i} (x y : Nat) : x + {i} * y = {i} * y + x := by omega" * (1 + i % 3)
              for i in range(16)]
@@ -543,8 +732,10 @@ def phase_train(device, work: str, bench: str, tiny: bool = False) -> dict:
         raise AssertionError(f"non-finite training loss: {losses}")
     if not val or not {"MRR", "emb_eff_rank"} <= set(val[-1]):
         raise AssertionError("metrics.jsonl lacks Recall@10_val, MRR or emb_eff_rank")
-    if device.type == "cuda" and min(launches.values()) < 1:
-        raise AssertionError(f"training did not launch every attention kernel: {launches}")
+    encoder = {k: n for k, n in launches.items() if k.startswith("encoder_attn")}
+    if device.type == "cuda" and min(encoder.values()) < 1:
+        raise AssertionError(f"training did not launch every encoder attention kernel: "
+                             f"{launches}")
 
     saved = torch.load(os.path.join(ckpt, str(TRAIN["steps"]), "state.pt"),
                        map_location="cpu", weights_only=True)["params"]
@@ -581,12 +772,117 @@ def _long_batch(batch: dict, gen) -> dict:
     return out
 
 
+def _mark(cuda: bool):
+    """A point in time: a recorded CUDA event on the card, else the host clock."""
+    import torch
+
+    if not cuda:
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _ms_between(a, b, cuda: bool) -> float:
+    return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+
+
+def _timed_steps(state, loss_fn, model_cfg, batch: dict, n: int, device) -> list:
+    """``n`` train steps on one batch; per step: (loss tensor, forward ms,
+    backward ms, optimizer ms)."""
+    cuda = device.type == "cuda"
+    out = []
+    for _ in range(n):
+        m0 = _mark(cuda)
+        state.optimizer.zero_grad()
+        loss = loss_fn(state.params, model_cfg, batch)
+        m1 = _mark(cuda)
+        loss.backward()
+        m2 = _mark(cuda)
+        state.optimizer.step()
+        m3 = _mark(cuda)
+        _sync(device)
+        out.append((loss.detach(), _ms_between(m0, m1, cuda), _ms_between(m1, m2, cuda),
+                    _ms_between(m2, m3, cuda)))
+    return out
+
+
+_ATTN_KERNEL = re.compile(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d)>")
+
+
+def _attention_kernel_key(name: str):
+    """The ``KERNEL_LAUNCHES`` key of a profiled CUDA kernel name, or None."""
+    m = _ATTN_KERNEL.search(name)
+    if m is None:
+        return None
+    base = ("encoder_attn", "causal_attn", "cross_attn")[int(m.group(2))]
+    return base if m.group(1) == "fwd" else f"{base}_{m.group(1)}"
+
+
+def _profiled_share(state, loss_fn, model_cfg, batch: dict, device) -> dict:
+    """Device time of one profiled train step by kernel, and each attention
+    kernel's share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _timed_steps(state, loss_fn, model_cfg, batch, 1, device)
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    except Exception as ex:  # the share is a report; a profiler failure is not a phase failure
+        return {"profiler": f"not measured: {ex!r}"}
+    total = sum(by_name.values())
+    attn: dict = {}
+    for name, us in by_name.items():
+        key = _attention_kernel_key(name)
+        if key is not None:
+            attn[key] = attn.get(key, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(device_ms=total / 1e3, attention_ms=sum(attn.values()) / 1e3,
+                attention_share=sum(attn.values()) / total if total else None,
+                attention_kernels_ms={n: us / 1e3 for n, us in sorted(attn.items())},
+                attention_kernels_share={n: us / total for n, us in sorted(attn.items())}
+                if total else None,
+                top_kernels_ms={n[:70]: us / 1e3 for n, us in top})
+
+
+def _step_report(tag: str, state, loss_fn, model_cfg, tensors: dict, steps: int, device,
+                 **labels) -> dict:
+    """Time ``steps`` steps on one batch (means over steps 3..), peak memory
+    and a profiled step's attention share; logs and returns the row, which
+    starts with ``labels``."""
+    import torch
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    timed = _timed_steps(state, loss_fn, model_cfg, tensors, steps, device)
+    losses = [float(s[0]) for s in timed]
+    warm = timed[2:]
+    row = dict(**labels, shapes={k: list(v.shape) for k, v in tensors.items()
+                                 if k.endswith("_ids")},
+               first_loss=losses[0], last_loss=losses[-1], losses=losses,
+               forward_ms=sum(s[1] for s in warm) / len(warm),
+               backward_ms=sum(s[2] for s in warm) / len(warm),
+               optimizer_ms=sum(s[3] for s in warm) / len(warm))
+    row["step_ms"] = row["forward_ms"] + row["backward_ms"] + row["optimizer_ms"]
+    row["steps_per_sec"] = 1e3 / row["step_ms"]
+    if cuda:
+        row["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        row.update(_profiled_share(state, loss_fn, model_cfg, tensors, device))
+    log(f"[{tag}] {json.dumps(row)}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss on the fixed batch: {losses}")
+    return row
+
+
 def phase_train_steps(device, bench: str, tiny: bool = False) -> dict:
     """One fixed batch, no warmup: 20 steps whose loss must fall, each timed
     by part; peak memory; the attention kernels' share of a profiled step.
     Then the same timing on the batch's layout at the 1024 cap."""
-    import torch
-
     from reprover_tpu_torch.retrieval.main import LINKS, RetrievalConfig, _build
     from reprover_tpu_torch.training.tasks import (
         init_train_state, numeric_batch, retrieval_infonce_loss,
@@ -598,76 +894,12 @@ def phase_train_steps(device, bench: str, tiny: bool = False) -> dict:
     dm.setup("fit")
     state = init_train_state(retriever.params, TRAIN["lr"], warmup_steps=0)
     host_batch = next(iter(dm.train_dataloader()))
-    cuda = device.type == "cuda"
-
-    def mark():
-        if not cuda:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def ms_between(a, b) -> float:
-        return a.elapsed_time(b) if cuda else 1e3 * (b - a)
-
-    def timed_steps(batch: dict, n: int) -> list:
-        """Per step: (loss tensor, forward ms, backward ms, optimizer ms)."""
-        out = []
-        for _ in range(n):
-            m0 = mark()
-            state.optimizer.zero_grad()
-            loss = retrieval_infonce_loss(state.params, model_cfg, batch)
-            m1 = mark()
-            loss.backward()
-            m2 = mark()
-            state.optimizer.step()
-            m3 = mark()
-            _sync(device)
-            out.append((loss.detach(), ms_between(m0, m1), ms_between(m1, m2), ms_between(m2, m3)))
-        return out
-
-    def profiled_share(batch: dict) -> dict:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                timed_steps(batch, 1)
-            by_name: dict = {}
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        except Exception as ex:  # the share is a report; a profiler failure is not a phase failure
-            return {"profiler": f"not measured: {ex!r}"}
-        total = sum(by_name.values())
-        attn = {n: us for n, us in by_name.items() if "encoder_attn" in n}
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        return dict(device_ms=total / 1e3, attention_ms=sum(attn.values()) / 1e3,
-                    attention_share=sum(attn.values()) / total if total else None,
-                    attention_kernels_ms={n[:70]: us / 1e3 for n, us in attn.items()},
-                    top_kernels_ms={n[:70]: us / 1e3 for n, us in top})
-
     results = {}
     for name, hb in (("data", host_batch), ("cap", _long_batch(host_batch, TRAIN["seed"]))):
-        batch = numeric_batch(hb, device)
-        shapes = {k: list(v.shape) for k, v in batch.items() if k.endswith("_ids")}
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        steps = timed_steps(batch, TRAIN["steps"] if name == "data" else 5)
-        losses = [float(s[0]) for s in steps]
-        warm = steps[2:]
-        row = dict(batch=name, shapes=shapes, first_loss=losses[0], last_loss=losses[-1],
-                   forward_ms=sum(s[1] for s in warm) / len(warm),
-                   backward_ms=sum(s[2] for s in warm) / len(warm),
-                   optimizer_ms=sum(s[3] for s in warm) / len(warm))
-        row["step_ms"] = row["forward_ms"] + row["backward_ms"] + row["optimizer_ms"]
-        row["steps_per_sec"] = 1e3 / row["step_ms"]
-        if cuda:
-            row["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
-            row.update(profiled_share(batch))
-        log(f"[train_step] {json.dumps(row)}")
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"non-finite loss on the fixed batch: {losses}")
+        row = _step_report("train_step", state, retrieval_infonce_loss, model_cfg,
+                           numeric_batch(hb, device), TRAIN["steps"] if name == "data" else 5,
+                           device, batch=name)
+        losses = row["losses"]
         if name == "data":
             log(f"[train_step] repeated batch, lr {TRAIN['lr']} without warmup: loss "
                 f"{losses[0]:.6f} -> {losses[-1]:.6f} over {len(losses)} steps")
@@ -677,11 +909,194 @@ def phase_train_steps(device, bench: str, tiny: bool = False) -> dict:
     return results
 
 
-def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
-                  row: dict, ms_key: str, plain_key: str) -> dict:
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": row[ms_key],
-            "plain_ms": row[plain_key]}
+def _gen_argv(device, work: str, bench: str, preds: str, tiny: bool) -> list:
+    """``generation.main`` flags of the generator phase: the reference data
+    settings, remat on, seeded random init (or the tiny model), greedy
+    validation on one batch."""
+    return [
+        "--device", device.type,
+        "--model.tiny" if tiny else "--model.random_init", "true",
+        "--model.remat", "true",
+        "--model.num_beams", "1",
+        "--data.data_path", os.path.join(bench, "random"),
+        "--data.corpus_path", os.path.join(bench, "corpus.jsonl"),
+        "--data.preds_path", preds,
+        "--data.batch_size", str(GEN["batch_size"]),
+        "--data.eval_batch_size", str(GEN["eval_batch_size"]),
+        "--data.max_inp_seq_len", str(GEN["max_inp_seq_len"]),
+        "--data.max_oup_seq_len", str(GEN["max_oup_seq_len"]),
+        "--limit_val_batches", "1",
+        "--seed", str(GEN["seed"]),
+        "--log_dir", os.path.join(work, "glogs"),
+    ]
+
+
+def phase_generator_train(device, work: str, bench: str, tiny: bool = False) -> dict:
+    """Retriever predictions from phase 7's checkpoint, then generator
+    training through the CLI entry point: 20 steps, one validation and a
+    checkpoint, then ``validate --ckpt_dir`` restoring the checkpoint."""
+    import torch
+
+    from reprover_tpu_torch.generation.datamodule import GeneratorDataModule
+    from reprover_tpu_torch.generation.main import main as generation_main
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.retrieval.main import main as retrieval_main
+
+    t0 = time.perf_counter()
+    # 40 premises per tactic: the synthetic corpus's first files see only 43
+    # accessible premises (the reference retrieves 100 from Mathlib).
+    records = retrieval_main(["predict"] + _fit_argv(device, work, bench, tiny) + [
+        "--ckpt_dir", os.path.join(work, "ckpts"), "--preds_out", "predictions.pickle",
+        "--model.num_retrieved", "40"])
+    preds = os.path.join(work, "logs", "predictions.pickle")
+    log(f"[gen_train] retrieval.main predict: {len(records)} records in "
+        f"{time.perf_counter() - t0:.3f}s -> {preds}")
+
+    dm = GeneratorDataModule(os.path.join(bench, "random"), GEN["batch_size"],
+                             GEN["eval_batch_size"], GEN["max_inp_seq_len"],
+                             GEN["max_oup_seq_len"], 0.5, preds_path=preds, seed=GEN["seed"])
+    dm.setup("fit")
+    shapes = sorted({(tuple(b["state_ids"].shape), tuple(b["tactic_ids"].shape))
+                     for _, b in zip(range(GEN["steps"]), dm.train_dataloader())})
+    log(f"[gen_train] train batches (state_ids, tactic_ids) shapes: {shapes}")
+
+    ckpt = os.path.join(work, "gckpts")
+    argv = _gen_argv(device, work, bench, preds, tiny) + [
+        "--trainer.max_steps", str(GEN["steps"]),
+        "--trainer.val_interval", str(GEN["steps"]),
+        "--trainer.log_interval", str(GEN["log_interval"]),
+        "--trainer.monitor", "loss_val",
+        "--trainer.monitor_mode", "min",
+        "--trainer.patience", "99",
+        "--trainer.ckpt_dir", ckpt,
+    ]
+    tfa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = generation_main(["fit"] + argv)
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    launches = dict(tfa.KERNEL_LAUNCHES)
+    with open(os.path.join(work, "glogs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    sps = [r["steps_per_sec"] for r in recs if "steps_per_sec" in r]
+    val = [r for r in recs if "loss_val" in r]
+    log(f"[gen_train] fit {state.step} steps in {fit_s:.3f}s (validation and checkpoint "
+        f"included); losses {losses}; steps/s per {GEN['log_interval']}-step window {sps}; "
+        f"kernel launches {launches}")
+    if val:
+        log(f"[gen_train] validation {json.dumps(val[-1])}")
+    if state.step != GEN["steps"] or len(losses) != GEN["steps"] // GEN["log_interval"]:
+        raise AssertionError(f"fit ran {state.step} steps and logged {len(losses)} losses")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not val or "top1_acc_val" not in val[-1] or not math.isfinite(val[-1]["loss_val"]):
+        raise AssertionError("metrics.jsonl lacks a finite loss_val and top1_acc_val")
+    if device.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"generator training did not launch every attention kernel: "
+                             f"{launches}")
+
+    saved = torch.load(os.path.join(ckpt, str(GEN["steps"]), "state.pt"),
+                       map_location="cpu", weights_only=True)["params"]
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    _, model = generation_main(["validate"] + argv + ["--ckpt_dir", ckpt])
+    mismatched = [name for name, t in _flat(model.params).items()
+                  if not torch.equal(t.detach().cpu(), _flat(saved)[name])]
+    if mismatched:
+        raise AssertionError(f"validate --ckpt_dir restored different parameters: {mismatched}")
+    log(f"[gen_train] validate --ckpt_dir restored {len(_flat(saved))} parameter tensors "
+        f"bit-equal")
+    return dict(launches=launches, losses=losses, steps_per_sec=sps, fit_s=fit_s,
+                validation=val[-1], shapes=shapes)
+
+
+def phase_generator_steps(device, tiny: bool = False) -> dict:
+    """One fixed random batch at the reference cap ([8, 2304] sources, [8,
+    512] targets, ragged, -100 past each target), no warmup: 20 steps whose
+    loss must fall, timed by part, peak memory and each attention kernel's
+    share of a profiled step."""
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.models.t5 import (
+        T5Config, byt5_small, default_dtype, fuse_mlp_params, init_params, place_master_params,
+    )
+    from reprover_tpu_torch.training.tasks import generation_loss, init_train_state
+
+    dtype = default_dtype(device)
+    if tiny:
+        cfg = T5Config(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
+                       num_decoder_layers=1, compute_dtype=dtype, remat=True)
+    else:
+        cfg = byt5_small(compute_dtype=dtype, remat=True)
+    params = init_params(cfg, torch.Generator().manual_seed(GEN["seed"]))
+    state = init_train_state(place_master_params(fuse_mlp_params(params), device), GEN["lr"],
+                             warmup_steps=0)
+    del params
+    rng = np.random.default_rng(GEN["seed"])
+    b, src, tgt = GEN["batch_size"], GEN_SHAPE[1], GEN["max_oup_seq_len"]
+    src_len = rng.integers(src // 2, GEN["max_inp_seq_len"] + 1, b)
+    tgt_len = rng.integers(tgt // 8, tgt + 1, b)
+    src_mask = (np.arange(src)[None, :] < src_len[:, None]).astype(np.int64)
+    tactic = rng.integers(3, 259, (b, tgt))
+    tactic[np.arange(tgt)[None, :] >= tgt_len[:, None]] = -100
+    batch = {"state_ids": torch.from_numpy(rng.integers(3, 259, (b, src)) * src_mask),
+             "state_mask": torch.from_numpy(src_mask), "tactic_ids": torch.from_numpy(tactic)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    row = _step_report("gen_step", state, generation_loss, cfg, batch, GEN["steps"], device)
+    losses = row["losses"]
+    log(f"[gen_step] repeated batch, lr {GEN['lr']} without warmup: loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} over {len(losses)} steps")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss on one fixed batch did not fall: {losses}")
+    return row
+
+
+# The TPU kernel each of the nine replaces (file:line of its pallas_call or
+# kernel function in the JAX package).
+REPLACES = {
+    "encoder_attn": "reprover_tpu/ops/flash_attention.py:176",
+    "encoder_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:607",
+    "encoder_attn_bwd_dkv": "reprover_tpu/ops/flash_attention.py:715",
+    "causal_attn": "reprover_tpu/ops/flash_attention.py:1553",
+    "causal_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:1343",
+    "causal_attn_bwd_dkv": "reprover_tpu/ops/flash_attention.py:1384",
+    "cross_attn": "reprover_tpu/ops/flash_attention.py:1624",
+    "cross_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:1721",
+    "cross_attn_bwd_dkv": "reprover_tpu/ops/flash_attention.py:1757",
+}
+
+
+def kernel_entries(fwd_rows: list, bwd_rows: list, launches: dict) -> list:
+    """The ``{"kernels": [...]}`` entries: per kernel its launches on the main
+    paths, its largest bf16 error over every checked shape, and its times,
+    bound and library time at the generator-training shapes (encoder [8,
+    2304], causal [8, 512], cross [8, 512] x [8, 2304]), bf16."""
+    main_shape = {"encoder_attn": (8, 2304, 2304), "causal_attn": (8, 512, 512),
+                  "cross_attn": (8, 512, 2304)}
+    entries = []
+    for name, replaces in REPLACES.items():
+        base, part = (name, "fwd") if "_bwd_" not in name else name.split("_bwd_")
+        rows = bwd_rows if part != "fwd" else fwd_rows
+        mine = [r for r in rows if r["kernel"] == base and r["dtype"] == "bfloat16"]
+        at = next(r for r in mine if (r["B"], r["Lq"], r["Lk"]) == main_shape[base])
+        if part == "fwd":
+            err = max(r["max_abs_err"] for r in mine)
+            times = (at["ms"], at["plain_ms"], at["bound_ms"], at["bound_by"], at["library_ms"])
+        else:
+            keys = ("dq", "d_rel") if part == "dq" else ("dk", "dv")
+            err = max(r["errs"][k] for r in mine for k in keys if k in r["errs"])
+            times = (at[f"{part}_ms"], at["plain_bwd_ms"], at[f"{part}_bound_ms"],
+                     at[f"{part}_bound_by"], at["library_bwd_ms"])
+        source = "encoder_attn.cu" if part == "fwd" else "encoder_attn_bwd.cu"
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"reprover_tpu_torch/csrc/{source}", "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": err, "ms": times[0],
+                        "plain_ms": times[1], "bound_ms": times[2], "bound_by": times[3],
+                        "library_ms": times[4]})
+    return entries
 
 
 def main() -> int:
@@ -695,6 +1110,7 @@ def main() -> int:
     info = phase_device()
     phase_build()
     rows = phase_kernel(device)
+    dec_fwd, dec_bwd = phase_decoder_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         bench = make_bench(work)
         bwd_rows = phase_kernel_backward(device, data_shapes(bench))
@@ -705,32 +1121,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         tr = phase_train(device, work, bench)
         phase_train_steps(device, bench)
+        torch.cuda.empty_cache()
+        gt = phase_generator_train(device, work, bench)
+        torch.cuda.empty_cache()
+        phase_generator_steps(device)
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
-    fwd_row = next(r for r in rows if (r["B"], r["L"]) == KERNEL_SHAPES[0]
-                   and r["dtype"] == "bfloat16")
-    bwd_row = next(r for r in bwd_rows if (r["B"], r["L"]) == CONTEXT_CAP_SHAPE
-                   and r["dtype"] == "bfloat16")
-    bf16_bwd = [r["errs"] for r in bwd_rows if r["dtype"] == "bfloat16"]
-    launches = tr["launches"]
-    src = "reprover_tpu_torch/csrc/"
-    print(json.dumps({"kernels": [
-        _kernel_entry("encoder_attn", src + "encoder_attn.cu",
-                      "reprover_tpu/ops/flash_attention.py:176",
-                      sl["launches"] + launches["encoder_attn"],
-                      max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
-                      fwd_row, "ms", "plain_ms"),
-        _kernel_entry("encoder_attn_bwd_dq", src + "encoder_attn_bwd.cu",
-                      "reprover_tpu/ops/flash_attention.py:607",
-                      launches["encoder_attn_bwd_dq"],
-                      max(max(e["dq"], e["d_rel"]) for e in bf16_bwd),
-                      bwd_row, "dq_ms", "plain_bwd_ms"),
-        _kernel_entry("encoder_attn_bwd_dkv", src + "encoder_attn_bwd.cu",
-                      "reprover_tpu/ops/flash_attention.py:715",
-                      launches["encoder_attn_bwd_dkv"],
-                      max(max(e["dk"], e["dv"]) for e in bf16_bwd),
-                      bwd_row, "dkv_ms", "plain_bwd_ms"),
-    ]}), flush=True)
+    # Launches on the three main paths: serving, retriever and generator training.
+    launches = {name: tr["launches"][name] + gt["launches"][name] for name in REPLACES}
+    launches["encoder_attn"] += sl["launches"]
+    print(json.dumps({"kernels": kernel_entries(rows + dec_fwd, bwd_rows + dec_bwd, launches)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}), flush=True)
     return 0

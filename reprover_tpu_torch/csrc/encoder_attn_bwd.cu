@@ -1,43 +1,51 @@
-// T5 encoder self-attention backward for Hopper (sm_90a).
+// T5 attention backward for Hopper (sm_90a): the gradients of the three
+// attentions of encoder_attn.cu, selected by the same compile-time mode.
 //
-// Replaces the two Pallas TPU kernels of the encoder attention's custom VJP
-// (reprover_tpu/ops/flash_attention.py, called from _backward_impl):
+// Replaces the Pallas TPU kernels of the custom VJPs in
+// reprover_tpu/ops/flash_attention.py:
 //
-//   _bwd_dq_kernel  (:607)  -> encoder_attn_bwd_dq_kernel: dQ and the
-//                              relative-bias gradient;
-//   _bwd_dkv_kernel (:715)  -> encoder_attn_bwd_dkv_kernel: dK and dV.
+//   dQ kernel   <- _bwd_dq_kernel (:607): ENCODER, and CAUSAL_SELF (its
+//                  causal=True call at :1343); _cross_bwd_dq_kernel (:1721):
+//                  CROSS. dQ, and for the two self-attentions the
+//                  relative-bias gradient.
+//   dK/dV kernel <- _bwd_dkv_kernel (:715): ENCODER, and CAUSAL_SELF (:1384);
+//                  _cross_bwd_dkv_kernel (:1757): CROSS.
 //
-// Both take the forward's per-row log-sum-exp LSE [B, H, L] (written by
-// encoder_attn.cu) and delta = rowsum(dO * O) [B, H, L] (plain torch), and
-// rebuild each probability exactly as P = exp(S - LSE) with
-// S = q k^T + rel_bias[bucket(k - q), h] over valid keys; masked keys and
-// query rows past L give P = 0, and a row with no valid key (LSE = +inf)
-// gives zero gradients. Then dP = dO v^T, dS = P * (dP - delta), and
+// Both take the forward's per-row log-sum-exp LSE [B, H, Lq] (written by
+// encoder_attn.cu; the Pallas dQ kernels recompute it) and delta =
+// rowsum(dO * O) [B, H, Lq] (plain torch), and rebuild each probability
+// exactly as P = exp(S - LSE) with S = q k^T (+ rel_bias[bucket(k - q), h])
+// over valid keys; masked keys, keys k > q under CAUSAL_SELF and query rows
+// past Lq give P = 0, and a row with no valid key (LSE = +inf) gives zero
+// gradients. Then dP = dO v^T, dS = P * (dP - delta), and
 //
 //   dQ = dS K,   dK = dS^T Q,   dV = P^T dO,
 //   d_rel[bucket, h] = sum of dS over the (q, k) whose k - q falls in it.
 //
-// What bounds it on the H100: about 5x the forward's 2*L*L*d products per
+// What bounds it on the H100: about 5x the forward's 2*Lq*Lk*d products per
 // (b, h) (S and dP recomputed in each kernel, then dQ, dK, dV) against
-// O(L*d) elements moved, so it is compute-bound; the plain version's cost
-// is the several [B, H, L, L] fp32 tensors its autograd saves and reads
-// back. Design: nothing of size L*L leaves the SM, arithmetic is fp32 FMA
-// loops over shared-memory tiles (tensor cores come in a later change).
+// O((Lq + Lk)*d) elements moved, so it is compute-bound; the plain version's
+// cost is the several [B, H, Lq, Lk] fp32 tensors its autograd saves and
+// reads back. Design: nothing of size Lq*Lk leaves the SM, arithmetic is fp32
+// FMA loops over shared-memory tiles (tensor cores come in a later change),
+// and causal blocks skip the tiles that lie wholly above the diagonal.
 //
 // - dK/dV: one block per (64-key tile, head, batch row) loops over 64-query
-//   tiles, recomputes S^T, P^T and dS^T for the tile, and accumulates dV and
-//   dK in registers; each output tile is written once, with no atomics. A
-//   key tile with no valid key writes zeros and skips the loop.
+//   tiles (under CAUSAL_SELF from its own diagonal tile on), recomputes S^T,
+//   P^T and dS^T for the tile, and accumulates dV and dK in registers; each
+//   output tile is written once, with no atomics. A key tile with no valid
+//   key writes zeros and skips the loop.
 // - dQ: one block per (64-query tile, head, batch row) loops over key tiles
-//   and accumulates dQ the same way. The TPU kernel summed d_rel in SMEM
-//   across its sequential grid; Hopper's blocks run in no order, so here
-//   each block bins dS by clamp(k - q, -max_distance, max_distance) (the
-//   index of the forward's bucket table) into 2*max_distance+1 shared fp32
-//   bins, keeps the two saturated bins in registers (every far pair lands
-//   there), and atomically adds its bins into a global [H, 2*max_distance+1]
-//   buffer. The caller folds the bins into the buckets with the bucket
-//   table. The atomics make d_rel's summation order, and so its last bits,
-//   vary from run to run; dQ, dK and dV are deterministic.
+//   (under CAUSAL_SELF up to its diagonal tile) and accumulates dQ the same
+//   way. The TPU kernel summed d_rel in SMEM across its sequential grid;
+//   Hopper's blocks run in no order, so here each block bins dS by
+//   clamp(k - q, -max_distance, max_distance) (the index of the forward's
+//   bucket table) into 2*max_distance+1 shared fp32 bins, keeps the two
+//   saturated bins in registers (every far pair lands there), and atomically
+//   adds its bins into a global [H, 2*max_distance+1] buffer. The caller
+//   folds the bins into the buckets with the bucket table. The atomics make
+//   d_rel's summation order, and so its last bits, vary from run to run; dQ,
+//   dK and dV are deterministic. CROSS has no bias and no bins.
 //
 // The C entry points launch on the caller's stream, allocate nothing (the
 // caller zeroes the bin buffer) and return cudaGetLastError().
@@ -50,31 +58,36 @@ namespace {
 
 using namespace encoder_attn;
 
-size_t dq_shared_bytes(int max_distance) {
-  const int nrel = 2 * max_distance + 1;
+size_t dq_shared_bytes(int nrel) {
   return sizeof(float) * (size_t)(4 * BQ * PAD + BQ * PPAD + 2 * nrel + 2 * BQ) +
          sizeof(int) * BK;
 }
 
-size_t dkv_shared_bytes(int max_distance) {
-  const int nrel = 2 * max_distance + 1;
+size_t dkv_shared_bytes(int nrel) {
   return sizeof(float) * (size_t)(4 * BK * PAD + 2 * BK * PPAD + nrel + 2 * BQ) +
          sizeof(int) * BK;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout,
-    const int* __restrict__ mask,          // [B, L], nonzero = valid key
-    const float* __restrict__ rel_bias,    // [num_buckets, H]
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
+    const T* __restrict__ q,               // [B, Lq, H*D]
+    const T* __restrict__ k,               // [B, Lk, H*D]
+    const T* __restrict__ v,               // [B, Lk, H*D]
+    const T* __restrict__ dout,            // [B, Lq, H*D]
+    const int* __restrict__ mask,          // [B, Lk], nonzero = valid key
+    const float* __restrict__ rel_bias,    // [num_buckets, H] (unused by CROSS)
     const int* __restrict__ bucket_table,  // [2*max_distance+1]
-    const float* __restrict__ lse,         // [B, H, L]
-    const float* __restrict__ delta,       // [B, H, L]
-    T* __restrict__ dq,                    // [B, L, H*D]
-    float* __restrict__ dbins,             // [H, 2*max_distance+1], accumulated
-    int L, int H, int max_distance) {
-  const int nrel = 2 * max_distance + 1;
+    const float* __restrict__ lse,         // [B, H, Lq]
+    const float* __restrict__ delta,       // [B, H, Lq]
+    T* __restrict__ dq,                    // [B, Lq, H*D]
+    float* __restrict__ dbins,             // [H, 2*max_distance+1], accumulated (not CROSS)
+    int Lq, int kv_len, int H, int max_distance) {
+  constexpr bool kBias = has_bias(MODE);
+  constexpr bool kCausal = is_causal(MODE);
+  // Self-attention has as many keys as queries: saying so lets the
+  // compiler share the two lengths and base offsets (one register less).
+  const int Lk = MODE == CROSS ? kv_len : Lq;
+  const int nrel = kBias ? 2 * max_distance + 1 : 0;
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][PAD]
   float* dos = qs + BQ * PAD;        // [BQ][PAD]
@@ -94,16 +107,19 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dq_kernel(
   const int ty = tid / 16;  // query rows ty*4 .. ty*4+3
   const int tx = tid % 16;  // key columns (and dQ columns) tx, tx+16, tx+32, tx+48
   const long row_stride = (long)H * D;
-  const long base = (long)b * L * row_stride + (long)h * D;
-  const long stat_base = ((long)b * H + h) * L;
+  const long q_base = (long)b * Lq * row_stride + (long)h * D;
+  const long k_base = (long)b * Lk * row_stride + (long)h * D;
+  const long stat_base = ((long)b * H + h) * Lq;
 
-  load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
-  for (int r = tid; r < nrel; r += THREADS) bins[r] = 0.f;
-  load_tile_pair(qs, dos, q, dout, base, row_stride, q0, L, tid);
+  if constexpr (kBias) {
+    load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
+    for (int r = tid; r < nrel; r += THREADS) bins[r] = 0.f;
+  }
+  load_tile_pair(qs, dos, q, dout, q_base, row_stride, q0, Lq, tid);
   if (tid < BQ) {
     const int qi = q0 + tid;
-    row_lse[tid] = qi < L ? lse[stat_base + qi] : INFINITY;
-    row_delta[tid] = qi < L ? delta[stat_base + qi] : 0.f;
+    row_lse[tid] = qi < Lq ? lse[stat_base + qi] : INFINITY;
+    row_delta[tid] = qi < Lq ? delta[stat_base + qi] : 0.f;
   }
 
   float acc[4][4];
@@ -115,12 +131,13 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dq_kernel(
   // saturate, so they are summed here and added once at the end.
   float sat_hi = 0.f, sat_lo = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
+  const int k_end = kCausal ? min(Lk, q0 + BQ) : Lk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    load_tile_pair(ks, vs, k, v, base, row_stride, k0, L, tid);
+    load_tile_pair(ks, vs, k, v, k_base, row_stride, k0, Lk, tid);
     if (tid < BK) {
       const int kj = k0 + tid;
-      key_ok[tid] = kj < L && mask[(long)b * L + kj] != 0;
+      key_ok[tid] = kj < Lk && mask[(long)b * Lk + kj] != 0;
     }
     __syncthreads();
 
@@ -158,18 +175,21 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = tx + 16 * j;
+        const int rel = k0 + kc - qi;
         float ds = 0.f;
-        if (key_ok[kc] && qi < L) {
-          const int rel = k0 + kc - qi;
-          const float p =
-              expf(s[i][j] + bias[clamp_rel(rel, max_distance) + max_distance] - row_lse[r]);
+        if (key_ok[kc] && qi < Lq && (!kCausal || rel <= 0)) {
+          float sc = s[i][j];
+          if constexpr (kBias) sc += bias[clamp_rel(rel, max_distance) + max_distance];
+          const float p = expf(sc - row_lse[r]);
           ds = p * (dp[i][j] - row_delta[r]);
-          if (rel >= max_distance)
-            sat_hi += ds;
-          else if (rel <= -max_distance)
-            sat_lo += ds;
-          else
-            atomicAdd(&bins[rel + max_distance], ds);
+          if constexpr (kBias) {
+            if (rel >= max_distance)
+              sat_hi += ds;
+            else if (rel <= -max_distance)
+              sat_lo += ds;
+            else
+              atomicAdd(&bins[rel + max_distance], ds);
+          }
         }
         dss[r * PPAD + kc] = ds;
       }
@@ -193,41 +213,50 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
-    if (qi < L) {
+    if (qi < Lq) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        dq[base + (long)qi * row_stride + tx + 16 * j] = from_float<T>(acc[i][j]);
+        dq[q_base + (long)qi * row_stride + tx + 16 * j] = from_float<T>(acc[i][j]);
     }
   }
 
-  // Saturated bins: a warp sum, then one shared atomic per warp.
+  if constexpr (kBias) {
+    // Saturated bins: a warp sum, then one shared atomic per warp.
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sat_hi += __shfl_xor_sync(0xffffffffu, sat_hi, off);
-    sat_lo += __shfl_xor_sync(0xffffffffu, sat_lo, off);
+    for (int off = 16; off > 0; off >>= 1) {
+      sat_hi += __shfl_xor_sync(0xffffffffu, sat_hi, off);
+      sat_lo += __shfl_xor_sync(0xffffffffu, sat_lo, off);
+    }
+    if ((tid & 31) == 0) {
+      atomicAdd(&bins[2 * max_distance], sat_hi);
+      atomicAdd(&bins[0], sat_lo);
+    }
+    __syncthreads();
+    for (int r = tid; r < nrel; r += THREADS)
+      if (bins[r] != 0.f) atomicAdd(&dbins[(long)h * nrel + r], bins[r]);
   }
-  if ((tid & 31) == 0) {
-    atomicAdd(&bins[2 * max_distance], sat_hi);
-    atomicAdd(&bins[0], sat_lo);
-  }
-  __syncthreads();
-  for (int r = tid; r < nrel; r += THREADS)
-    if (bins[r] != 0.f) atomicAdd(&dbins[(long)h * nrel + r], bins[r]);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout,
-    const int* __restrict__ mask,          // [B, L], nonzero = valid key
-    const float* __restrict__ rel_bias,    // [num_buckets, H]
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
+    const T* __restrict__ q,               // [B, Lq, H*D]
+    const T* __restrict__ k,               // [B, Lk, H*D]
+    const T* __restrict__ v,               // [B, Lk, H*D]
+    const T* __restrict__ dout,            // [B, Lq, H*D]
+    const int* __restrict__ mask,          // [B, Lk], nonzero = valid key
+    const float* __restrict__ rel_bias,    // [num_buckets, H] (unused by CROSS)
     const int* __restrict__ bucket_table,  // [2*max_distance+1]
-    const float* __restrict__ lse,         // [B, H, L]
-    const float* __restrict__ delta,       // [B, H, L]
-    T* __restrict__ dk,                    // [B, L, H*D]
-    T* __restrict__ dv,                    // [B, L, H*D]
-    int L, int H, int max_distance) {
-  const int nrel = 2 * max_distance + 1;
+    const float* __restrict__ lse,         // [B, H, Lq]
+    const float* __restrict__ delta,       // [B, H, Lq]
+    T* __restrict__ dk,                    // [B, Lk, H*D]
+    T* __restrict__ dv,                    // [B, Lk, H*D]
+    int Lq, int kv_len, int H, int max_distance) {
+  constexpr bool kBias = has_bias(MODE);
+  constexpr bool kCausal = is_causal(MODE);
+  // Self-attention has as many keys as queries: saying so lets the
+  // compiler share the two lengths and base offsets (one register less).
+  const int Lk = MODE == CROSS ? kv_len : Lq;
+  const int nrel = kBias ? 2 * max_distance + 1 : 0;
   extern __shared__ float smem[];
   float* ks = smem;                  // [BK][PAD]
   float* vs = ks + BK * PAD;         // [BK][PAD]
@@ -247,15 +276,16 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
   const int ty = tid / 16;  // key rows ty*4 .. ty*4+3
   const int tx = tid % 16;  // query columns (and dK/dV columns) tx, tx+16, tx+32, tx+48
   const long row_stride = (long)H * D;
-  const long base = (long)b * L * row_stride + (long)h * D;
-  const long stat_base = ((long)b * H + h) * L;
+  const long q_base = (long)b * Lq * row_stride + (long)h * D;
+  const long k_base = (long)b * Lk * row_stride + (long)h * D;
+  const long stat_base = ((long)b * H + h) * Lq;
 
-  load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
-  load_tile_pair(ks, vs, k, v, base, row_stride, k0, L, tid);
+  if constexpr (kBias) load_bias(bias, rel_bias, bucket_table, nrel, H, h, tid);
+  load_tile_pair(ks, vs, k, v, k_base, row_stride, k0, Lk, tid);
   int ok = 0;
   if (tid < BK) {
     const int kj = k0 + tid;
-    ok = kj < L && mask[(long)b * L + kj] != 0;
+    ok = kj < Lk && mask[(long)b * Lk + kj] != 0;
     key_ok[tid] = ok;
   }
   const bool any_key = __syncthreads_or(ok) != 0;
@@ -266,13 +296,15 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
-  for (int q0 = 0; any_key && q0 < L; q0 += BQ) {
+  // Under CAUSAL_SELF no query before k0 sees a key of this tile (BQ == BK).
+  const int q_start = kCausal ? k0 : 0;
+  for (int q0 = q_start; any_key && q0 < Lq; q0 += BQ) {
     __syncthreads();  // the previous tile is no longer read
-    load_tile_pair(qs, dos, q, dout, base, row_stride, q0, L, tid);
+    load_tile_pair(qs, dos, q, dout, q_base, row_stride, q0, Lq, tid);
     if (tid < BQ) {
       const int qi = q0 + tid;
-      col_lse[tid] = qi < L ? lse[stat_base + qi] : INFINITY;
-      col_delta[tid] = qi < L ? delta[stat_base + qi] : 0.f;
+      col_lse[tid] = qi < Lq ? lse[stat_base + qi] : INFINITY;
+      col_delta[tid] = qi < Lq ? delta[stat_base + qi] : 0.f;
     }
     __syncthreads();
 
@@ -312,9 +344,10 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
         const int qc = tx + 16 * j;
         const int qi = q0 + qc;
         float p = 0.f, ds = 0.f;
-        if (key_ok[r] && qi < L) {
-          const int rel = clamp_rel(kj - qi, max_distance);
-          p = expf(st[i][j] + bias[rel + max_distance] - col_lse[qc]);
+        if (key_ok[r] && qi < Lq && (!kCausal || kj <= qi)) {
+          float sc = st[i][j];
+          if constexpr (kBias) sc += bias[clamp_rel(kj - qi, max_distance) + max_distance];
+          p = expf(sc - col_lse[qc]);
           ds = p * (dpt[i][j] - col_delta[qc]);
         }
         pts[r * PPAD + qc] = p;
@@ -349,10 +382,10 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty * 4 + i;
-    if (kj < L) {
+    if (kj < Lk) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const long off = base + (long)kj * row_stride + tx + 16 * j;
+        const long off = k_base + (long)kj * row_stride + tx + 16 * j;
         dk[off] = from_float<T>(acc_dk[i][j]);
         dv[off] = from_float<T>(acc_dv[i][j]);
       }
@@ -360,80 +393,107 @@ __global__ void __launch_bounds__(THREADS) encoder_attn_bwd_dkv_kernel(
   }
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* mask,
-              const void* rel_bias, const void* bucket_table, const void* lse,
-              const void* delta, void* dq, void* dbins, int batch, int length, int num_heads,
-              int max_distance, cudaStream_t stream) {
-  const size_t smem = dq_shared_bytes(max_distance);
+// The arguments of both backward entry points, in their C order.
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *mask, *rel_bias, *bucket_table, *lse, *delta;
+  void *out_a, *out_b;  // dq and dbins, or dk and dv
+  int batch, q_len, kv_len, num_heads, max_distance;
+  cudaStream_t stream;
+};
+
+template <typename T, int MODE>
+int launch_dq(const BwdArgs& a) {
+  const size_t smem = dq_shared_bytes(bias_entries(MODE, a.max_distance));
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dq_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((length + BQ - 1) / BQ, num_heads, batch);
-  encoder_attn_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const int*>(mask),
-      static_cast<const float*>(rel_bias), static_cast<const int*>(bucket_table),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq),
-      static_cast<float*>(dbins), length, num_heads, max_distance);
+  const dim3 grid((a.q_len + BQ - 1) / BQ, a.num_heads, a.batch);
+  attn_bwd_dq_kernel<T, MODE><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const int*>(a.mask),
+      static_cast<const float*>(a.rel_bias), static_cast<const int*>(a.bucket_table),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out_a), static_cast<float*>(a.out_b), a.q_len, a.kv_len, a.num_heads,
+      a.max_distance);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* mask,
-               const void* rel_bias, const void* bucket_table, const void* lse,
-               const void* delta, void* dk, void* dv, int batch, int length, int num_heads,
-               int max_distance, cudaStream_t stream) {
-  const size_t smem = dkv_shared_bytes(max_distance);
+template <typename T, int MODE>
+int launch_dkv(const BwdArgs& a) {
+  const size_t smem = dkv_shared_bytes(bias_entries(MODE, a.max_distance));
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_attn_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dkv_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((length + BK - 1) / BK, num_heads, batch);
-  encoder_attn_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const int*>(mask),
-      static_cast<const float*>(rel_bias), static_cast<const int*>(bucket_table),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), length, num_heads, max_distance);
+  const dim3 grid((a.kv_len + BK - 1) / BK, a.num_heads, a.batch);
+  attn_bwd_dkv_kernel<T, MODE><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const int*>(a.mask),
+      static_cast<const float*>(a.rel_bias), static_cast<const int*>(a.bucket_table),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out_a), static_cast<T*>(a.out_b), a.q_len, a.kv_len, a.num_heads,
+      a.max_distance);
   return (int)cudaGetLastError();
 }
+
+// Dispatch on dtype and mode; Launcher is DqLauncher or DkvLauncher.
+template <template <typename, int> class Launcher>
+int dispatch(const BwdArgs& a, int mode, int is_bf16) {
+  if (mode == CAUSAL_SELF && a.q_len != a.kv_len) return (int)cudaErrorInvalidValue;
+  switch (mode * 2 + (is_bf16 ? 1 : 0)) {
+    case ENCODER * 2: return Launcher<float, ENCODER>::run(a);
+    case ENCODER * 2 + 1: return Launcher<__nv_bfloat16, ENCODER>::run(a);
+    case CAUSAL_SELF * 2: return Launcher<float, CAUSAL_SELF>::run(a);
+    case CAUSAL_SELF * 2 + 1: return Launcher<__nv_bfloat16, CAUSAL_SELF>::run(a);
+    case CROSS * 2: return Launcher<float, CROSS>::run(a);
+    case CROSS * 2 + 1: return Launcher<__nv_bfloat16, CROSS>::run(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int MODE>
+struct DqLauncher {
+  static int run(const BwdArgs& a) { return launch_dq<T, MODE>(a); }
+};
+template <typename T, int MODE>
+struct DkvLauncher {
+  static int run(const BwdArgs& a) { return launch_dkv<T, MODE>(a); }
+};
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, dout, dq: [batch, length, num_heads * 64], contiguous, fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1). mask: int32 [batch, length].
-// rel_bias: fp32 [num_buckets, num_heads]. bucket_table: int32
-// [2 * max_distance + 1]. lse, delta: fp32 [batch, num_heads, length].
-// dbins: fp32 [num_heads, 2 * max_distance + 1], zeroed by the caller; the
-// kernel adds dS summed by clamped relative position into it.
+// q, dout, dq: [batch, q_len, num_heads * 64]; k, v: [batch, kv_len,
+// num_heads * 64]; contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
+// mask: int32 [batch, kv_len]. mode: 0 encoder, 1 causal self-attention
+// (q_len == kv_len), 2 cross-attention. rel_bias: fp32 [num_buckets,
+// num_heads]; bucket_table: int32 [2 * max_distance + 1]. lse, delta: fp32
+// [batch, num_heads, q_len]. dbins: fp32 [num_heads, 2 * max_distance + 1],
+// zeroed by the caller; the kernel adds dS summed by clamped relative
+// position into it (rel_bias, bucket_table and dbins are unread in mode 2
+// and may be null).
 // Returns a cudaError_t value; 0 is success.
-int encoder_attn_backward_dq(const void* q, const void* k, const void* v, const void* dout,
-                             const void* mask, const void* rel_bias, const void* bucket_table,
-                             const void* lse, const void* delta, void* dq, void* dbins,
-                             int batch, int length, int num_heads, int max_distance,
-                             int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta,
-                                    dq, dbins, batch, length, num_heads, max_distance, s);
-  return launch_dq<float>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dq, dbins,
-                          batch, length, num_heads, max_distance, s);
+int t5_attn_backward_dq(const void* q, const void* k, const void* v, const void* dout,
+                        const void* mask, const void* rel_bias, const void* bucket_table,
+                        const void* lse, const void* delta, void* dq, void* dbins, int batch,
+                        int q_len, int kv_len, int num_heads, int max_distance, int mode,
+                        int is_bf16, void* stream) {
+  const BwdArgs a{q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dq, dbins,
+                  batch, q_len, kv_len, num_heads, max_distance,
+                  static_cast<cudaStream_t>(stream)};
+  return dispatch<DqLauncher>(a, mode, is_bf16);
 }
 
-// As above; dk, dv: [batch, length, num_heads * 64] in the input dtype.
-int encoder_attn_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
-                              const void* mask, const void* rel_bias, const void* bucket_table,
-                              const void* lse, const void* delta, void* dk, void* dv,
-                              int batch, int length, int num_heads, int max_distance,
-                              int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta,
-                                     dk, dv, batch, length, num_heads, max_distance, s);
-  return launch_dkv<float>(q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dk, dv,
-                           batch, length, num_heads, max_distance, s);
+// As above; dk, dv: [batch, kv_len, num_heads * 64] in the input dtype.
+int t5_attn_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
+                         const void* mask, const void* rel_bias, const void* bucket_table,
+                         const void* lse, const void* delta, void* dk, void* dv, int batch,
+                         int q_len, int kv_len, int num_heads, int max_distance, int mode,
+                         int is_bf16, void* stream) {
+  const BwdArgs a{q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dk, dv,
+                  batch, q_len, kv_len, num_heads, max_distance,
+                  static_cast<cudaStream_t>(stream)};
+  return dispatch<DkvLauncher>(a, mode, is_bf16);
 }
 
 }  // extern "C"

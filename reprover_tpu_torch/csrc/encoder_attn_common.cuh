@@ -1,4 +1,4 @@
-// Tile geometry and helpers shared by the T5 encoder-attention kernels
+// Tile geometry and helpers shared by the T5 attention kernels
 // (encoder_attn.cu: forward; encoder_attn_bwd.cu: backward).
 //
 // Every kernel runs 256 threads as a 16 x 16 grid over a 64 x 64 tile; the
@@ -6,6 +6,23 @@
 // tx+48, so the 16 threads of one row are one half-warp and row reductions
 // are four xor-shuffles. Tiles sit in shared memory as fp32 with a padded
 // row stride, so column reads hit 32 different banks.
+//
+// One source serves the three attentions of T5, chosen at compile time by a
+// mode (a template parameter; the C entry points take it as an int):
+//
+//   ENCODER      bidirectional self-attention: the relative-position bias,
+//                the encoder's key mask (kernels 1, 3, 4 of the JAX package);
+//   CAUSAL_SELF  decoder self-attention: the relative-position bias from a
+//                table built with unidirectional buckets, and key k > query q
+//                masked (kernels 1c, 3c, 4c);
+//   CROSS        decoder-encoder attention: no bias, the encoder's key mask,
+//                query length T and key length S independent (kernels 8, 9,
+//                10).
+//
+// The bias is always read as table[clamp(k - q, -max_distance,
+// max_distance) + max_distance]: bidirectional and unidirectional buckets
+// differ only in the table's contents, which the caller builds with the
+// plain bucket function.
 
 #pragma once
 
@@ -20,6 +37,16 @@ constexpr int BK = 64;         // keys per tile
 constexpr int THREADS = 256;   // a 16 x 16 grid of threads, 4 x 4 outputs each
 constexpr int PAD = D + 1;     // shared row stride of a [rows][D] tile
 constexpr int PPAD = BK + 1;   // shared row stride of a [rows][BK] tile
+
+enum Mode : int { ENCODER = 0, CAUSAL_SELF = 1, CROSS = 2 };
+
+__host__ __device__ constexpr bool has_bias(int mode) { return mode != CROSS; }
+__host__ __device__ constexpr bool is_causal(int mode) { return mode == CAUSAL_SELF; }
+
+// Entries of the per-head bias table a block keeps in shared memory.
+inline int bias_entries(int mode, int max_distance) {
+  return has_bias(mode) ? 2 * max_distance + 1 : 0;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

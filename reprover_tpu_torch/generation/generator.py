@@ -9,7 +9,6 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from reprover_tpu.tokenizer import ByT5Tokenizer
 from reprover_tpu_torch.generation.beam_search import BeamSearchResult, beam_search
 from reprover_tpu_torch.models.hf_import import load_hf_t5, reject_decoder_only
 from reprover_tpu_torch.models.t5 import (
@@ -24,6 +23,7 @@ from reprover_tpu_torch.models.t5 import (
     reorder_decode_state,
     resolve_device,
 )
+from reprover_tpu_torch.tokenizer import ByT5Tokenizer
 
 QUANTIZE_TODO = "ROADMAP.md Queue 1 item 8 (quantization)"
 

@@ -14,11 +14,13 @@ in float32 (cuBLAS does so for bfloat16, then rounds the output to bfloat16,
 which is what ``preferred_element_type=float32`` followed by ``astype`` does).
 
 The encoder's self-attention goes through
-:func:`reprover_tpu_torch.ops.flash_attention.encoder_flash_attention`: on a
-CUDA tensor that is the hand-written kernel, on a CPU tensor its plain
-version. The incremental decoder uses plain attention, as the JAX package
-leaves it to XLA. Its attention scores are the matrix product's output in
-``compute_dtype`` before the float32 softmax.
+:func:`reprover_tpu_torch.ops.flash_attention.encoder_flash_attention`, and
+the teacher-forced decoder's (:func:`decode`) through
+``causal_flash_attention`` and ``cross_flash_attention``: on a CUDA tensor
+those are the hand-written kernels, on a CPU tensor their plain versions.
+The incremental decoder, and ``decode`` with a ``decoder_mask``, use plain
+attention, as the JAX package leaves it to XLA. Their attention scores are
+the matrix product's output in ``compute_dtype`` before the float32 softmax.
 """
 
 from __future__ import annotations
@@ -30,7 +32,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from reprover_tpu_torch.ops.flash_attention import encoder_flash_attention
+from reprover_tpu_torch.ops.flash_attention import (
+    causal_flash_attention,
+    cross_flash_attention,
+    encoder_flash_attention,
+)
 
 Params = Dict[str, Any]
 
@@ -60,9 +66,10 @@ class T5Config:
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     compute_dtype: torch.dtype = torch.float32
-    # Rematerialize each encoder layer's activations in backward
-    # (``torch.utils.checkpoint``): the JAX package's ``remat``. Only the
-    # "full" policy is ported; "lite" and "offload" raise.
+    # Rematerialize each encoder and teacher-forced decoder layer's
+    # activations in backward (``torch.utils.checkpoint``): the JAX
+    # package's ``remat``. Only the "full" policy is ported; "lite" and
+    # "offload" raise.
     remat: bool = False
     remat_policy: str = "full"
 
@@ -346,7 +353,7 @@ def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor) -> torch.Tensor:
 
 REMAT_TODO = (
     "remat_policy {!r} is not ported: only 'full' (torch.utils.checkpoint per "
-    "encoder layer) is (ROADMAP.md Queue 1 item 5)"
+    "layer) is (ROADMAP.md Queue 1 item 5)"
 )
 
 
@@ -400,6 +407,135 @@ def encode(
         else:
             h = layer(h, lp)
     return rms_norm(h, enc["final_norm"], eps)
+
+
+# ------------------------------------------------------------------ #
+# Decoder (teacher-forced full-sequence) and the seq2seq loss
+# ------------------------------------------------------------------ #
+
+
+def shift_right(ids: torch.Tensor, cfg: T5Config) -> torch.Tensor:
+    """Prepend ``decoder_start_token_id``; also maps -100 label fill to pad
+    (HF `T5ForConditionalGeneration._shift_right` semantics)."""
+    shifted = torch.roll(ids, 1, dims=-1)
+    shifted[:, 0] = cfg.decoder_start_token_id
+    return torch.where(shifted == -100, torch.full_like(shifted, cfg.pad_token_id), shifted)
+
+
+def _attn_block(
+    x: torch.Tensor, kv_src: torch.Tensor, p: Params, bias: torch.Tensor, cfg: T5Config
+) -> torch.Tensor:
+    """Plain multi-head attention of ``x`` over ``kv_src`` plus the output
+    projection (the naive path of :func:`decode`)."""
+    dtype = cfg.compute_dtype
+    q = _split_heads(_dense(x, p["q"], dtype), cfg.num_heads, cfg.d_kv)
+    k = _split_heads(_dense(kv_src, p["k"], dtype), cfg.num_heads, cfg.d_kv)
+    v = _split_heads(_dense(kv_src, p["v"], dtype), cfg.num_heads, cfg.d_kv)
+    return _dense(_merge_heads(attention(q, k, v, bias, dtype)), p["o"], dtype)
+
+
+def decode(
+    params: Params,
+    cfg: T5Config,
+    encoder_hidden: torch.Tensor,  # [B, S, d_model]
+    encoder_mask: torch.Tensor,  # [B, S]
+    decoder_input_ids: torch.Tensor,  # int [B, T]
+    decoder_mask: Optional[torch.Tensor] = None,  # [B, T] or None (causal only)
+) -> torch.Tensor:
+    """Teacher-forced decoder forward -> logits ``[B, T, vocab]`` fp32.
+
+    With ``decoder_mask=None`` (training's case: HF T5 feeds the decoder
+    causal-only attention) the self- and cross-attention go through
+    ``causal_flash_attention`` and ``cross_flash_attention`` at any length:
+    the kernels on the card, their plain versions on the CPU. With a
+    ``decoder_mask`` the naive path runs, padding keys masked with the finite
+    ``NEG_INF``, as in the JAX package. With ``cfg.remat`` and grad on, each
+    layer runs under ``torch.utils.checkpoint``.
+    """
+    check_remat_policy(cfg)
+    dtype = cfg.compute_dtype
+    dec = params["decoder"]
+    eps = cfg.layer_norm_epsilon
+    enc_h = encoder_hidden.to(dtype)
+
+    if decoder_mask is None:
+
+        def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
+            n = rms_norm(h, lp["self_norm"], eps)
+            p = lp["self_attn"]
+            # Flat [B, T, H*d] projection layout straight into the kernels.
+            attn = causal_flash_attention(
+                _dense(n, p["q"], dtype),
+                _dense(n, p["k"], dtype),
+                _dense(n, p["v"], dtype),
+                dec["rel_bias"],
+                num_heads=cfg.num_heads,
+                num_buckets=cfg.relative_attention_num_buckets,
+                max_distance=cfg.relative_attention_max_distance,
+            )
+            h = h + _dense(attn, p["o"], dtype)
+            pc = lp["cross_attn"]
+            n = rms_norm(h, lp["cross_norm"], eps)
+            attn = cross_flash_attention(
+                _dense(n, pc["q"], dtype),
+                _dense(enc_h, pc["k"], dtype),
+                _dense(enc_h, pc["v"], dtype),
+                encoder_mask,
+                num_heads=cfg.num_heads,
+            )
+            h = h + _dense(attn, pc["o"], dtype)
+            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+
+    else:
+        positions = torch.arange(decoder_input_ids.shape[1], device=decoder_input_ids.device)
+        self_bias = compute_position_bias(dec["rel_bias"], positions, positions, False, cfg)
+        causal = (positions[None, :] <= positions[:, None])[None, None]
+        self_bias = torch.where(causal, self_bias, torch.full_like(self_bias, NEG_INF))
+        self_bias = self_bias + _mask_bias(decoder_mask)
+        cross_bias = _mask_bias(encoder_mask)
+
+        def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
+            n = rms_norm(h, lp["self_norm"], eps)
+            h = h + _attn_block(n, n, lp["self_attn"], self_bias, cfg)
+            n = rms_norm(h, lp["cross_norm"], eps)
+            h = h + _attn_block(n, enc_h, lp["cross_attn"], cross_bias, cfg)
+            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    h = params["shared_embedding"].to(dtype)[decoder_input_ids]
+    for lp in unbind_layers(dec["layers"], cfg.num_decoder_layers):
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(layer, h, lp, use_reentrant=False)
+        else:
+            h = layer(h, lp)
+    return _lm_logits(params, cfg, rms_norm(h, dec["final_norm"], eps))
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, T, V] fp32
+    labels: torch.Tensor,  # [B, T] int, -100 = ignored
+) -> torch.Tensor:
+    """Token-mean cross entropy with -100 masking (HF ``labels`` semantics,
+    `reference/generation/model.py:101-111`)."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def forward_loss(
+    params: Params,
+    cfg: T5Config,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    labels: torch.Tensor,
+) -> torch.Tensor:
+    """Seq2seq CE loss with HF ``labels`` semantics (shift-right inside)."""
+    enc = encode(params, cfg, input_ids, attention_mask)
+    logits = decode(params, cfg, enc, attention_mask, shift_right(labels, cfg))
+    return cross_entropy_loss(logits, labels)
 
 
 # ------------------------------------------------------------------ #

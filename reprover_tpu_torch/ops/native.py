@@ -64,11 +64,11 @@ def _check(cmd: List[str], out: str, rc: int) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.encoder_attn_forward.argtypes = [vp] * 8 + [i] * 5 + [vp]
-    lib.encoder_attn_forward.restype = i
-    for name in ("encoder_attn_backward_dq", "encoder_attn_backward_dkv"):
+    lib.t5_attn_forward.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    lib.t5_attn_forward.restype = i
+    for name in ("t5_attn_backward_dq", "t5_attn_backward_dkv"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 11 + [i] * 5 + [vp]
+        fn.argtypes = [vp] * 11 + [i] * 7 + [vp]
         fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p

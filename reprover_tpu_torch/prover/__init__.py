@@ -1,10 +1,85 @@
-"""Proof search on the port's models. The search itself, the environments,
-the inference service and the evaluation harness are the JAX package's
-host-side modules (``reprover_tpu.prover``), which import no JAX."""
+"""Proof search on the port's models: environment protocol, search tree,
+best-first search, tactic generators, the shared inference service, the
+distributed worker pool and the Pass@1 evaluation harness. Copies of the JAX
+package's host-side modules, wired to the port's models.
 
+Not copied yet (ROADMAP.md Queue 1): ``attribution`` (failure attribution),
+``api_generator`` (tactics from a hosted LLM API); the streaming service
+raises ``NotImplementedError``."""
+
+from reprover_tpu_torch.prover.environment import (
+    Environment,
+    EnvironmentCrashError,
+    EnvironmentInitError,
+    EnvironmentTimeoutError,
+    FakeEnvironment,
+    LeanError,
+    ProofFinished,
+    ProofGivenUp,
+    RepoSpec,
+    TacticResult,
+    TacticState,
+    TacticTimeout,
+    Theorem,
+    environment_from_dataset,
+    lean_dojo_available,
+)
+from reprover_tpu_torch.prover.search_tree import (
+    Edge,
+    ErrorNode,
+    InternalNode,
+    ProofFinishedNode,
+    Status,
+)
+from reprover_tpu_torch.prover.proof_search import BestFirstSearchProver, SearchResult
 from reprover_tpu_torch.prover.tactic_generator import (
+    FixedTacticGenerator,
     LocalTacticGenerator,
+    RemoteTacticGenerator,
     RetrievalAugmentedTacticGenerator,
+    TacticGenerator,
+)
+from reprover_tpu_torch.prover.distributed import DistributedProver
+from reprover_tpu_torch.prover.evaluate import aggregate_pass1, evaluate, get_theorems
+from reprover_tpu_torch.prover.service import (
+    InferenceService,
+    ServiceClient,
+    StreamingInferenceService,
 )
 
-__all__ = ["LocalTacticGenerator", "RetrievalAugmentedTacticGenerator"]
+__all__ = [
+    "Environment",
+    "EnvironmentCrashError",
+    "EnvironmentInitError",
+    "EnvironmentTimeoutError",
+    "FakeEnvironment",
+    "LeanError",
+    "ProofFinished",
+    "ProofGivenUp",
+    "RepoSpec",
+    "TacticResult",
+    "TacticState",
+    "TacticTimeout",
+    "Theorem",
+    "environment_from_dataset",
+    "lean_dojo_available",
+    "Edge",
+    "ErrorNode",
+    "InternalNode",
+    "ProofFinishedNode",
+    "Status",
+    "BestFirstSearchProver",
+    "SearchResult",
+    "FixedTacticGenerator",
+    "LocalTacticGenerator",
+    "RemoteTacticGenerator",
+    "RetrievalAugmentedTacticGenerator",
+    "TacticGenerator",
+    "DistributedProver",
+    "aggregate_pass1",
+    "evaluate",
+    "get_theorems",
+    "InferenceService",
+    "StreamingInferenceService",
+    "ServiceClient",
+]

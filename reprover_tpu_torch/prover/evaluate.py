@@ -1,34 +1,172 @@
-"""Pass@1 prover evaluation CLI on the port's models.
+"""Pass@1 prover evaluation: the harness and its CLI on the port's models.
 
-Same flags and defaults as ``python -m reprover_tpu.prover.evaluate``, plus
-``--device`` (default ``cuda``; raises when there is no card). The harness
-(``evaluate``), the search, the worker pool and the shared
-``InferenceService`` are the JAX package's host-side modules, reused as
-they are; only the models come from this package.
+The harness (:func:`get_theorems`, :func:`aggregate_pass1`,
+:func:`evaluate`) is a copy of the JAX package's ``prover/evaluate.py``.
+Parity with `reference/prover/evaluate.py`:
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-``--quantize`` (ROADMAP.md Queue 1 item 8), ``--streaming`` (Queue 1 item
-6), decoder-only checkpoints (Queue 1 item 7) and ``--approx`` (exact
-retrieval only).
+- theorem selection with ``file_path`` / ``full_name`` / md5-prefix
+  ``name_filter`` / ``num_theorems`` filters (`evaluate.py:59-71`);
+- deterministic md5-based shuffle-sort of (file_path, full_name) so
+  distributed eval runs are shardable without coordination
+  (`evaluate.py:72-81`);
+- Pass@1 = proved / (proved + failed); ``None`` results (init failures)
+  discarded from the denominator (`evaluate.py:146-162`);
+- optional results pickle (`evaluate.py:164-170`).
+
+The environment is injected (real LeanDojo or a fake), so the harness runs
+unmodified in tests and in production.
+
+The CLI has the JAX one's flags and defaults, plus ``--device`` (default
+``cuda``; raises when there is no card). Not ported yet, and raising
+``NotImplementedError`` when asked for: ``--quantize`` (ROADMAP.md Queue 1
+item 8), ``--streaming`` (Queue 1 item 6), decoder-only checkpoints (Queue 1
+item 7) and ``--approx`` (exact retrieval only).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import logging
-from typing import Any, List, Optional
+import os
+import pickle
+import uuid
+from typing import Any, List, Optional, Tuple
 
-from reprover_tpu.prover.evaluate import evaluate
-from reprover_tpu.prover.tactic_generator import FixedTacticGenerator, TacticGenerator
+from reprover_tpu_torch.data import Pos
 from reprover_tpu_torch.generation.generator import QUANTIZE_TODO
+from reprover_tpu_torch.prover.distributed import DistributedProver
+from reprover_tpu_torch.prover.environment import Environment, RepoSpec, Theorem
+from reprover_tpu_torch.prover.proof_search import SearchResult
+from reprover_tpu_torch.prover.search_tree import Status
+from reprover_tpu_torch.prover.service import STREAMING_TODO
+from reprover_tpu_torch.prover.tactic_generator import FixedTacticGenerator, TacticGenerator
 from reprover_tpu_torch.retrieval.retriever import APPROX_TODO
 
 logger = logging.getLogger(__name__)
 
-STREAMING_TODO = "ROADMAP.md Queue 1 item 6 (streaming serving engine)"
+
+def get_theorems(
+    data_path: str,
+    split: str = "val",
+    file_path: Optional[str] = None,
+    full_name: Optional[str] = None,
+    name_filter: Optional[str] = None,
+    num_theorems: Optional[int] = None,
+) -> Tuple[List[Theorem], List[Pos]]:
+    """Load + filter + md5-sort theorems from a LeanDojo benchmark split."""
+    with open(os.path.join(data_path, f"{split}.json")) as f:
+        data = json.load(f)
+
+    selected = []
+    for t in data:
+        if file_path is not None and t["file_path"] != file_path:
+            continue
+        if full_name is not None and t["full_name"] != full_name:
+            continue
+        if name_filter is not None and not hashlib.md5(
+            t["full_name"].encode()
+        ).hexdigest().startswith(name_filter):
+            continue
+        repo = RepoSpec(t["url"], t["commit"])
+        selected.append(
+            (Theorem(repo, t["file_path"], t["full_name"]), Pos.of(t["start"]))
+        )
+    assert len(selected) > 0, "no theorems matched the filters"
+
+    # Deterministic shuffle: sort by md5("file_path:full_name")
+    # (`evaluate.py:72-81`).
+    selected.sort(
+        key=lambda tp: hashlib.md5(
+            f"{tp[0].file_path}:{tp[0].full_name}".encode()
+        ).hexdigest()
+    )
+    if num_theorems is not None:
+        selected = selected[:num_theorems]
+    logger.info("%d theorems loaded from %s", len(selected), data_path)
+
+    theorems = [t for t, _ in selected]
+    positions = [p for _, p in selected]
+    return theorems, positions
+
+
+def aggregate_pass1(results: List[Optional[SearchResult]]) -> float:
+    """Pass@1 with init-failure discards (`evaluate.py:146-162`)."""
+    num_proved = num_failed = num_discarded = 0
+    for r in results:
+        if r is None:
+            num_discarded += 1
+        elif r.status == Status.PROVED:
+            num_proved += 1
+        else:
+            num_failed += 1
+    logger.info(
+        "evaluation done: %d proved, %d failed, %d discarded",
+        num_proved,
+        num_failed,
+        num_discarded,
+    )
+    if num_proved + num_failed == 0:
+        return float("nan")
+    return num_proved / (num_proved + num_failed)
+
+
+def evaluate(
+    data_path: str,
+    environment: Environment,
+    tac_gen: TacticGenerator,
+    exp_id: Optional[str] = None,
+    split: str = "val",
+    file_path: Optional[str] = None,
+    full_name: Optional[str] = None,
+    name_filter: Optional[str] = None,
+    num_theorems: Optional[int] = None,
+    num_sampled_tactics: int = 64,
+    timeout: float = 600,
+    max_expansions: Optional[int] = None,
+    num_workers: int = 1,
+    save_results: bool = False,
+    debug: bool = False,
+    make_client: Any = None,
+    return_results: bool = False,
+) -> Any:
+    """End-to-end prover evaluation -> Pass@1 (`evaluate.py:94-172`).
+
+    ``return_results=True`` returns ``(pass_1, results)`` so callers (e.g.
+    the failure-attribution harness, the JAX package's
+    ``prover.attribution``)
+    can inspect per-theorem :class:`SearchResult` records without a pickle
+    round-trip."""
+    theorems, positions = get_theorems(
+        data_path, split, file_path, full_name, name_filter, num_theorems
+    )
+    prover = DistributedProver(
+        tac_gen,
+        environment,
+        num_workers,
+        timeout=timeout,
+        max_expansions=max_expansions,
+        num_sampled_tactics=num_sampled_tactics,
+        debug=debug,
+        make_client=make_client,
+    )
+    results = prover.search_unordered(theorems, positions)
+    pass_1 = aggregate_pass1(results)
+
+    if save_results:
+        exp_id = exp_id or str(uuid.uuid4())
+        pickle_path = f"{exp_id}_results.pickle"
+        with open(pickle_path, "wb") as f:
+            pickle.dump(results, f)
+        logger.info("results saved to %s", pickle_path)
+    if return_results:
+        return pass_1, results
+    return pass_1
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags and defaults, plus ``--device``."""
     parser = argparse.ArgumentParser(description="Evaluate the prover (Pass@1) on the PyTorch port.")
     parser.add_argument("--data-path", type=str, required=True)
     parser.add_argument("--exp-id", type=str)
@@ -73,16 +211,15 @@ def main(argv: Optional[List[str]] = None) -> float:
     if not (args.gen_ckpt_path or args.tactic):
         raise SystemExit("one of --gen_ckpt_path or --tactic is required")
     if args.streaming:
-        raise NotImplementedError(f"--streaming is not ported yet: {STREAMING_TODO}")
+        raise NotImplementedError(STREAMING_TODO)
     if args.quantize:
         raise NotImplementedError(f"--quantize is not ported yet: {QUANTIZE_TODO}")
     if args.approx:
         raise NotImplementedError(APPROX_TODO)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
 
-    from reprover_tpu.prover.environment import LeanDojoEnvironment
-
     from reprover_tpu_torch.models.t5 import resolve_device
+    from reprover_tpu_torch.prover.environment import LeanDojoEnvironment
 
     if args.gen_ckpt_path is not None:
         resolve_device(args.device)
@@ -115,9 +252,8 @@ def main(argv: Optional[List[str]] = None) -> float:
     elif args.num_workers > 1:
         # One device owner in this process; the searches run in worker
         # processes and reach the models through the shared service.
-        from reprover_tpu.prover.service import InferenceService
-
         from reprover_tpu_torch.generation import TacticGeneratorModel
+        from reprover_tpu_torch.prover.service import InferenceService
         from reprover_tpu_torch.retrieval import PremiseRetriever
 
         model = TacticGeneratorModel.load_hf(

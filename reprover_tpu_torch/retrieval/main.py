@@ -15,8 +15,8 @@ device with no card raises). Examples::
 On a card the encoder computes in bfloat16 over float32 master parameters
 and its attention (forward and backward) runs through the port's CUDA
 kernels; on the CPU it computes in float32 (the JAX package's TPU/CPU
-rule). The data module is the JAX package's, which imports no JAX. Only
-the encoder's parameters are built and trained.
+rule). The data module is the port's copy of the JAX package's. Only the
+encoder's parameters are built and trained.
 
 Not ported (each raises with a pointer into ROADMAP.md): ``--model.approx``,
 ``--model.offload_optimizer``, remat policies other than ``full``, and
@@ -96,7 +96,6 @@ LINKS = [("data.max_seq_len", "model.max_seq_len")]
 def _build(cfg: RetrievalConfig) -> Tuple[Any, Any, Any]:
     """(data module, retriever over float32 master params on the device,
     model config)."""
-    from reprover_tpu.retrieval.datamodule import RetrievalDataModule
     from reprover_tpu_torch.models.hf_import import load_hf_t5
     from reprover_tpu_torch.models.t5 import (
         T5Config,
@@ -108,6 +107,7 @@ def _build(cfg: RetrievalConfig) -> Tuple[Any, Any, Any]:
         place_master_params,
         resolve_device,
     )
+    from reprover_tpu_torch.retrieval.datamodule import RetrievalDataModule
     from reprover_tpu_torch.retrieval.retriever import APPROX_TODO, PremiseRetriever
     from reprover_tpu_torch.training.tasks import OFFLOAD_OPT_TODO
 

@@ -1,26 +1,27 @@
 """Retriever validation metrics and the predictions artifact on the port.
 
-:func:`validation_metrics` is the JAX package's
-(``reprover_tpu.retrieval.prediction.validation_metrics``) with two
-repairs for the port: the embedding probe is copied to host numpy before
-the health telemetry reads it (the port's corpus embeddings are a device
-tensor, which ``np.asarray`` cannot take on a card), and the telemetry
-comes from the port's ``training.health`` (the JAX package's import of its
-own runs ``reprover_tpu/training/__init__.py``, which imports JAX).
-:func:`predict` and :func:`save_predictions` are the JAX package's, which
-import no JAX.
+A copy of the JAX package's ``retrieval/prediction.py``, with one repair in
+:func:`validation_metrics`: the embedding probe is copied to host numpy
+before the health telemetry (the port's ``training.health``) reads it, since
+the port's corpus embeddings are a device tensor, which ``np.asarray``
+cannot take on a card. :func:`predict` writes the per-tactic records of
+``predictions.pickle`` (`reference/retrieval/model.py:281-336`), which
+generator training reads through ``generation.datamodule.load_preds``.
 """
 
 from __future__ import annotations
 
+import logging
+import pickle
 from typing import Any, Dict, List
 
 import numpy as np
 
-from reprover_tpu.retrieval.prediction import predict, save_predictions
 from reprover_tpu_torch.training.health import embedding_anisotropy, embedding_eff_rank
 
 __all__ = ["validation_metrics", "predict", "save_predictions"]
+
+logger = logging.getLogger(__name__)
 
 
 def validation_metrics(
@@ -65,3 +66,44 @@ def validation_metrics(
         metrics["emb_eff_rank"] = embedding_eff_rank(probe)
         metrics.update(embedding_anisotropy(probe))
     return metrics
+
+
+def predict(
+    retriever: Any,
+    loader: Any,
+    num_retrieved: int = 100,
+    reindex_batch_size: int = 64,
+) -> List[Dict[str, Any]]:
+    """Per-tactic retrieval records (`retrieval/model.py:281-327` schema).
+
+    ``reindex_batch_size`` defaults to the reference's eval/index batch of 64
+    (`retrieval/index.py:24`); the in-retriever lazy reindex keeps the
+    reference's 32 (`retrieval/model.py:348`)."""
+    retriever.reindex_corpus(batch_size=reindex_batch_size)
+    outputs: List[Dict[str, Any]] = []
+    for batch in loader:
+        retrieved, scores = retriever.retrieve_batch(batch["context"], num_retrieved)
+        for i in range(len(batch["context"])):
+            outputs.append(
+                {
+                    "url": batch["url"][i],
+                    "commit": batch["commit"][i],
+                    "file_path": batch["file_path"][i],
+                    "full_name": batch["full_name"][i],
+                    "start": batch["start"][i],
+                    "tactic_idx": batch["tactic_idx"][i],
+                    "context": batch["context"][i],
+                    "all_pos_premises": batch["all_pos_premises"][i],
+                    "retrieved_premises": retrieved[i],
+                    "scores": scores[i],
+                }
+            )
+    return outputs
+
+
+def save_predictions(outputs: List[Dict[str, Any]], path: str) -> None:
+    """Write the ``predictions.pickle`` artifact
+    (`retrieval/model.py:329-336`)."""
+    with open(path, "wb") as f:
+        pickle.dump(outputs, f)
+    logger.info("retrieval predictions saved to %s", path)

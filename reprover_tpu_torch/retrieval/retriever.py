@@ -18,8 +18,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from reprover_tpu.data import Context, Corpus, IndexedCorpus, Pos, Premise
-from reprover_tpu.tokenizer import ByT5Tokenizer
+from reprover_tpu_torch.data import Context, Corpus, IndexedCorpus, Pos, Premise
 from reprover_tpu_torch.models.hf_import import load_hf_t5
 from reprover_tpu_torch.models.t5 import (
     Params,
@@ -32,6 +31,7 @@ from reprover_tpu_torch.models.t5 import (
 )
 from reprover_tpu_torch.ops.pooling import masked_mean_normalize
 from reprover_tpu_torch.ops.topk import cosine_topk
+from reprover_tpu_torch.tokenizer import ByT5Tokenizer
 
 APPROX_TODO = (
     "approximate top-k (--approx, lax.approx_max_k in the JAX package) is not "

@@ -1,5 +1,5 @@
-"""Training of the port: optimizer, train state, retrieval losses, train
-step, the trainer loop and training-health telemetry."""
+"""Training of the port: optimizer, train state, retrieval and generation
+losses, train step, the trainer loop and training-health telemetry."""
 
 from reprover_tpu_torch.training.optim import (
     AdamWClip,
@@ -8,6 +8,7 @@ from reprover_tpu_torch.training.optim import (
 )
 from reprover_tpu_torch.training.tasks import (
     TrainState,
+    generation_loss,
     init_train_state,
     make_train_step,
     numeric_batch,
@@ -22,6 +23,7 @@ __all__ = [
     "clip_by_global_norm_",
     "constant_warmup_schedule",
     "TrainState",
+    "generation_loss",
     "init_train_state",
     "make_train_step",
     "numeric_batch",

@@ -63,7 +63,7 @@ class Trainer:
         writer: MetricWriter,
         validate_fn: Optional[ValidateFn] = None,
         on_train_batch_end: Optional[Callable[[], None]] = None,
-        device: Any = "cpu",
+        device: Any = "cuda",
     ) -> None:
         self.config = config
         self.train_step = train_step

@@ -1,16 +1,15 @@
-"""Train state, retrieval losses and the train step: the counterpart of
-:mod:`reprover_tpu.training.tasks` for the retriever on one device.
+"""Train state, losses and the train step: the counterpart of
+:mod:`reprover_tpu.training.tasks` for the retriever and the tactic
+generator on one device.
 
 The JAX package builds a pure loss and one donated, jitted update; here the
 loss runs eagerly, ``backward`` fills the float32 master parameters'
-gradients (the encoder's attention backward through the CUDA kernels on a
-card), and :class:`~reprover_tpu_torch.training.optim.AdamWClip` updates the
+gradients (the attention backward through the CUDA kernels on a card), and :class:`~reprover_tpu_torch.training.optim.AdamWClip` updates the
 parameters in place. The step returns the loss as a device tensor; nothing
 syncs with the host until a caller reads it.
 
 Not ported: the mesh (data parallelism, ZeRO-sharded moments, Megatron
-specs), Adam moments in host memory (``offload_opt``) and the generation
-loss (the generator-training slice).
+specs) and Adam moments in host memory (``offload_opt``).
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from reprover_tpu_torch.models.t5 import Params, T5Config, encode
+from reprover_tpu_torch.models.t5 import Params, T5Config, encode, forward_loss
 from reprover_tpu_torch.ops.pooling import masked_mean_normalize
 from reprover_tpu_torch.training.optim import AdamWClip
 
@@ -112,6 +111,14 @@ def retrieval_infonce_loss(
     log_pos = torch.logsumexp(pos_logits, dim=1)
     nll = torch.where(has_pos, log_z - log_pos, torch.zeros_like(log_z))
     return nll.sum() / has_pos.sum().clamp_min(1)
+
+
+def generation_loss(params: Params, cfg: T5Config, batch: Batch) -> torch.Tensor:
+    """Teacher-forced seq2seq CE with -100 masking
+    (`reference/generation/model.py:101-111`)."""
+    return forward_loss(
+        params, cfg, batch["state_ids"], batch["state_mask"], batch["tactic_ids"]
+    )
 
 
 # ------------------------------------------------------------------ #

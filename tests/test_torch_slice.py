@@ -21,6 +21,8 @@ from reprover_tpu.models import t5 as jt5
 from reprover_tpu.prover import BestFirstSearchProver, RepoSpec, Theorem, environment_from_dataset
 from reprover_tpu.prover import tactic_generator as jtg
 from reprover_tpu.retrieval.retriever import PremiseRetriever as JaxRetriever
+from reprover_tpu_torch import data as tdata
+from reprover_tpu_torch import prover as tprover
 from reprover_tpu_torch.generation import TacticGeneratorModel
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
@@ -71,11 +73,14 @@ def models(bench):
                 gen_j=gen_j, ret_j=ret_j)
 
 
-def _contexts(val, n):
+def _contexts(val, n, data=None):
+    """Contexts of the first ``n`` theorems, as the JAX package's classes or
+    as those of ``data`` (the port's copy)."""
+    context, pos = (Context, Pos) if data is None else (data.Context, data.Pos)
     ctxs = []
     for thm in val[:n]:
         tac = thm["traced_tactics"][0]
-        ctxs.append(Context(thm["file_path"], thm["full_name"], Pos.of(thm["start"]),
+        ctxs.append(context(thm["file_path"], thm["full_name"], pos.of(thm["start"]),
                             tac["state_before"]))
     return ctxs
 
@@ -90,7 +95,7 @@ def test_same_premises_and_beams(bench, models):
     )
     ctxs = _contexts(val, 4)
     jp, js = models["jax_ret"].retrieve_batch(ctxs, K)
-    tp, ts = models["ours_ret"].retrieve_batch(ctxs, K)
+    tp, ts = models["ours_ret"].retrieve_batch(_contexts(val, 4, tdata), K)
     assert [[p.full_name for p in row] for row in tp] == [[p.full_name for p in row] for row in jp]
     np.testing.assert_allclose(np.array(ts), np.array(js), atol=1e-4, rtol=1e-4)
 
@@ -107,13 +112,15 @@ def test_same_premises_and_beams(bench, models):
 def test_too_few_accessible_premises_raises(models):
     with pytest.raises(ValueError, match="fewer than k"):
         models["ours_ret"].retrieve_batch(
-            [Context("x.lean", "t", Pos(1, 1), "⊢ True")], len(models["ours_ret"].corpus) + 1
+            [tdata.Context("x.lean", "t", tdata.Pos(1, 1), "⊢ True")],
+            len(models["ours_ret"].corpus) + 1,
         )
 
 
 def test_best_first_search_matches_jax(bench, models, tmp_path):
-    """The port's generators, loaded from checkpoint paths, drive the reused
-    best-first search to the same results as the JAX package's."""
+    """The port's generators, loaded from checkpoint paths, drive the port's
+    copy of the best-first search to the same results as the JAX package's
+    generators drive its own."""
     _, val = bench
     gen_dir, ret_dir, idx_dir = (str(tmp_path / n) for n in ("gen", "ret", "idx"))
     export_hf_t5(models["gen_j"], JCFG, gen_dir)
@@ -132,16 +139,18 @@ def test_best_first_search_matches_jax(bench, models, tmp_path):
         jtg.LocalTacticGenerator(models["jax_gen"]), models["jax_ret"], max_inp_seq_len=MAX_INP,
         max_num_retrieved=K,
     )
-    env = environment_from_dataset(val)
     for thm in val[:2]:
-        theorem = Theorem(RepoSpec(thm["url"], thm["commit"]), thm["file_path"], thm["full_name"])
-        results = [
-            BestFirstSearchProver(gen, env, timeout=120, max_expansions=3,
-                                  num_sampled_tactics=BEAMS).search(theorem, Pos.of(thm["start"]))
-            for gen in (theirs, ours)
-        ]
+        results = []
+        for gen, pkg, pos in ((theirs, None, Pos), (ours, tprover, tdata.Pos)):
+            prover_cls = BestFirstSearchProver if pkg is None else pkg.BestFirstSearchProver
+            env = (environment_from_dataset if pkg is None else pkg.environment_from_dataset)(val)
+            theorem = (Theorem if pkg is None else pkg.Theorem)(
+                (RepoSpec if pkg is None else pkg.RepoSpec)(thm["url"], thm["commit"]),
+                thm["file_path"], thm["full_name"])
+            results.append(prover_cls(gen, env, timeout=120, max_expansions=3,
+                                      num_sampled_tactics=BEAMS).search(theorem, pos.of(thm["start"])))
         assert results[0] is not None and results[1] is not None
-        assert results[1].status == results[0].status
+        assert results[1].status.value == results[0].status.value  # two packages' enums
         assert results[1].num_searched_nodes == results[0].num_searched_nodes
         assert results[1].num_total_nodes == results[0].num_total_nodes
         assert results[1].proof == results[0].proof

@@ -182,7 +182,8 @@ def _trainer(tmp_path, patience=2, max_steps=50, metric_seq=None, monitor="metri
         TrainerConfig(max_steps=max_steps, val_interval=5, log_interval=5, monitor=monitor,
                       monitor_mode="max", patience=patience, ckpt_dir=str(tmp_path / "ckpts"),
                       time_limit_s=time_limit_s),
-        step_fn, writer, validate_fn=lambda state, step: {"metric": next(seq, 0.0)})
+        step_fn, writer, validate_fn=lambda state, step: {"metric": next(seq, 0.0)},
+        device="cpu")
     state = ttasks.TrainState(0, {"w": torch.ones(4)})
     loader = [{"x": np.zeros((2, 2), np.float32)}] * 100
     return trainer, state, loader, writer
@@ -334,13 +335,15 @@ def test_cli_fit_validate_predict(toy_corpus_path, toy_dataset_dir, tmp_path):
 
 
 def test_validation_metrics_without_jax(toy_corpus_path, toy_dataset_dir):
-    """The port's validation metrics run with JAX unimportable (the JAX
-    package's version imports its training package, which imports JAX)."""
+    """The port's validation metrics, on the port's own data module, run with
+    JAX and the JAX package unimportable (the JAX package's version imports
+    its training package, which imports JAX)."""
     code = f"""
 import sys
 sys.modules["jax"] = None
+sys.modules["reprover_tpu"] = None
 import torch
-from reprover_tpu.retrieval.datamodule import RetrievalDataModule
+from reprover_tpu_torch.retrieval.datamodule import RetrievalDataModule
 from reprover_tpu_torch.models.t5 import T5Config, init_params, place_master_params
 from reprover_tpu_torch.retrieval import PremiseRetriever, validation_metrics
 cfg = T5Config(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
