@@ -61,13 +61,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 11. generator train step: one fixed random batch at the reference cap
     ([8, 2304] sources, [8, 512] targets, ragged), 20 steps without warmup
     whose loss must fall, timed by part with CUDA events, peak memory, and
-    each attention kernel's share of a profiled step.
+    each attention kernel's share of a profiled step;
+12. serving kernels vs plain: the beam-reorder kernel at the byt5-small
+    and LLaMA-7B engine caches (full and short ``T_live``, a frozen slot),
+    bit-equal to its plain version; the w8a16 and w4a16 kernels at every
+    routed LLaMA-7B weight shape at decode (M = 32) and admission rows,
+    bf16 within 2e-2 * max(1, max|ref|); times from CUDA events beside the
+    bound, the plain version and a library yardstick (``index_select`` +
+    the column write; dequantize + ``torch.matmul``), and the engine's
+    einsum and scan reorders;
+13. byt5-small streaming: the phase-4 benchmark and settings through
+    ``StreamingInferenceService`` (the ``evaluate --streaming`` flags, the
+    beam reorder by the kernel) to two prover workers, the engine's ms/step
+    with a profiled chunk, and one state in fp32 through the engine and the
+    classic ``generate``: the same tactics, scores within rtol 1e-4;
+14. LLaMA-7B: seeded random weights at full ``CausalLMConfig`` width made
+    on the card one layer at a time and quantized to int4, a BPE tokenizer
+    trained on the synthetic corpus, the streaming service (4 slots x 8
+    beams, prompts 512, decode 129) answering two client threads, timed and
+    profiled engine chunks, where each weight routes, weight bytes and peak
+    memory; then the same weights in int8 through one admission wave.
 
-The line before the last is ``{"kernels": [...]}`` (the nine kernels, with
-their launches on the three main paths: serving, retriever training,
-generator training, and their times, bounds and library times at the
-generator-training shapes); the last line is ``{"ok": true, "device":
-{...}}``. Without a card the script exits 2 and prints no result.
+The line before the last is ``{"kernels": [...]}`` (the twelve kernels,
+with their launches on the main paths: serving, retriever training,
+generator training, streaming byt5-small, LLaMA-7B int4 and int8, and their
+times, bounds and library times at the generator-training shapes, or the
+LLaMA-7B decode shapes for the serving kernels); the last line is
+``{"ok": true, "device": {...}}``. Without a card the script exits 2 and
+prints no result.
 
 Rehearse the training phases on the CPU at tiny width (a minute)::
 
@@ -78,6 +99,13 @@ Rehearse the training phases on the CPU at tiny width (a minute)::
     chip_smoke.phase_train_steps(torch.device("cpu"), bench, tiny=True)
     chip_smoke.phase_generator_train(torch.device("cpu"), work, bench, tiny=True)
     chip_smoke.phase_generator_steps(torch.device("cpu"), tiny=True)
+
+and the streaming phases (a minute): shrink ``SLICE`` (e.g. 4 beams, 256
+input bytes, 12 output bytes, 2 theorems) and ``STREAM``, build a tiny
+``T5Config`` generator and retriever on the CPU, then
+``phase_streaming(cpu, bench, cfg, gen_params, ret_params)`` and
+``phase_llama(cpu, bench, tiny=True)``. Run it from a script with an
+``if __name__ == "__main__"`` guard: the prover workers are spawned.
 """
 
 from __future__ import annotations
@@ -1054,6 +1082,509 @@ def phase_generator_steps(device, tiny: bool = False) -> dict:
     return row
 
 
+# Streaming serving (phases 12-14). byt5-small: the phase-4 benchmark and
+# settings through the streaming service (slots for the two prover workers,
+# the JAX CLI's chunk defaults), kernel 13 as the cache reorder. LLaMA-7B:
+# the geometry of benchmarks/causal7b_serve.py (4 slots x 8 beams, prompts
+# of 512 tokens, 129 decode positions incl. the start token).
+STREAM = dict(num_slots=2, fp32_beams=8, fp32_max_len=64)
+LLAMA = dict(num_slots=4, num_beams=8, src=512, dec=129, seed=0, clients=2, requests_per_client=3,
+             bpe_vocab=4096)
+LLAMA_ADMIT_ROWS = LLAMA["num_slots"] * (LLAMA["src"] - 1)  # one admission wave's prefill rows
+# Every LLaMA-7B weight that routes to kernel 11/12: (K, N) of q/k/v/o,
+# gate/up, down and lm_head.
+LLAMA_WEIGHT_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+L2_BYTES = 50 * 2 ** 20
+
+
+def reset_all_launch_counts() -> None:
+    from reprover_tpu_torch.ops import beam_reorder, flash_attention, quant_matmul
+
+    for mod in (flash_attention, beam_reorder, quant_matmul):
+        mod.reset_launch_counts()
+
+
+def all_launch_counts() -> dict:
+    from reprover_tpu_torch.ops import beam_reorder, flash_attention, quant_matmul
+
+    return {**flash_attention.KERNEL_LAUNCHES, **beam_reorder.KERNEL_LAUNCHES,
+            **quant_matmul.KERNEL_LAUNCHES}
+
+
+def _time_cold_ms(fn, copies: int, iters: int) -> float:
+    """Mean ms of ``fn(i)`` cycling over ``copies`` operand sets, chosen so
+    they do not fit the 50 MB L2 cache together: each launch reads its
+    weights from device memory, as a decode step does."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % copies)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _reorder_row(device, shape, t_live: int, gen) -> dict:
+    """Kernel 13 at one engine shape (bf16, a frozen slot, ``t_live`` of the
+    buffer's T columns): bit-equality with the plain version, times of the
+    kernel, the plain version and ``index_select`` + the column write."""
+    import torch
+
+    from reprover_tpu_torch.ops import beam_reorder as br
+
+    L, S, K, H, T, d = shape
+    dt = torch.bfloat16
+    k, v = (torch.randn(shape, generator=gen, device=device).to(dt) for _ in range(2))
+    kc, vc = (torch.randn((L, S, K, H, 1, d), generator=gen, device=device).to(dt)
+              for _ in range(2))
+    parent = torch.randint(0, K, (S, K), generator=gen, device=device)
+    frozen = torch.zeros(S, dtype=torch.bool, device=device)
+    frozen[-1] = True
+    pos = torch.randint(0, t_live, (S,), generator=gen, device=device)
+    out_k, out_v = torch.zeros_like(k), torch.zeros_like(v)
+    args = (k[..., :t_live, :], v[..., :t_live, :], kc, vc, parent, frozen, pos)
+    outs = (out_k[..., :t_live, :], out_v[..., :t_live, :])
+    br.reorder_append_gather(*args, *outs)
+    want = br.reorder_append_gather_reference(*args)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1]))
+    err = max((outs[0].float() - want[0].float()).abs().max().item(),
+              (outs[1].float() - want[1].float()).abs().max().item())
+    del want
+    eff = br.parent_effective(parent, frozen)
+    flat_idx = (torch.arange(S, device=device)[:, None] * K + eff).reshape(-1)
+    slot_ix = torch.arange(S, device=device)[:, None]
+
+    live = torch.nonzero(pos < t_live)[:, 0]
+
+    def library():
+        for cache, col in ((k, kc), (v, vc)):
+            out = torch.index_select(cache[..., :t_live, :].reshape(L, S * K, H, t_live, d), 1,
+                                     flat_idx).view(L, S, K, H, t_live, d)
+            cols = col[:, slot_ix, eff][:, :, :, :, 0].permute(1, 0, 2, 3, 4)  # [S, L, K, H, d]
+            out.permute(1, 4, 0, 2, 3, 5)[live, pos[live]] = cols[live]
+
+    iters = 10
+    row = dict(kernel="beam_reorder", shape=list(shape), t_live=t_live, dtype="bfloat16",
+               bit_equal=bit_equal, max_abs_err=err,
+               ms=_time_ms(lambda: br.reorder_append_gather(*args, *outs), iters),
+               plain_ms=_time_ms(lambda: br.reorder_append_gather_reference(*args), iters),
+               library_ms=_time_ms(library, iters))
+    if t_live == T:  # the engine's two plain modes, for AUTO_SCAN_CACHE_BYTES
+        from reprover_tpu_torch.generation import engine as te
+
+        row["einsum_ms"] = _time_ms(lambda: (te.reorder_append(k, kc, parent, frozen, pos),
+                                             te.reorder_append(v, vc, parent, frozen, pos)), 3)
+        row["scan_ms"] = _time_ms(
+            lambda: te.reorder_append_scan(k, v, kc, vc, parent, frozen, pos), 3)
+        row["auto_resolves_to"] = te.resolve_reorder_mode("auto", 2 * k.numel() * 2)
+    nbytes = 2 * 2 * L * S * K * H * t_live * d * 2 + 2 * L * S * K * H * d * 2
+    row["bound_ms"], row["bound_by"] = 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+    row["ok"] = bit_equal
+    return row
+
+
+def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
+    """Kernel 11 (bits 8) or 12 (bits 4) at one LLaMA-7B weight shape in
+    bf16 (fp32 output for the lm_head): error against the plain version,
+    times of the kernel, the plain version and dequantize + ``torch.matmul``
+    over weight copies that exceed the L2 cache, and the bound."""
+    import torch
+
+    from reprover_tpu_torch.models import quantize as qz
+    from reprover_tpu_torch.ops import quant_matmul as qm
+
+    out_dtype = torch.float32 if n == 32000 else torch.bfloat16
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    qw = qz.quantize_weight(w) if bits == 8 else qz.quantize_weight4(w)
+    del w
+    copies = max(1, -(-3 * L2_BYTES // qw.nbytes))
+    ws = [qw] + [qz.QuantWeight(q=qw.q.clone(), scale=qw.scale.clone()) if bits == 8 else
+                 qz.Quant4Weight(q=qw.q.clone(), scale=qw.scale.clone(), group=qw.group)
+                 for _ in range(copies - 1)]
+    if bits == 8:
+        kernel = lambda i: qm.quant_matmul(x, ws[i].q, ws[i].scale.reshape(-1), out_dtype)  # noqa: E731
+        plain = lambda i: qm.quant_matmul_reference(x, ws[i].q, ws[i].scale, out_dtype)  # noqa: E731
+        library = lambda i: torch.matmul(x, ws[i].q.to(torch.bfloat16) * ws[i].scale.to(  # noqa: E731
+            torch.bfloat16))
+        wbytes = k * n + 4 * n
+    else:
+        kernel = lambda i: qm.quant4_matmul(x, ws[i].q, ws[i].scale, ws[i].group, out_dtype)  # noqa: E731
+        plain = lambda i: qm.quant4_matmul_reference(x, ws[i].q, ws[i].scale, ws[i].group,  # noqa: E731
+                                                     out_dtype)
+        library = lambda i: torch.matmul(x, qz.dequantize4(ws[i], torch.bfloat16))  # noqa: E731
+        wbytes = k * n // 2 + 4 * n * (k // qw.group)
+    got = kernel(0)
+    ref = qm.quant_matmul_reference(x, qw.q, qw.scale, torch.float32) if bits == 8 else \
+        qm.quant4_matmul_reference(x, qw.q, qw.scale, qw.group, torch.float32)
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    tol = BF16_REL_TOL * max(1.0, ref.abs().max().item())
+    iters = 30 if m <= 64 else 5
+    row = dict(kernel="quant_matmul" if bits == 8 else "quant4_matmul", M=m, K=k, N=n,
+               group=getattr(qw, "group", None), out=str(out_dtype).replace("torch.", ""),
+               max_abs_err=err, tol=tol, ok=bool(torch.isfinite(got).all()) and err <= tol,
+               ms=_time_cold_ms(kernel, copies, iters), plain_ms=_time_cold_ms(plain, copies, 3),
+               library_ms=_time_cold_ms(library, copies, iters))
+    nbytes = 2 * m * k + wbytes + m * n * (4 if out_dtype == torch.float32 else 2)
+    t_ops, t_bytes = 2 * m * k * n / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+    row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return row
+
+
+def phase_serving_kernels(device, byt5_shape) -> list:
+    """Phase 12: kernel 13 at the byt5-small and LLaMA-7B engine shapes
+    (full and short ``T_live``), bit-equal to its plain version; kernels 11
+    and 12 at every routed LLaMA-7B weight shape at decode (M = 32) and
+    admission (``LLAMA_ADMIT_ROWS``) rows, within 2e-2 * max(1, max|ref|)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    rows = []
+    llama = (32, LLAMA["num_slots"], LLAMA["num_beams"], 32, LLAMA["dec"], 128)
+    for shape in (tuple(byt5_shape), llama):
+        for t_live in (shape[4], max(1, shape[4] // 4)):
+            row = _reorder_row(device, shape, t_live, gen)
+            log(f"[serving_kernel] {json.dumps(row)}")
+            rows.append(row)
+            torch.cuda.empty_cache()
+    for bits in (8, 4):
+        for k, n in LLAMA_WEIGHT_SHAPES:
+            for m in (LLAMA["num_slots"] * LLAMA["num_beams"], LLAMA_ADMIT_ROWS):
+                row = _quant_row(device, bits, m, k, n, gen)
+                log(f"[serving_kernel] {json.dumps(row)}")
+                rows.append(row)
+                torch.cuda.empty_cache()
+    _check_rows(rows, "the serving kernels do")
+    return rows
+
+
+def _stream_args(num_beams: int, num_slots: int):
+    """The evaluate CLI's ``--streaming`` flags (the JAX CLI's defaults)."""
+    from reprover_tpu_torch.prover.evaluate import build_parser
+
+    return build_parser().parse_args([
+        "--data-path", "unused", "--streaming", "--num-slots", str(num_slots),
+        "--num-sampled-tactics", str(num_beams)])
+
+
+def _streaming_service(model, args, retriever=None, reorder_mode: str = "gather"):
+    from reprover_tpu_torch.prover.service import StreamingInferenceService
+
+    return StreamingInferenceService(
+        model, retriever=retriever, num_slots=args.num_slots, num_beams=args.num_sampled_tactics,
+        chunk_size=args.chunk_size, chunk_burst=args.chunk_burst,
+        pipeline_depth=args.pipeline_depth, reorder_mode=reorder_mode)
+
+
+def _timed_engine(engine, ids, mask, device, chunk: int, profile_chunk: bool) -> dict:
+    """Admit one wave, then time its chunks on the host clock (synchronized):
+    admission ms, ms per step, and the device-busy share of one profiled
+    chunk with its device time by kernel."""
+    slots = list(range(ids.shape[0]))
+    _sync(device)
+    t0 = time.perf_counter()
+    engine.admit_batch_tokens(slots, ids, mask)
+    _sync(device)
+    admit_ms = 1e3 * (time.perf_counter() - t0)
+    steps, t0 = 0, time.perf_counter()
+    for _ in range(4):
+        steps += engine.unpack_status(engine.dispatch_run(chunk))[3]
+    _sync(device)
+    row = dict(admit_ms=admit_ms, steps=steps,
+               ms_per_step=1e3 * (time.perf_counter() - t0) / max(steps, 1))
+    if profile_chunk and device.type == "cuda":
+        try:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                n = engine.unpack_status(engine.dispatch_run(chunk))[3]
+                _sync(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            by_name: dict = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            device_ms = sum(by_name.values()) / 1e3
+            # Busy share: the profiled chunk's device time over the
+            # unprofiled wall time of as many steps (the profiler's own
+            # host cost would dilute it).
+            row.update(profiled_steps=n, profiled_wall_ms=wall_ms, device_ms=device_ms,
+                       device_busy_share=device_ms / (row["ms_per_step"] * n) if n else None,
+                       top_kernels_ms={k[:60]: us / 1e3 for k, us in
+                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})
+        except Exception as ex:  # the share is a report; a profiler failure is not a phase failure
+            row["profiler"] = f"not measured: {ex!r}"
+    return row
+
+
+def phase_streaming(device, bench: str, cfg, gen_params, ret_params, tiny: bool = False) -> dict:
+    """Phase 13: byt5-small served through the streaming service (``evaluate
+    --streaming`` flags, the phase-4 benchmark and settings, kernel 13 as the
+    reorder) to two prover workers; ms/step of the engine at that geometry;
+    and one state in fp32 through the engine (gather) and the classic
+    ``generate``: the same tactics, scores within rtol 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.generation import TacticGeneratorModel
+    from reprover_tpu_torch.models.t5 import place_params
+    from reprover_tpu_torch.ops import beam_reorder as br
+    from reprover_tpu_torch.prover.environment import environment_from_dataset
+    from reprover_tpu_torch.prover.evaluate import evaluate
+    from reprover_tpu_torch.prover.tactic_generator import FixedTacticGenerator
+    from reprover_tpu_torch.retrieval import PremiseRetriever
+
+    data_path = os.path.join(bench, "random")
+    with open(os.path.join(data_path, "val.json")) as f:
+        theorems = json.load(f)
+    environment = environment_from_dataset(theorems)
+    retriever = PremiseRetriever(ret_params, cfg, max_seq_len=SLICE["max_inp_seq_len"])
+    retriever.load_corpus(os.path.join(bench, "corpus.jsonl"))
+    generator = TacticGeneratorModel(gen_params, cfg, SLICE["max_inp_seq_len"],
+                                     SLICE["max_oup_seq_len"])
+    args = _stream_args(SLICE["num_sampled_tactics"], STREAM["num_slots"])
+    service = _streaming_service(generator, args, retriever)
+    reset_all_launch_counts()
+    service.start()
+    t0 = time.perf_counter()
+    try:
+        pass_1, results = evaluate(
+            data_path, environment, FixedTacticGenerator("unused"), split="val",
+            num_theorems=SLICE["num_theorems"], num_sampled_tactics=SLICE["num_sampled_tactics"],
+            timeout=600, max_expansions=SLICE["max_expansions"], num_workers=SLICE["num_workers"],
+            make_client=service.client, return_results=True)
+    finally:
+        service.stop()
+    _sync(device)
+    eval_s = time.perf_counter() - t0
+    launches = all_launch_counts()
+    stats = service.stats_snapshot()
+    requests = int(stats["requests"])
+    span = stats.get("last_resp_ts", 0.0) - stats.get("first_req_ts", 0.0)
+    row = dict(requests=requests, admissions=int(stats["admissions"]), steps=int(stats["steps"]),
+               chunks=int(stats["chunks"]), eval_s=eval_s, pass_1=pass_1,
+               s_per_request=span / max(requests, 1),
+               slot_utilization=stats["slot_busy"] / max(stats["slot_cap"], 1.0),
+               launches={k: v for k, v in launches.items() if v})
+    log(f"[stream] evaluate --streaming ({STREAM['num_slots']} slots x "
+        f"{SLICE['num_sampled_tactics']} beams, reorder gather): {json.dumps(row)}")
+    if len(results) != SLICE["num_theorems"] or any(r is None for r in results) or requests < 1:
+        raise AssertionError(f"streaming searches failed or served nothing: {results} {stats}")
+    if device.type == "cuda" and launches["beam_reorder"] < 1:
+        raise AssertionError("streaming serving did not launch the beam-reorder kernel")
+
+    # ms/step of the engine at the served geometry, one wave of real states.
+    states = [t["traced_tactics"][0]["state_before"] for t in theorems[: STREAM["num_slots"]]]
+    engine = generator.make_stepwise_engine(STREAM["num_slots"], SLICE["num_sampled_tactics"],
+                                            reorder_mode="gather")
+    ids, mask = generator.tokenize_for_engine(states)
+    reset_all_launch_counts()
+    row["engine"] = _timed_engine(engine, ids, mask, device, args.chunk_size, True)
+    row["engine"]["cache_shape"] = list(engine.state.self_k.shape)
+    log(f"[stream] engine at [{STREAM['num_slots']} slots, {SLICE['num_sampled_tactics']} beams]: "
+        f"{json.dumps(row['engine'])}")
+    launches_total = launches["beam_reorder"] + all_launch_counts()["beam_reorder"]
+    del engine
+    _empty_cache(device)
+
+    # One state in fp32: the engine (gather) against the classic generate.
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    model32 = TacticGeneratorModel(place_params(gen_params, cfg32, device), cfg32,
+                                   SLICE["max_inp_seq_len"], STREAM["fp32_max_len"])
+    beams = STREAM["fp32_beams"]
+    want = model32.generate(states[:1], beams)[0]
+    engine = model32.make_stepwise_engine(1, beams, reorder_mode="gather")
+    engine.admit_batch_tokens([0], *model32.tokenize_for_engine(states[:1]))
+    while not engine.finished_slots():
+        engine.run_chunk()
+    got = model32.decode_candidates(*engine.finalize(0))
+    same = [t for t, _ in got] == [t for t, _ in want]
+    close = np.allclose([s for _, s in got], [s for _, s in want], rtol=1e-4, atol=1e-5)
+    log(f"[stream] fp32 engine vs classic ({beams} beams x {STREAM['fp32_max_len']}): same "
+        f"tactics {same}, scores {[round(s, 5) for _, s in got]} vs "
+        f"{[round(s, 5) for _, s in want]}")
+    if not (same and close):
+        raise AssertionError(f"fp32 engine and classic disagree: {got} vs {want}")
+    row["beam_reorder_launches"] = launches_total
+    del model32, engine
+    _empty_cache(device)
+    return row
+
+
+def _empty_cache(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _tactic_tokenizer(bench: str, vocab: int):
+    """A BPE tokenizer trained on the synthetic corpus: premise code and the
+    benchmark's states and tactics."""
+    from reprover_tpu_torch.generation.bpe_tokenizer import train_tactic_tokenizer
+
+    texts = []
+    with open(os.path.join(bench, "corpus.jsonl")) as f:
+        for line in f:
+            texts.extend(p.get("code", "") for p in json.loads(line).get("premises", []))
+    with open(os.path.join(bench, "random", "train.json")) as f:
+        for thm in json.load(f)[:200]:
+            for tac in thm["traced_tactics"]:
+                texts += [tac["state_before"], tac["tactic"]]
+    return train_tactic_tokenizer(texts, vocab_size=vocab)
+
+
+def _llama_cfg(device, tiny: bool):
+    import torch
+
+    from reprover_tpu_torch.models.causal_lm import CausalLMConfig
+    from reprover_tpu_torch.models.t5 import default_dtype
+
+    if tiny:
+        return CausalLMConfig(vocab_size=512, d_model=64, num_layers=2, num_heads=4,
+                              num_kv_heads=4, d_ff=128, compute_dtype=default_dtype(device))
+    return CausalLMConfig(compute_dtype=torch.bfloat16)
+
+
+def phase_llama(device, bench: str, tiny: bool = False) -> dict:
+    """Phase 14: LLaMA-7B (seeded random weights at full CausalLMConfig
+    width, made on the card one layer at a time) in int4 through the
+    streaming service (4 slots x 8 beams, prompts 512, decode 129, reorder
+    gather), answering requests from two client threads on states of the
+    synthetic benchmark; timed engine chunks with a profiled one; then the
+    same weights in int8 through one admission wave to the end."""
+    import asyncio
+    import threading
+
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.data import Pos
+    from reprover_tpu_torch.generation.causal_generator import CausalTacticGeneratorModel
+    from reprover_tpu_torch.models.causal_lm import init_serving_params
+    from reprover_tpu_torch.models.quantize import routing_report, weight_bytes
+
+    cfg = _llama_cfg(device, tiny)
+    src, dec = (16, 9) if tiny else (LLAMA["src"], LLAMA["dec"])
+    tok = _tactic_tokenizer(bench, 300 if tiny else LLAMA["bpe_vocab"])
+    with open(os.path.join(bench, "random", "val.json")) as f:
+        theorems = json.load(f)
+    states = [t["traced_tactics"][0]["state_before"] for t in theorems]
+    report: dict = dict(tokenizer_vocab=tok.vocab_size)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for bits in (4, 8):
+        t0 = time.perf_counter()
+        params = init_serving_params(cfg, LLAMA["seed"], device, bits=bits)
+        _sync(device)
+        model = CausalTacticGeneratorModel(params, cfg, tok, max_inp_seq_len=src,
+                                           max_oup_seq_len=dec - 1)
+        routes = {
+            "decode": routing_report({**params["layers"], "lm_head": params["lm_head"]},
+                                     LLAMA["num_slots"] * LLAMA["num_beams"], cfg.compute_dtype,
+                                     device),
+            "admission": routing_report(params["layers"], LLAMA["num_slots"] * (src - 1),
+                                        cfg.compute_dtype, device),
+        }
+        head = dict(bits=bits, init_s=time.perf_counter() - t0,
+                    weight_GB=weight_bytes(params) / 1e9, routes=routes)
+        log(f"[llama] int{bits} weights: {json.dumps(head)}")
+        kernel = "quant4_matmul" if bits == 4 else "quant_matmul"
+        if bits == 4:
+            args = _stream_args(LLAMA["num_beams"], LLAMA["num_slots"])
+            service = _streaming_service(model, args)
+            reset_all_launch_counts()
+            service.start()
+            answers: list = []
+            errors: list = []
+
+            def client_thread(c, mine):
+                async def run():
+                    for st in mine:
+                        answers.append(await c.agenerate(st, "a.lean", "t", Pos(1, 1),
+                                                         LLAMA["num_beams"]))
+                try:
+                    asyncio.run(run())
+                except Exception as ex:  # surfaced below: the phase fails
+                    errors.append(repr(ex))
+
+            per = LLAMA["requests_per_client"]
+            threads = [threading.Thread(target=client_thread, args=(
+                service.client(), states[i * per:(i + 1) * per])) for i in range(LLAMA["clients"])]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            serve_s = time.perf_counter() - t0
+            service.stop()
+            _sync(device)
+            launches = all_launch_counts()
+            stats = service.stats_snapshot()
+            served = dict(requests=int(stats["requests"]), steps=int(stats["steps"]),
+                          serve_s=serve_s, s_per_request=serve_s / max(len(answers), 1),
+                          launches={k: n for k, n in launches.items() if n})
+            log(f"[llama] int4 streaming service, {LLAMA['clients']} client threads: "
+                f"{json.dumps(served)}")
+            want = LLAMA["clients"] * per
+            if errors or len(answers) != want or any(
+                    len(a) != LLAMA["num_beams"] or not all(np.isfinite(s) for _, s in a)
+                    for a in answers):
+                raise AssertionError(f"LLaMA-7B int4 serving failed: {errors} "
+                                     f"{[len(a) for a in answers]}")
+            if device.type == "cuda" and (launches["quant4_matmul"] < 1
+                                          or launches["beam_reorder"] < 1):
+                raise AssertionError(f"int4 serving missed kernel 12 or 13: {launches}")
+            head.update(served=served, answers=answers[:1])
+            engine = model.make_stepwise_engine(LLAMA["num_slots"], LLAMA["num_beams"],
+                                                reorder_mode="gather")
+            ids, mask = model.tokenize_for_engine(states[: LLAMA["num_slots"]])
+            head["engine"] = _timed_engine(engine, ids, mask, device, args.chunk_size, True)
+            log(f"[llama] int4 engine chunks: {json.dumps(head['engine'])}")
+            head["launches"] = launches
+            del service
+        else:
+            engine = model.make_stepwise_engine(LLAMA["num_slots"], LLAMA["num_beams"],
+                                                reorder_mode="gather")
+            ids, mask = model.tokenize_for_engine(states[: LLAMA["num_slots"]])
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            engine.admit_batch_tokens(list(range(LLAMA["num_slots"])), ids, mask)
+            done = {}
+            while engine.has_active():
+                engine.unpack_status(engine.dispatch_run(8))
+                for slot in engine.finished_slots():
+                    done[slot] = model.decode_candidates(*engine.finalize(slot))
+            _sync(device)
+            launches = all_launch_counts()
+            head.update(wave_s=time.perf_counter() - t0, answers=[done[0]],
+                        launches={k: n for k, n in launches.items() if n})
+            log(f"[llama] int8 admission wave to the end: {json.dumps(head)}")
+            if len(done) != LLAMA["num_slots"] or (device.type == "cuda"
+                                                   and launches[kernel] < 1):
+                raise AssertionError(f"the int8 wave did not finish or missed kernel 11: {head}")
+            head["launches"] = launches
+        if device.type == "cuda":
+            head["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[llama] int{bits} peak device memory since phase 14 began: "
+                f"{head['max_memory_allocated_GiB']:.3f} GiB")
+        report[f"int{bits}"] = head
+        del params, model, engine
+        _empty_cache(device)
+    return report
+
+
 # The TPU kernel each of the nine replaces (file:line of its pallas_call or
 # kernel function in the JAX package).
 REPLACES = {
@@ -1066,18 +1597,45 @@ REPLACES = {
     "cross_attn": "reprover_tpu/ops/flash_attention.py:1624",
     "cross_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:1721",
     "cross_attn_bwd_dkv": "reprover_tpu/ops/flash_attention.py:1757",
+    "quant_matmul": "reprover_tpu/ops/quant_matmul.py:28",
+    "quant4_matmul": "reprover_tpu/ops/quant_matmul.py:136",
+    "beam_reorder": "reprover_tpu/ops/beam_reorder.py:42",
 }
+SERVING_SOURCES = {"quant_matmul": "quant_matmul.cu", "quant4_matmul": "quant_matmul.cu",
+                   "beam_reorder": "beam_reorder.cu"}
+
+
+def serving_entry(name: str, rows: list, launches: int, llama_cache: list) -> dict:
+    """The kernels-line entry of a serving kernel: its largest error over
+    every checked shape, and its times at the LLaMA-7B decode design point
+    (4096 x 11008 at M = 32 for kernels 11/12, the full [32, 4, 8, 32, 129,
+    128] cache for kernel 13)."""
+    mine = [r for r in rows if r["kernel"] == name]
+    if name == "beam_reorder":
+        at = next(r for r in mine if r["shape"] == llama_cache and r["t_live"] == llama_cache[4])
+    else:
+        at = next(r for r in mine if (r["M"], r["K"], r["N"]) == (
+            LLAMA["num_slots"] * LLAMA["num_beams"], 4096, 11008))
+    return {"name": name, "route": "cuda",
+            "source": f"reprover_tpu_torch/csrc/{SERVING_SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": at["ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"]}
 
 
 def kernel_entries(fwd_rows: list, bwd_rows: list, launches: dict) -> list:
-    """The ``{"kernels": [...]}`` entries: per kernel its launches on the main
-    paths, its largest bf16 error over every checked shape, and its times,
-    bound and library time at the generator-training shapes (encoder [8,
-    2304], causal [8, 512], cross [8, 512] x [8, 2304]), bf16."""
+    """The ``{"kernels": [...]}`` entries of the nine attention kernels: per
+    kernel its launches on the main paths, its largest bf16 error over every
+    checked shape, and its times, bound and library time at the
+    generator-training shapes (encoder [8, 2304], causal [8, 512], cross
+    [8, 512] x [8, 2304]), bf16."""
     main_shape = {"encoder_attn": (8, 2304, 2304), "causal_attn": (8, 512, 512),
                   "cross_attn": (8, 512, 2304)}
     entries = []
     for name, replaces in REPLACES.items():
+        if name in SERVING_SOURCES:
+            continue
         base, part = (name, "fwd") if "_bwd_" not in name else name.split("_bwd_")
         rows = bwd_rows if part != "fwd" else fwd_rows
         mine = [r for r in rows if r["kernel"] == base and r["dtype"] == "bfloat16"]
@@ -1115,9 +1673,15 @@ def main() -> int:
         bench = make_bench(work)
         bwd_rows = phase_kernel_backward(device, data_shapes(bench))
         cfg, gen_params, ret_params = _full_width_models(device)
+        byt5_cache = [cfg.num_decoder_layers, STREAM["num_slots"], SLICE["num_sampled_tactics"],
+                      cfg.num_heads, SLICE["max_oup_seq_len"], cfg.d_kv]
+        serving_rows = phase_serving_kernels(device, byt5_cache)
         sl = phase_slice(device, bench, cfg, gen_params, ret_params)
         phase_sanity(device, cfg, ret_params)
+        st = phase_streaming(device, bench, cfg, gen_params, ret_params)
         del gen_params, ret_params
+        torch.cuda.empty_cache()
+        ll = phase_llama(device, bench)
         torch.cuda.empty_cache()
         tr = phase_train(device, work, bench)
         phase_train_steps(device, bench)
@@ -1127,11 +1691,22 @@ def main() -> int:
         phase_generator_steps(device)
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
-    # Launches on the three main paths: serving, retriever and generator training.
-    launches = {name: tr["launches"][name] + gt["launches"][name] for name in REPLACES}
+    # Launches on the main paths: serving, retriever and generator training,
+    # streaming byt5-small, LLaMA-7B int4 and int8.
+    launches = {name: tr["launches"][name] + gt["launches"][name]
+                for name in REPLACES if name not in SERVING_SOURCES}
     launches["encoder_attn"] += sl["launches"]
-    print(json.dumps({"kernels": kernel_entries(rows + dec_fwd, bwd_rows + dec_bwd, launches)}),
-          flush=True)
+    entries = kernel_entries(rows + dec_fwd, bwd_rows + dec_bwd, launches)
+    llama_cache = [32, LLAMA["num_slots"], LLAMA["num_beams"], 32, LLAMA["dec"], 128]
+    serving_launches = {
+        "quant_matmul": ll["int8"]["launches"]["quant_matmul"],
+        "quant4_matmul": ll["int4"]["launches"]["quant4_matmul"],
+        "beam_reorder": st["beam_reorder_launches"] + ll["int4"]["launches"]["beam_reorder"]
+        + ll["int8"]["launches"]["beam_reorder"],
+    }
+    entries += [serving_entry(name, serving_rows, n, llama_cache)
+                for name, n in serving_launches.items()]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}), flush=True)
     return 0

@@ -7,13 +7,16 @@ each counterpart is easy to find, and imports neither ``jax`` nor anything of
 
 - ``data``       corpus DAG, premise accessibility, augmentation, pickle
                  interop (copies); ``tokenizer``: the ByT5 byte tokenizer
-- ``models``     T5 (ByT5) encoder-decoder, HF import, weight bridge
-- ``ops``        the T5 attention CUDA kernels (encoder, causal decoder
-                 and cross-attention; forward and backward) and their
-                 plain versions, pooling, masked top-k; ``csrc/``
-                 holds the CUDA sources
-- ``generation`` beam search, the tactic generator model, its data module,
-                 validation and the training CLI (``generation.main``)
+- ``models``     T5 (ByT5) encoder-decoder, the decoder-only causal LM
+                 (serving), HF imports, weight bridge, int8/int4 weights
+- ``ops``        the CUDA kernels (T5 attention forward and backward, the
+                 beam-cache reorder, the w8a16/w4a16 products) and their
+                 plain versions, pooling, masked top-k; ``csrc/`` holds
+                 the CUDA sources
+- ``generation`` beam search, the tactic generator models (ByT5 and
+                 decoder-only), the streaming engines, the BPE tactic
+                 tokenizer, the data module, validation and the training
+                 CLI (``generation.main``); ``native``: the C++ BPE core
 - ``retrieval``  premise retriever, data module, indexer CLI, validation
                  metrics, predictions and the training CLI
                  (``retrieval.main``)

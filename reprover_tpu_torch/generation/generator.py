@@ -1,16 +1,20 @@
 """Tactic generator model: ByT5 seq2seq with batched beam-search generation.
 The counterpart of :class:`reprover_tpu.generation.TacticGeneratorModel`
-(serving only: ``__init__``, ``load_hf`` and ``generate``).
+(serving: ``__init__``, ``load_hf``, ``generate`` and the streaming-engine
+hooks ``make_stepwise_engine``, ``tokenize_for_engine`` and
+``decode_candidates``).
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from reprover_tpu_torch.generation.beam_search import BeamSearchResult, beam_search
-from reprover_tpu_torch.models.hf_import import load_hf_t5, reject_decoder_only
+from reprover_tpu_torch.models.hf_import import load_hf_t5
+from reprover_tpu_torch.models.quantize import quantize_t5_params, resolve_quantize_bits
 from reprover_tpu_torch.models.t5 import (
     Params,
     T5Config,
@@ -23,9 +27,7 @@ from reprover_tpu_torch.models.t5 import (
     reorder_decode_state,
     resolve_device,
 )
-from reprover_tpu_torch.tokenizer import ByT5Tokenizer
-
-QUANTIZE_TODO = "ROADMAP.md Queue 1 item 8 (quantization)"
+from reprover_tpu_torch.tokenizer import ByT5Tokenizer, round_to_bucket
 
 
 class TacticGeneratorModel:
@@ -47,7 +49,7 @@ class TacticGeneratorModel:
         self.length_penalty = length_penalty
         self.bucket_multiple = bucket_multiple
         self.tokenizer = ByT5Tokenizer()
-        self.device = params["shared_embedding"].device
+        self.device = params["decoder"]["final_norm"].device
 
     @classmethod
     def load_hf(
@@ -60,12 +62,15 @@ class TacticGeneratorModel:
         quantize: "bool | str" = False,
         device: Any = "cuda",
     ) -> "TacticGeneratorModel":
-        if quantize:
-            raise NotImplementedError(f"quantized serving is not ported yet: {QUANTIZE_TODO}")
-        reject_decoder_only(ckpt_dir)
+        """Load a local HF T5/ByT5 checkpoint onto ``device``; ``quantize``
+        (``True``/``"int8"``/``"int4"``) stores the matrix-product weights
+        in 8 or 4 bits (quantized from the float32 checkpoint)."""
         dev = resolve_device(device)
         params, cfg = load_hf_t5(ckpt_dir, compute_dtype=compute_dtype or default_dtype(dev))
-        params = place_params(fuse_mlp_params(params), cfg, dev)
+        params = fuse_mlp_params(params)
+        if quantize:
+            params = quantize_t5_params(params, bits=resolve_quantize_bits(quantize))
+        params = place_params(params, cfg, dev)
         return cls(params, cfg, max_inp_seq_len, max_oup_seq_len, length_penalty)
 
     @torch.inference_mode()
@@ -120,3 +125,49 @@ class TacticGeneratorModel:
             for b in range(len(states))
         ]
 
+    # -------------------------------------------------------------- #
+    # Streaming-engine integration (model-agnostic serving loop)
+    # -------------------------------------------------------------- #
+
+    def make_stepwise_engine(
+        self, num_slots: int, num_beams: int, chunk_size: int = 8,
+        mesh: Any = None, step_buckets: Any = None,
+        quantize: "bool | str" = False, reorder_mode: str = "auto",
+    ) -> Any:
+        """The continuous-batching engine for this model family
+        (``step_buckets``: length-bucketed stepping, see
+        ``StepwiseEngineBase``)."""
+        from reprover_tpu_torch.generation.engine import StepwiseBeamEngine
+
+        return StepwiseBeamEngine(
+            self.params,
+            self.cfg,
+            num_slots=num_slots,
+            num_beams=num_beams,
+            max_src_len=round_to_bucket(self.max_inp_seq_len, self.bucket_multiple),
+            max_decode_len=self.max_oup_seq_len,
+            length_penalty=self.length_penalty,
+            chunk_size=chunk_size,
+            mesh=mesh,
+            step_buckets=step_buckets,
+            quantize=quantize,
+            reorder_mode=reorder_mode,
+        )
+
+    def tokenize_for_engine(self, states: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Tokenize an admission wave padded to the engine's source bucket."""
+        batch = self.tokenizer(
+            states,
+            max_length=self.max_inp_seq_len,
+            pad_to=round_to_bucket(self.max_inp_seq_len, self.bucket_multiple),
+        )
+        return batch.input_ids, batch.attention_mask
+
+    def decode_candidates(
+        self, seqs: np.ndarray, scores: np.ndarray, lens: np.ndarray
+    ) -> List[Tuple[str, float]]:
+        """Finalized engine beams -> (text, score), matching ``generate``."""
+        return [
+            (self.tokenizer.decode(seqs[k], skip_special_tokens=True), float(scores[k]))
+            for k in range(len(scores))
+        ]

@@ -18,9 +18,6 @@ import torch
 
 from reprover_tpu_torch.models.t5 import Params, T5Config
 
-DECODER_ONLY_TODO = "ROADMAP.md Queue 1 item 7 (decoder-only family)"
-
-
 def config_from_hf(hf_cfg: Mapping[str, Any], **overrides: Any) -> T5Config:
     d = dict(
         vocab_size=hf_cfg["vocab_size"],
@@ -40,22 +37,6 @@ def config_from_hf(hf_cfg: Mapping[str, Any], **overrides: Any) -> T5Config:
     )
     d.update(overrides)
     return T5Config(**d)
-
-
-def reject_decoder_only(ckpt_dir: str) -> None:
-    """Raise ``NotImplementedError`` for a decoder-only checkpoint (the
-    rule of ``reprover_tpu.models.hf_import_causal.is_causal_lm_checkpoint``)."""
-    with open(os.path.join(ckpt_dir, "config.json")) as f:
-        hf_cfg = json.load(f)
-    archs = hf_cfg.get("architectures") or []
-    causal = any("CausalLM" in a for a in archs) or (
-        not any("ConditionalGeneration" in a or "EncoderModel" in a for a in archs)
-        and hf_cfg.get("model_type") in ("llama", "mistral", "qwen2", "gemma")
-    )
-    if causal:
-        raise NotImplementedError(
-            f"{ckpt_dir} holds a decoder-only model, which is not ported yet: {DECODER_ONLY_TODO}"
-        )
 
 
 def _load_state_dict(ckpt_dir: str) -> Dict[str, torch.Tensor]:

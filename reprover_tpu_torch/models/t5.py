@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from reprover_tpu_torch.models.quantize import QuantWeight, quantized_dense, quantized_logits
 from reprover_tpu_torch.ops.flash_attention import (
     causal_flash_attention,
     cross_flash_attention,
@@ -177,11 +178,14 @@ def fuse_mlp_params(params: Params) -> Params:
 
 def place_params(params: Params, cfg: T5Config, device: Any) -> Params:
     """Move ``params`` to ``device``; matrix-product weights are stored in
-    ``cfg.compute_dtype``, norms and bias tables stay float32."""
+    ``cfg.compute_dtype``, norms and bias tables stay float32, quantized
+    weights keep their bytes."""
 
     def place(tree: Any, name: str) -> Any:
         if isinstance(tree, dict):
             return {k: place(v, k) for k, v in tree.items()}
+        if isinstance(tree, QuantWeight):  # keeps its int8/int4 bytes and fp32 scales
+            return tree.to(device)
         dtype = cfg.compute_dtype if name in MATMUL_WEIGHTS else torch.float32
         return tree.to(device=device, dtype=dtype).contiguous()
 
@@ -245,7 +249,9 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0))))
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _dense(x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(w, QuantWeight):  # weight-only int8/int4 serving
+        return quantized_dense(x, w, dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
@@ -343,6 +349,8 @@ def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor) -> torch.Tensor:
         w = params["shared_embedding"].t()
     else:
         w = params["lm_head"]
+    if isinstance(w, QuantWeight):
+        return quantized_logits(h, w, dtype)
     return torch.matmul(h.to(dtype).float(), w.to(dtype).float())
 
 

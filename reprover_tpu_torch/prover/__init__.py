@@ -4,8 +4,7 @@ distributed worker pool and the Pass@1 evaluation harness. Copies of the JAX
 package's host-side modules, wired to the port's models.
 
 Not copied yet (ROADMAP.md Queue 1): ``attribution`` (failure attribution),
-``api_generator`` (tactics from a hosted LLM API); the streaming service
-raises ``NotImplementedError``."""
+``api_generator`` (tactics from a hosted LLM API)."""
 
 from reprover_tpu_torch.prover.environment import (
     Environment,

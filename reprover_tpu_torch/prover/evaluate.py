@@ -17,10 +17,11 @@ The environment is injected (real LeanDojo or a fake), so the harness runs
 unmodified in tests and in production.
 
 The CLI has the JAX one's flags and defaults, plus ``--device`` (default
-``cuda``; raises when there is no card). Not ported yet, and raising
-``NotImplementedError`` when asked for: ``--quantize`` (ROADMAP.md Queue 1
-item 8), ``--streaming`` (Queue 1 item 6), decoder-only checkpoints (Queue 1
-item 7) and ``--approx`` (exact retrieval only).
+``cuda``; raises when there is no card): ByT5 and decoder-only (LLaMA-family)
+checkpoints, ``--quantize [int8|int4]`` and ``--streaming`` (token-level
+continuous batching through :class:`StreamingInferenceService`). Not ported,
+and raising ``NotImplementedError`` when asked for: ``--approx`` (exact
+retrieval only).
 """
 
 from __future__ import annotations
@@ -35,12 +36,10 @@ import uuid
 from typing import Any, List, Optional, Tuple
 
 from reprover_tpu_torch.data import Pos
-from reprover_tpu_torch.generation.generator import QUANTIZE_TODO
 from reprover_tpu_torch.prover.distributed import DistributedProver
 from reprover_tpu_torch.prover.environment import Environment, RepoSpec, Theorem
 from reprover_tpu_torch.prover.proof_search import SearchResult
 from reprover_tpu_torch.prover.search_tree import Status
-from reprover_tpu_torch.prover.service import STREAMING_TODO
 from reprover_tpu_torch.prover.tactic_generator import FixedTacticGenerator, TacticGenerator
 from reprover_tpu_torch.retrieval.retriever import APPROX_TODO
 
@@ -190,30 +189,59 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save-results", action="store_true")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--quantize", nargs="?", const="int8", default=False, choices=("int8", "int4"),
-                        help="not ported yet: raises")
+                        help="weight-only quantized generator serving: bare flag or 'int8' "
+                        "(half the weight bytes), 'int4' (a quarter)")
     parser.add_argument("--approx", action="store_true", help="not ported: raises")
     parser.add_argument("--max-batch", type=int, default=8,
                         help="inference-service coalescing cap (requests per device batch)")
     parser.add_argument("--batch-window-ms", type=float, default=5.0,
                         help="inference-service request-coalescing window")
-    parser.add_argument("--streaming", action="store_true", help="not ported yet: raises")
-    parser.add_argument("--num-slots", type=int, default=8, help="for --streaming")
-    parser.add_argument("--chunk-size", type=int, default=8, help="for --streaming")
-    parser.add_argument("--chunk-burst", type=int, default=4, help="for --streaming")
-    parser.add_argument("--pipeline-depth", type=int, default=4, help="for --streaming")
+    parser.add_argument("--streaming", action="store_true",
+                        help="token-level continuous batching (the stepwise engine) instead of "
+                        "request coalescing")
+    parser.add_argument("--num-slots", type=int, default=8,
+                        help="concurrent decode slots for --streaming")
+    parser.add_argument("--chunk-size", type=int, default=8,
+                        help="decoder steps per chunk for --streaming (admission latency vs "
+                        "per-chunk host round trips)")
+    parser.add_argument("--chunk-burst", type=int, default=4,
+                        help="backlog-empty step horizon = chunk-size * chunk-burst for "
+                        "--streaming (a chunk stops early on a finish event)")
+    parser.add_argument("--pipeline-depth", type=int, default=4,
+                        help="chunks dispatched ahead of status retirement for --streaming")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device for the models (default cuda; raises without a card)")
     return parser
+
+
+def build_service(args: argparse.Namespace, model: Any, retriever: Any = None) -> Any:
+    """The inference service the CLI's flags ask for: the streaming one
+    (``--streaming``, its slots, chunk, burst and depth; beam width
+    ``--num-sampled-tactics``) or the request-coalescing one."""
+    from reprover_tpu_torch.prover.service import InferenceService, StreamingInferenceService
+
+    if args.streaming:
+        return StreamingInferenceService(
+            model,
+            retriever=retriever,
+            num_slots=args.num_slots,
+            num_beams=args.num_sampled_tactics,
+            chunk_size=args.chunk_size,
+            chunk_burst=args.chunk_burst,
+            pipeline_depth=args.pipeline_depth,
+        )
+    return InferenceService(
+        model,
+        retriever=retriever,
+        max_batch=args.max_batch,
+        batch_window_s=args.batch_window_ms / 1000.0,
+    )
 
 
 def main(argv: Optional[List[str]] = None) -> float:
     args = build_parser().parse_args(argv)
     if not (args.gen_ckpt_path or args.tactic):
         raise SystemExit("one of --gen_ckpt_path or --tactic is required")
-    if args.streaming:
-        raise NotImplementedError(STREAMING_TODO)
-    if args.quantize:
-        raise NotImplementedError(f"--quantize is not ported yet: {QUANTIZE_TODO}")
     if args.approx:
         raise NotImplementedError(APPROX_TODO)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
@@ -252,11 +280,12 @@ def main(argv: Optional[List[str]] = None) -> float:
     elif args.num_workers > 1:
         # One device owner in this process; the searches run in worker
         # processes and reach the models through the shared service.
-        from reprover_tpu_torch.generation import TacticGeneratorModel
-        from reprover_tpu_torch.prover.service import InferenceService
+        from reprover_tpu_torch.prover.tactic_generator import load_generator_model
         from reprover_tpu_torch.retrieval import PremiseRetriever
 
-        model = TacticGeneratorModel.load_hf(
+        # Decoder-only checkpoints get the causal wrapper; both service
+        # modes serve either family.
+        model = load_generator_model(
             args.gen_ckpt_path,
             args.max_inp_seq_len,
             args.max_oup_seq_len,
@@ -270,12 +299,7 @@ def main(argv: Optional[List[str]] = None) -> float:
                 args.ret_ckpt_path, args.max_inp_seq_len, approximate=args.approx, device=args.device
             )
             retriever.load_corpus(args.indexed_corpus_path)
-        service = InferenceService(
-            model,
-            retriever=retriever,
-            max_batch=args.max_batch,
-            batch_window_s=args.batch_window_ms / 1000.0,
-        )
+        service = build_service(args, model, retriever)
         service.start()
         try:
             pass_1 = evaluate(

@@ -9,7 +9,9 @@ multiprocessing queue to a single service that owns the card. The service
 thread drains the queue, coalesces requests into padded batches, runs the
 port's encoder + beam search on them and replies on per-worker queues.
 Cross-search batching is what keeps the card busy while each individual
-search waits seconds on ``run_tac``.
+search waits seconds on ``run_tac``. :class:`StreamingInferenceService`
+batches at token granularity instead, through the generator's stepwise
+engine (:mod:`reprover_tpu_torch.generation.engine`).
 
 Retrieval-augmented mode keeps the retriever on the same device: the service
 embeds the query state, runs the masked cosine top-k, packs premises with
@@ -27,12 +29,6 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from reprover_tpu_torch.data import Pos
-
-STREAMING_TODO = (
-    "the streaming inference service is not ported yet: ROADMAP.md Queue 1 "
-    "item 6 (streaming serving engine)"
-)
-
 
 @dataclasses.dataclass
 class GenerateRequest:
@@ -225,12 +221,409 @@ class InferenceService:
 
 
 class StreamingInferenceService(InferenceService):
-    """Token-level continuous batching (the JAX package's vLLM role) waits
-    for the port's streaming engine (ROADMAP.md Queue 1 item 6): building
-    one raises ``NotImplementedError``, as ``--streaming`` does."""
+    """Token-level continuous batching (the full vLLM role).
 
-    def __init__(self, generator: Any, retriever: Any = None, **kwargs: Any) -> None:
-        raise NotImplementedError(STREAMING_TODO)
+    Replaces the request-coalescing `_serve` loop with the generator's
+    stepwise engine (:class:`~reprover_tpu_torch.generation.engine.StepwiseBeamEngine`
+    or the decoder-only ``CausalStepwiseEngine``): requests
+    join the running decode at chunk boundaries (``chunk_size`` tokens), so
+    a request arriving mid-decode waits ~chunk_size steps instead of a full
+    beam decode, and up to ``num_slots`` searches decode simultaneously.
+
+    Requests whose ``num_samples`` differs from the engine's beam width fall
+    back to the classic one-shot path (the prover uses one width,
+    `reference/prover/evaluate.py:218`).
+    """
+
+    def __init__(
+        self,
+        generator: Any,
+        retriever: Any = None,
+        max_num_retrieved: int = 100,
+        num_slots: int = 8,
+        num_beams: int = 64,
+        chunk_size: int = 8,
+        chunk_burst: int = 4,
+        pipeline_depth: int = 4,
+        mesh: Any = None,
+        step_buckets: Any = None,
+        quantize: "bool | str" = False,
+        reorder_mode: str = "auto",
+    ) -> None:
+        super().__init__(generator, retriever, max_num_retrieved)
+        # Weight-only int8 engine weights (near-lossless; halves the decode
+        # weight stream; "int4" quarters it).
+        self.quantize = quantize
+        # Cache-reorder strategy (see StepwiseEngineBase): "auto" resolves
+        # to the one-hot einsum or the layer-blocked in-place "scan" by cache
+        # size; "gather" is the hand-written kernel.
+        self.reorder_mode = reorder_mode
+        self.num_slots = num_slots
+        self.num_beams = num_beams
+        self.chunk_size = chunk_size
+        # Length-bucketed stepping (see StepwiseEngineBase.step_buckets):
+        # per-beam cache reorder/attention traffic scales with the deepest
+        # working slot's decode depth instead of max_decode_len.
+        self.step_buckets = step_buckets
+        # Tensor-parallel serving is not ported: the engine raises on a mesh.
+        self.mesh = mesh
+        # Step horizon per dispatch while every slot is occupied:
+        # chunk_size * chunk_burst decoder steps (the device stops early the
+        # moment a slot newly finishes). Once any slot is free the horizon
+        # drops to chunk_size so an arrival waits at most that many steps
+        # before it can be admitted into the free slot.
+        self.chunk_burst = max(1, chunk_burst)
+        # Chunks dispatched ahead of the status being retired. A chunk here
+        # runs to its end before dispatch_run returns (one device flag per
+        # step), so only the status copy itself overlaps.
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._engine = None  # built lazily on the serving thread
+        self.stats.update(
+            {
+                "chunks": 0,
+                "steps": 0,
+                "admissions": 0,
+                "fallbacks": 0,
+                "loops": 0,
+                # Slot utilization: host-side occupancy sampled at each run
+                # dispatch (slot_busy / slot_cap = mean fraction of engine
+                # slots decoding; occupancy can change within a horizon, so
+                # this is the dispatch-time approximation).
+                "slot_busy": 0.0,
+                "slot_cap": 0.0,
+                "admit_wait": 0.0,
+                "status_time": 0.0,
+                "admit_time": 0.0,
+                "admit_tok_time": 0.0,
+                "admit_dispatch_time": 0.0,
+                "emit_time": 0.0,
+            }
+        )
+
+    def _build_engine(self) -> Any:
+        # Model-agnostic: the generator wrapper (T5 seq2seq OR decoder-only
+        # causal LM) builds its own engine family and owns tokenization.
+        self._engine = self.generator.make_stepwise_engine(
+            self.num_slots, self.num_beams, chunk_size=self.chunk_size,
+            mesh=self.mesh, step_buckets=self.step_buckets,
+            quantize=self.quantize, reorder_mode=self.reorder_mode,
+        )
+
+    def _admit_wave(self, slots: List[int], states: List[str]) -> None:
+        """Tokenize an arrival wave padded to the engine's source bucket and
+        admit it in ONE device dispatch (encode/prefill + scatter fused in
+        ``admit_batch_tokens``). The batch is padded to a power-of-2 bucket
+        with slot = -1 no-op rows, so one compiled program per bucket
+        serves every arrival count."""
+        gen = self.generator
+        t0 = time.monotonic()
+        bucket = _batch_buckets(len(states), self.num_slots)
+        padded_states = states + [""] * (bucket - len(states))
+        padded_slots = list(slots) + [-1] * (bucket - len(slots))
+        ids, mask = gen.tokenize_for_engine(padded_states)
+        t1 = time.monotonic()
+        self._engine.admit_batch_tokens(padded_slots, ids, mask)
+        t2 = time.monotonic()
+        self.stats["admit_tok_time"] += t1 - t0
+        self.stats["admit_dispatch_time"] += t2 - t1
+
+    def _emit(self, slot: int, handle: Any) -> None:
+        seqs, scores, lens = self._engine.finalize_prefetched(slot, handle)
+        req = self._slot_req.pop(slot)
+        cands = self.generator.decode_candidates(seqs, scores, lens)
+        self._response_qs[req.client_id].put(GenerateResponse(req.req_id, cands))
+        with self._stats_lock:
+            self.stats["requests"] += 1
+            self.stats["last_resp_ts"] = time.monotonic()
+
+    def _serve(self) -> None:
+        """Crash containment around the serving loop: an unexpected error
+        fails every outstanding request (instead of hanging their clients
+        until timeout), resets the engine to a blank state, and keeps
+        serving — arrivals still queued are preserved."""
+        self._build_engine()
+        self._slot_req: Dict[int, GenerateRequest] = {}
+        self._backlog: List[GenerateRequest] = []
+        while not self._stop.is_set():
+            try:
+                self._serve_inner()
+            except Exception as ex:
+                for req in list(self._slot_req.values()):
+                    self._response_qs[req.client_id].put(
+                        GenerateResponse(req.req_id, [], error=repr(ex))
+                    )
+                self._slot_req.clear()
+                self._engine.reset()
+
+    def _serve_inner(self) -> None:
+        """Event-driven serving loop.
+
+        The device conversation is fully asynchronous: the serve thread
+        (sole owner of the engine) dispatches run programs, admissions, and
+        finalize gathers without ever blocking on the device. All blocking
+        host fetches happen on a *reaper* thread that resolves device
+        handles in FIFO order and feeds one event queue; a forwarder thread
+        funnels client arrivals into the same queue. The serve thread
+        therefore reacts to whichever happens first — a new request, a
+        retired status, or a landed finalize — instead of serializing a
+        fixed phase order around blocking fetches (which left the device
+        idle and workers starved of responses)."""
+        import queue as _q
+
+        import numpy as np
+
+        eng = self._engine
+        S = self.num_slots
+        T = eng.max_decode_len
+        backlog = self._backlog
+        events: Any = _q.Queue()  # ("req", r) | ("status", seq, arr) | ("fin", slot, arrs)
+        # One reap queue per kind: a finalize fetch (waits on copies queued
+        # behind dispatched compute) must not head-of-line-block status
+        # fetches, which pace the dispatch pipeline — and vice versa.
+        status_q: Any = _q.Queue()
+        fin_q: Any = _q.Queue()
+        # Helper threads stop on session stop OR this invocation's teardown
+        # (crash containment re-enters with fresh queues — stale threads
+        # must not keep consuming the client request queue).
+        inner_stop = threading.Event()
+        stop = self._stop
+
+        def halted() -> bool:
+            return stop.is_set() or inner_stop.is_set()
+
+        def forwarder() -> None:
+            while not halted():
+                try:
+                    events.put(("req", self.request_q.get(timeout=0.1)))
+                except _q.Empty:
+                    continue
+
+        # Non-engine-width requests run the classic one-shot path on this
+        # side thread (CUDA launches are thread-safe): a stray width must not
+        # stall admissions/status retirement/emits for a full decode — or
+        # minutes, if it triggers a fresh compile.
+        fallback_q: Any = _q.Queue()
+
+        def fallback_worker() -> None:
+            while not halted():
+                try:
+                    req = fallback_q.get(timeout=0.1)
+                except _q.Empty:
+                    continue
+                try:
+                    self._serve_group([req], req.num_samples)
+                except Exception as ex:  # containment per request
+                    self._response_qs[req.client_id].put(
+                        GenerateResponse(req.req_id, [], error=repr(ex))
+                    )
+
+        def reaper(kind: str, q: Any, stat: str) -> None:
+            while not halted():
+                try:
+                    key, handles = q.get(timeout=0.1)
+                except _q.Empty:
+                    continue
+                t0 = time.monotonic()
+                try:
+                    host = tuple(np.asarray(a) for a in handles)
+                except Exception as ex:  # device/transfer faults surface
+                    # at the consuming fetch — forward to the serve thread
+                    # so its crash containment runs instead of this thread
+                    # dying silently and wedging the pipeline.
+                    events.put(("error", key, ex))
+                    continue
+                # Reaper threads RMW their stat concurrently with the serve
+                # thread's dict writes; guard so increments aren't dropped.
+                with self._stats_lock:
+                    self.stats[stat] += time.monotonic() - t0
+                events.put((kind, key, host))
+
+        threads = [
+            threading.Thread(target=forwarder, daemon=True),
+            threading.Thread(
+                target=reaper, args=("status", status_q, "status_time"),
+                daemon=True,
+            ),
+            threading.Thread(
+                target=reaper, args=("fin", fin_q, "emit_time"), daemon=True
+            ),
+            threading.Thread(target=fallback_worker, daemon=True),
+        ]
+        for t in threads:
+            t.start()
+
+        # Host-authoritative slot bookkeeping: statuses are stale by
+        # construction, so occupancy lives here and the device is only
+        # consulted for *finish* events.
+        occupied = np.zeros(S, dtype=bool)
+        awaiting_fin = set()  # slots freed on device, response not yet sent
+        # Slots emitted from a ride-along payload, not yet cleared on
+        # device — the next dispatch carries this mask so the device state
+        # stays truthful without a dedicated free dispatch.
+        pending_release = np.zeros(S, dtype=bool)
+        barrier = [0] * S  # first dispatch seq that can see this admission
+        in_flight = 0  # statuses dispatched, not yet back through events
+        seq = 0
+
+        try:
+            while not stop.is_set():
+                self.stats["loops"] += 1
+                # 1. Wait for the next event; then drain everything ready.
+                try:
+                    batch = [events.get(timeout=0.05)]
+                except _q.Empty:
+                    batch = []
+                try:
+                    while True:
+                        batch.append(events.get_nowait())
+                except _q.Empty:
+                    pass
+
+                fault: Optional[BaseException] = None
+                for kind, *payload in batch:
+                    if kind == "error":
+                        # Reaper-forwarded device fault: raise AFTER the
+                        # batch so sibling "req" events land in the backlog
+                        # (crash containment preserves it).
+                        fault = payload[1]
+                        continue
+                    if kind == "req":
+                        (req,) = payload
+                        req._arrived = time.monotonic()  # admission-wait t0
+                        self.stats.setdefault(
+                            "first_req_ts", time.monotonic()
+                        )
+                        if req.num_samples != self.num_beams:
+                            with self._stats_lock:
+                                self.stats["fallbacks"] += 1
+                            fallback_q.put(req)
+                        else:
+                            backlog.append(req)
+                    elif kind == "status":
+                        psq, (arr,) = payload
+                        in_flight -= 1
+                        _, done_d, n_d, steps, f, fin_handle = (
+                            eng.unpack_status(arr)
+                        )
+                        self.stats["steps"] += steps
+                        for s in range(S):
+                            if not (
+                                occupied[s]
+                                and s not in awaiting_fin
+                                and psq >= barrier[s]
+                                and (done_d[s] or n_d[s] >= T)
+                            ):
+                                continue
+                            if s == f:
+                                # The finish event's finalize payload rode
+                                # along with this status — respond now,
+                                # zero extra round trips.
+                                self._emit(s, fin_handle)
+                                occupied[s] = False
+                                pending_release[s] = True
+                            else:
+                                # Simultaneous multi-finish (or a finish
+                                # first seen via a later status): fall back
+                                # to the gather dispatch.
+                                awaiting_fin.add(s)
+                                fin_q.put((s, eng.prefetch_finalize(s)))
+                    else:  # "fin" — host copies landed, respond + free
+                        slot, host = payload
+                        self._emit(slot, host)
+                        occupied[slot] = False
+                        awaiting_fin.discard(slot)
+
+                if fault is not None:
+                    raise fault
+
+                # 2. Admit a wave into free slots (one fused dispatch).
+                free = [s for s in range(S) if not occupied[s]]
+                if backlog and free:
+                    t0 = time.monotonic()
+                    admissible = backlog[: len(free)]
+                    del backlog[: len(free)]
+                    try:
+                        states = (
+                            self._augment(admissible)
+                            if self.retriever is not None
+                            else [r.state for r in admissible]
+                        )
+                        slots = free[: len(admissible)]
+                        self._admit_wave(slots, states)
+                        now = time.monotonic()
+                        for req, slot in zip(admissible, slots):
+                            self._slot_req[slot] = req
+                            occupied[slot] = True
+                            # The admit dispatch re-arms the slot; a later
+                            # release would wipe the fresh admission.
+                            pending_release[slot] = False
+                            barrier[slot] = seq
+                            self.stats["admissions"] += 1
+                            # Queueing delay arrival -> slot (admission
+                            # latency; mean = admit_wait / admissions).
+                            self.stats["admit_wait"] += now - getattr(
+                                req, "_arrived", now
+                            )
+                    except Exception as ex:
+                        for req in admissible:
+                            self._response_qs[req.client_id].put(
+                                GenerateResponse(req.req_id, [], error=repr(ex))
+                            )
+                    self.stats["admit_time"] += time.monotonic() - t0
+
+                # 3. Keep run programs in flight for the decoding slots.
+                #    A short horizon only pays when a free slot means an
+                #    arrival could be admitted soon; with every slot busy,
+                #    the finish events that end a run early are what free
+                #    slots, so run long and save round trips.
+                decoding = any(
+                    occupied[s] and s not in awaiting_fin for s in range(S)
+                )
+                slot_free = not all(occupied)
+                while decoding and in_flight < self.pipeline_depth:
+                    horizon = (
+                        self.chunk_size
+                        if slot_free
+                        else self.chunk_size * self.chunk_burst
+                    )
+                    status_q.put(
+                        (
+                            seq,
+                            (eng.dispatch_run(horizon, pending_release),),
+                        )
+                    )
+                    pending_release = np.zeros(S, dtype=bool)
+                    seq += 1
+                    in_flight += 1
+                    self.stats["chunks"] += 1
+                    self.stats["slot_busy"] += float(
+                        sum(
+                            occupied[s] and s not in awaiting_fin
+                            for s in range(S)
+                        )
+                    )
+                    self.stats["slot_cap"] += float(S)
+        finally:
+            inner_stop.set()
+            for t in threads:
+                t.join(timeout=1.0)
+            # Recover arrivals stranded in this invocation's event queue so
+            # crash-containment reentry still serves them.
+            try:
+                while True:
+                    kind, *payload = events.get_nowait()
+                    if kind == "req":
+                        backlog.append(payload[0])
+            except _q.Empty:
+                pass
+            # Fallback requests not yet picked up re-enter via the client
+            # queue (the next invocation's forwarder re-routes them; the
+            # engine backlog is engine-width-only, so they can't go there).
+            try:
+                while True:
+                    self.request_q.put(fallback_q.get_nowait())
+            except _q.Empty:
+                pass
 
 
 

@@ -11,8 +11,8 @@ protocol is an async
 - :class:`FixedTacticGenerator` — one fixed tactic wrapped in ``{ … }``
   (`tactic_generator.py:150-166`); doubles as the search-infrastructure test
   backend.
-- :class:`LocalTacticGenerator` — in-process ByT5 beam search on this host's
-  card (the reference's ``HuggingFaceGenerator``, `tactic_generator.py:169-243`),
+- :class:`LocalTacticGenerator` — in-process ByT5 or decoder-only beam
+  search on this host's card (the reference's ``HuggingFaceGenerator``, `tactic_generator.py:169-243`),
   including the remove-marks + dedup-keep-first postprocessing.
 - :class:`RetrievalAugmentedTacticGenerator` — retrieve top premises, pack
   them into the state with ``format_augmented_state``, delegate
@@ -80,12 +80,33 @@ def postprocess_candidates(
     return list(zip(out_text, out_score))
 
 
+def load_generator_model(
+    path: str, max_inp_seq_len: int, max_oup_seq_len: int, length_penalty: float = 0.0,
+    quantize: "bool | str" = False, device: str = "cuda",
+) -> Any:
+    """Load a generator checkpoint: decoder-only (LLaMA-family) checkpoints
+    get :class:`~reprover_tpu_torch.generation.causal_generator.CausalTacticGeneratorModel`,
+    encoder-decoder (ByT5) ones :class:`~reprover_tpu_torch.generation.TacticGeneratorModel`
+    (the reference's seq2seq-with-causal-fallback, decided from config.json)."""
+    from reprover_tpu_torch.models.hf_import_causal import is_causal_lm_checkpoint
+
+    if is_causal_lm_checkpoint(path):
+        from reprover_tpu_torch.generation.causal_generator import CausalTacticGeneratorModel
+
+        cls: Any = CausalTacticGeneratorModel
+    else:
+        from reprover_tpu_torch.generation import TacticGeneratorModel
+
+        cls = TacticGeneratorModel
+    return cls.load_hf(path, max_inp_seq_len, max_oup_seq_len, length_penalty,
+                       quantize=quantize, device=device)
+
+
 class LocalTacticGenerator(TacticGenerator):
     """In-process beam-search generation on this host's device.
 
-    Encoder-decoder (ByT5) checkpoints only: a decoder-only checkpoint
-    raises ``NotImplementedError`` when ``initialize()`` loads it (the
-    decoder-only family is not ported yet)."""
+    Accepts both encoder-decoder (ByT5) and decoder-only (LLaMA-family)
+    checkpoints (:func:`load_generator_model`)."""
 
     def __init__(self, model_or_path: Any, max_inp_seq_len: int = 2048,
                  max_oup_seq_len: int = 512, length_penalty: float = 0.0,
@@ -99,14 +120,13 @@ class LocalTacticGenerator(TacticGenerator):
         self.max_inp_seq_len = max_inp_seq_len
         self.max_oup_seq_len = max_oup_seq_len
         self.length_penalty = length_penalty
-        self.quantize = quantize  # not ported: load_hf raises on it
+        # Weight-only int8/int4 serving (the vLLM-quantization role).
+        self.quantize = quantize
         self.device = device
 
     def initialize(self) -> None:
         if self.model is None:
-            from reprover_tpu_torch.generation import TacticGeneratorModel
-
-            self.model = TacticGeneratorModel.load_hf(
+            self.model = load_generator_model(
                 self._path,
                 self.max_inp_seq_len,
                 self.max_oup_seq_len,
@@ -188,9 +208,9 @@ class RetrievalAugmentedTacticGenerator(TacticGenerator):
         )
         # remove_marks matches the training input distribution: the generator
         # datamodule strips ``<a>`` premise marks from the augmented state
-        # (`/root/reference/generation/datamodule.py:79`), but the reference's
+        # (`reference/generation/datamodule.py:79`), but the reference's
         # search path feeds the marked string to the model
-        # (`/root/reference/prover/tactic_generator.py:293`) — a train/search
+        # (`reference/prover/tactic_generator.py:293`) — a train/search
         # skew its pretrained byt5 init happens to tolerate. Measured here:
         # a from-scratch model at 80% step accuracy on (mark-free) val inputs
         # proved 0/200 theorems through the marked path.

@@ -17,6 +17,22 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO_ROOT, "reprover_tpu_torch")
 
 
+# The serving slice's modules: the streaming engines, quantized weights,
+# the decoder-only family and the native BPE core.
+NEW_MODULES = (
+    "reprover_tpu_torch.ops.beam_reorder",
+    "reprover_tpu_torch.ops.quant_matmul",
+    "reprover_tpu_torch.models.quantize",
+    "reprover_tpu_torch.models.causal_lm",
+    "reprover_tpu_torch.models.hf_import_causal",
+    "reprover_tpu_torch.generation.engine",
+    "reprover_tpu_torch.generation.causal_engine",
+    "reprover_tpu_torch.generation.causal_generator",
+    "reprover_tpu_torch.generation.bpe_tokenizer",
+    "reprover_tpu_torch.native.bpe",
+)
+
+
 def _modules():
     import reprover_tpu_torch
 
@@ -31,6 +47,8 @@ def test_port_imports_without_jax():
     assert "reprover_tpu_torch.prover.evaluate" in names
     assert "reprover_tpu_torch.ops.flash_attention" in names
     assert "reprover_tpu_torch.generation.main" in names
+    for name in NEW_MODULES:
+        assert name in names, name
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -169,3 +187,38 @@ def test_jax_predictions_pickle_loads_in_port(toy_corpus, tmp_path):
     with open(path, "rb") as f:
         assert b"reprover_tpu_torch.data" in f.read()
     assert pickle.loads(pickle.dumps(again["start"])) == Pos(3, 1)
+
+
+def _code_strings(path):
+    """String constants of a Python source that are not docstrings."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_no_path_into_jax_package():
+    """No code of the new modules, of chip_smoke or of the native BPE loader
+    names a file of the JAX package; the C++ core builds from the port's
+    own copy into build/."""
+    import importlib
+
+    bpe = importlib.import_module("reprover_tpu_torch.native.bpe")
+    assert os.path.dirname(bpe._SRC) == os.path.join(PORT, "native")
+    assert os.path.exists(bpe._SRC)
+    assert bpe._LIB.startswith(os.path.join(REPO_ROOT, "build") + os.sep)
+    paths = [os.path.join(REPO_ROOT, "chip_smoke.py")] + [
+        importlib.import_module(name).__file__ for name in NEW_MODULES]
+    # A "file:line" reference (the kernels line's "replaces") names a TPU
+    # kernel and opens nothing.
+    offenders = [(path, text) for path in paths for text in _code_strings(path)
+                 if re.search(r"(^|[/\\])reprover_tpu([/\\]|$)", text)
+                 and not re.fullmatch(r"reprover_tpu/[\w/]+\.py:\d+", text)]
+    assert not offenders, offenders
+    with open(bpe._SRC) as f:
+        assert "reprover_tpu/" not in f.read()

@@ -301,3 +301,70 @@ def test_generation_loss_gradients_on_card_match_cpu(cuda_device, remat):
     for g, w in zip(on_card, cpu):
         scale = max(1e-6, w.abs().max().item())
         assert (g - w).abs().max().item() <= 1e-3 * scale
+
+
+# ------------------------------------------------------------------ #
+# Serving kernels: beam reorder (kernel 13), w8a16 and w4a16 (11, 12)
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, t_live", [((2, 3, 4, 2, 9, 64), 9), ((2, 3, 4, 2, 9, 64), 5),
+                                           ((1, 2, 8, 4, 17, 128), 11)])
+def test_beam_reorder_kernel_bit_equal(cuda_device, dtype, shape, t_live):
+    """The gather kernel equals its plain version bit for bit on a T prefix
+    of the full buffers, with a frozen slot and a column past t_live."""
+    from reprover_tpu_torch.ops import beam_reorder as br
+
+    gen = torch.Generator(device=cuda_device).manual_seed(t_live)
+    L, S, K, H, T, d = shape
+    k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
+    kc, vc = (torch.randn((L, S, K, H, 1, d), generator=gen, device=cuda_device).to(dtype)
+              for _ in range(2))
+    parent = torch.randint(0, K, (S, K), generator=gen, device=cuda_device)
+    frozen = torch.zeros(S, dtype=torch.bool, device=cuda_device)
+    frozen[-1] = True
+    pos = torch.randint(0, t_live, (S,), generator=gen, device=cuda_device)
+    pos[0] = t_live + 1 if t_live + 1 < T else pos[0]
+    out_k, out_v = torch.zeros_like(k), torch.zeros_like(v)
+    before = br.KERNEL_LAUNCHES["beam_reorder"]
+    br.reorder_append_gather(k[..., :t_live, :], v[..., :t_live, :], kc, vc, parent, frozen, pos,
+                             out_k[..., :t_live, :], out_v[..., :t_live, :])
+    torch.cuda.synchronize()
+    assert br.KERNEL_LAUNCHES["beam_reorder"] == before + 1
+    want_k, want_v = br.reorder_append_gather_reference(
+        k[..., :t_live, :], v[..., :t_live, :], kc, vc, parent, frozen, pos)
+    assert torch.equal(out_k[..., :t_live, :], want_k) and torch.equal(out_v[..., :t_live, :], want_v)
+    assert bool((out_k[..., t_live:, :] == 0).all())  # untouched past t_live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m, k, n", [(32, 4096, 1024), (5, 256, 200), (130, 1472, 384),
+                                     (1100, 512, 512)])
+def test_quant_matmul_kernels_match_plain(cuda_device, bits, m, k, n):
+    """w8a16 / w4a16 kernels against their plain versions in bf16, within
+    2e-2 of max(1, max|ref|) (bf16 output rounding; fp32 sums in another
+    order), bf16 and fp32 outputs, ragged M/N edges and split-K decode."""
+    from reprover_tpu_torch.models import quantize as qz
+    from reprover_tpu_torch.ops import quant_matmul as qm
+
+    rng = np.random.default_rng(m + k + n + bits)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32))
+    for out_dtype in (torch.bfloat16, torch.float32):
+        if bits == 8:
+            qw = qz.quantize_weight(w).to(cuda_device)
+            name = "quant_matmul"
+            got = qm.quant_matmul(x, qw.q, qw.scale.reshape(-1), out_dtype=out_dtype)
+            ref = qm.quant_matmul_reference(x, qw.q, qw.scale, out_dtype=torch.float32)
+        else:
+            qw = qz.quantize_weight4(w, group=64).to(cuda_device)
+            name = "quant4_matmul"
+            got = qm.quant4_matmul(x, qw.q, qw.scale, qw.group, out_dtype=out_dtype)
+            ref = qm.quant4_matmul_reference(x, qw.q, qw.scale, qw.group, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and qm.KERNEL_LAUNCHES[name] > 0
+        tol = 2e-2 * max(1.0, ref.abs().max().item())
+        assert (got.float() - ref).abs().max().item() <= tol

@@ -194,7 +194,15 @@ def test_safetensors_without_package_says_so(hf_dirs, monkeypatch, tmp_path):
 
 
 def test_decoder_only_checkpoint_is_refused(tmp_path):
-    with open(os.path.join(tmp_path, "config.json"), "w") as f:
-        json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama"}, f)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        thf.reject_decoder_only(str(tmp_path))
+    """A decoder-only checkpoint is no longer refused: it is told apart from
+    a T5 one and routed to the causal generator."""
+    from reprover_tpu_torch.models.hf_import_causal import is_causal_lm_checkpoint
+
+    causal, t5 = tmp_path / "causal", tmp_path / "t5"
+    for d, cfg in ((causal, {"architectures": ["LlamaForCausalLM"], "model_type": "llama"}),
+                   (t5, {"architectures": ["T5ForConditionalGeneration"], "model_type": "t5"})):
+        d.mkdir()
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg, f)
+    assert is_causal_lm_checkpoint(str(causal))
+    assert not is_causal_lm_checkpoint(str(t5))
