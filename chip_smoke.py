@@ -80,13 +80,42 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     trained on the synthetic corpus, the streaming service (4 slots x 8
     beams, prompts 512, decode 129) answering two client threads, timed and
     profiled engine chunks, where each weight routes, weight bytes and peak
-    memory; then the same weights in int8 through one admission wave.
+    memory; then the same weights in int8 through one admission wave;
+15. long-route kernels vs plain: kernels 2, 5, 6 and 7 (the KV-blocked
+    long-context route past 4096, or with ``block_kv``) in the three modes,
+    fp32 and bf16, at encoder [4, 8192], [2, 4608] and a ragged [3, 4141],
+    causal [2, 4608] and [1, 4141], cross [4, 512] x [4, 8192] and [3, 200]
+    x [3, 4141], and ``block_kv`` at [8, 2304]: ragged masks, a fully masked
+    tail tile, an encoder row with no valid key, each kernel alone and the
+    whole autograd backward against the plain versions (at encoder [2,
+    4608] fp32 also against the full-row reference's per-pair bias and its
+    autograd), fp32 within 1e-4
+    (d_rel 1e-3), bf16 within 2e-2 of max(1, max|ref|); bf16 times beside
+    the plain versions, ``scaled_dot_product_attention`` with a dense bias
+    mask and the bounds;
+16. long serving: the phase-4 models behind ``InferenceService`` at
+    ``max_inp_seq_len`` 8192, 8 theorems x 2 expansions; every served
+    source packs its 100 retrieved premises past 4096 bytes, at least two
+    batches are served and kernel 2 must launch; s/request over all
+    requests, the padded encoder shape of each batch and one source's
+    encode ms;
+17. long generator training: ``retrieval.main predict`` (100 premises)
+    on a second synthetic benchmark whose premises have Mathlib-like
+    lengths, then ``generation.main fit`` at ``--data.max_inp_seq_len 8192
+    --data.batch_size 4`` (remat full, bf16 over fp32 masters) for 12
+    steps, one validation batch and a checkpoint; every loss finite, the
+    encoder and cross modes of kernels 2, 5, 6 and 7 launched;
+18. long train step: one fixed random batch at [4, 8192] -> [4, 512],
+    ragged, 20 steps whose loss must fall, timed by part, peak memory and
+    each attention kernel's share of a profiled step.
 
-The line before the last is ``{"kernels": [...]}`` (the twelve kernels,
-with their launches on the main paths: serving, retriever training,
-generator training, streaming byt5-small, LLaMA-7B int4 and int8, and their
-times, bounds and library times at the generator-training shapes, or the
-LLaMA-7B decode shapes for the serving kernels); the last line is
+The line before the last is ``{"kernels": [...]}`` (the 24 kernels, with
+their launches on the main paths: serving, retriever training, generator
+training, streaming byt5-small, LLaMA-7B int4 and int8, long serving and
+long generator training (the causal long-route kernels run in phase 15
+only: no path's target passes 4096), and their times, bounds and library
+times at the generator-training shapes, the LLaMA-7B decode shapes for the
+serving kernels, or [4, 8192] for the long route); the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 2 and
 prints no result.
 
@@ -99,6 +128,9 @@ Rehearse the training phases on the CPU at tiny width (a minute)::
     chip_smoke.phase_train_steps(torch.device("cpu"), bench, tiny=True)
     chip_smoke.phase_generator_train(torch.device("cpu"), work, bench, tiny=True)
     chip_smoke.phase_generator_steps(torch.device("cpu"), tiny=True)
+    long_bench = chip_smoke.make_bench(work, long=True)
+    chip_smoke.phase_generator_train(torch.device("cpu"), work, long_bench, tiny=True,
+                                     gen=chip_smoke.LONG_GEN)
 
 and the streaming phases (a minute): shrink ``SLICE`` (e.g. 4 beams, 256
 input bytes, 12 output bytes, 2 theorems) and ``STREAM``, build a tiny
@@ -140,11 +172,44 @@ CONTEXT_CAP_SHAPE = (TRAIN["batch_size"], TRAIN["max_seq_len"])  # contexts at t
 # Generator training at the reference data settings
 # (confs/generation_lean4_random.yaml), cut to 20 steps and one val batch.
 GEN = dict(batch_size=8, eval_batch_size=64, max_inp_seq_len=2300, max_oup_seq_len=512,
-           steps=20, log_interval=5, lr=1e-4, seed=3407)
+           steps=20, log_interval=5, lr=1e-4, seed=3407, num_retrieved=40, shape=GEN_SHAPE,
+           fixed_steps=20, tag="gen")
 # (B, T) causal and (B, T, S) cross shapes: the generator's decoder at the
 # 512 cap over 2304-byte sources, and ragged cases.
 CAUSAL_SHAPES = [(8, 512), (3, 200)]
 CROSS_SHAPES = [(8, 512, 2304), (3, 200, 1000)]
+
+# The long route (kernels 2, 5, 6, 7): (mode, B, Lq, Lk, block_kv) checked
+# against the plain versions. Encoder [4, 8192] and cross [4, 512] x [4,
+# 8192] are the long train step's calls (their bf16 times are the kernels
+# line's); [2, 4608] and causal are past the 4096 switch; 4141 is not a
+# multiple of the 64-wide tile; block_kv takes the route at [8, 2304].
+# At LONG_PAIR_CHECK (B, L) the fp32 encoder case is also held to the
+# full-row reference, whose bias is per pair and not per 64-tile.
+LONG_CASES = [("encoder", 4, 8192, 8192, 0), ("encoder", 2, 4608, 4608, 0),
+              ("encoder", 3, 4141, 4141, 0), ("causal", 2, 4608, 4608, 0),
+              ("causal", 1, 4141, 4141, 0), ("cross", 4, 512, 8192, 0),
+              ("cross", 3, 200, 4141, 0), ("encoder", 8, 2304, 2304, 512)]
+LONG_PAIR_CHECK = (2, 4608)
+LONG_MAIN = {"encoder_attn": (4, 8192, 8192), "causal_attn": (2, 4608, 4608),
+             "cross_attn": (4, 512, 8192)}
+# Long-context generator training: sources packed with 100 retrieved
+# premises up to 8192 bytes, batch 4, targets up to 512, 12 steps, one
+# validation batch of 8; the fixed step at [4, 8192] -> [4, 512] (the
+# geometry of benchmarks/genstep_profile.py's 8k run). Long serving: the
+# served sources packed up to 8192 bytes, 8 theorems, up to 2 expansions
+# each (phase 4's depth, twice the theorems), so several batches of
+# different padded lengths are served.
+LONG_GEN = dict(GEN, batch_size=4, eval_batch_size=8, max_inp_seq_len=8192, steps=12,
+                log_interval=4, num_retrieved=100, shape=(4, 8192), tag="long_gen")
+LONG_SERVE = dict(max_inp_seq_len=8192, num_theorems=8, max_expansions=2)
+# The KERNEL_LAUNCHES names of the full-row kernels (every one runs in
+# generator training at 2300 bytes) and of the long route's kernels that
+# generator training at 8192 bytes runs (the causal mode's only at T > 4096).
+ATTENTIONS = ("encoder_attn", "causal_attn", "cross_attn")
+FULL_ROW_KERNELS = [a + p for a in ATTENTIONS for p in ("", "_bwd_dq", "_bwd_dkv")]
+LONG_PARTS = ("_long", "_long_lse", "_long_bwd_dq", "_long_bwd_dkv")
+LONG_GEN_KERNELS = [a + p for a in ("encoder_attn", "cross_attn") for p in LONG_PARTS]
 
 # The card's published peaks (H100 SXM): the bound of a kernel is the larger
 # of its operations over the bf16 tensor-core rate and its bytes over the
@@ -266,14 +331,16 @@ def _valid_pairs(tfa, mode, mask, lq: int) -> int:
 
 def _bound(part: str, b: int, lq: int, lk: int, pairs: int, itemsize: int):
     """(least ms, "operations" or "bytes") of one kernel on the card: the
-    larger of its FMA work (per kept pair and head: 4d forward, 6d dQ, 8d
-    dK/dV operations) over the bf16 peak and of its bytes (each input read
-    once, each output written once) over the memory rate."""
+    larger of its FMA work (per kept pair and head: 4d forward, 2d for the
+    LSE sweep, 6d dQ, 8d dK/dV operations) over the bf16 peak and of its
+    bytes (each input read once, each output written once) over the memory
+    rate."""
     inner = NUM_HEADS * HEAD_DIM
-    flops = {"fwd": 4, "dq": 6, "dkv": 8}[part] * HEAD_DIM * NUM_HEADS * pairs
+    flops = {"fwd": 4, "lse": 2, "dq": 6, "dkv": 8}[part] * HEAD_DIM * NUM_HEADS * pairs
     stats = 8 * b * NUM_HEADS * lq  # LSE and delta, fp32
     nbytes = {
         "fwd": itemsize * inner * 2 * (b * lq + b * lk) + 4 * b * lk,
+        "lse": itemsize * inner * (b * lq + b * lk) + 4 * b * lk + stats // 2,
         "dq": itemsize * inner * (3 * b * lq + 2 * b * lk) + 4 * b * lk + stats,
         "dkv": itemsize * inner * (2 * b * lq + 4 * b * lk) + 4 * b * lk + stats,
     }[part]
@@ -516,6 +583,178 @@ def phase_decoder_kernels(device) -> tuple:
     return fwd, bwd
 
 
+def _long_fn(tfa, mode, block_kv: int):
+    """The public call of one attention, ``fn(q, k, v, mask, rel_bias)``;
+    past 4096 or with ``block_kv`` it takes the long route (kernels 2, 5, 6
+    and 7 on CUDA tensors)."""
+    h = NUM_HEADS
+    if mode == tfa.ENCODER:
+        return lambda q, k, v, m, r: tfa.encoder_flash_attention(q, k, v, m, r, num_heads=h,
+                                                                 block_kv=block_kv)
+    if mode == tfa.CAUSAL:
+        return lambda q, k, v, m, r: tfa.causal_flash_attention(q, k, v, r, num_heads=h,
+                                                                block_kv=block_kv)
+    return lambda q, k, v, m, r: tfa.cross_flash_attention(q, k, v, m, num_heads=h,
+                                                           block_kv=block_kv)
+
+
+def _long_backward_plain(tfa, mode, q, k, v, mask, rel, out, dout):
+    """The long route's gradient by the plain versions of kernels 5, 6 and
+    7 -> (dq, dk, dv, d_rel or None)."""
+    geo = (NUM_HEADS, 32, 128)
+    lse = tfa.long_lse_reference(mode, q, k, mask, rel, *geo)
+    common = (mode, q, k, v, dout, mask, rel, lse, tfa.row_delta(dout, out, NUM_HEADS), *geo)
+    dq, bins = tfa.long_backward_dq_reference(*common)
+    dk, dv = tfa.long_backward_dkv_reference(*common)
+    if bins is None:
+        return dq, dk, dv, None
+    table = tfa.bucket_table(32, 128, q.device, mode == tfa.ENCODER)
+    return dq, dk, dv, tfa.fold_rel_bins(bins, table, 32)
+
+
+def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
+    """Kernels 2, 5, 6 and 7 of one attention at one shape against their
+    plain versions: kernel 2's output and kernel 5's LSE; kernel 6 (dq and
+    the bias gradient) and kernel 7 (dk, dv) alone on the plain LSE and
+    delta; and the whole autograd backward through the public function (the
+    kernels' own LSE) against the plain versions' chain (and, at
+    ``LONG_PAIR_CHECK``, kernel 2's output and that backward against the
+    full-row reference's autograd). Ragged masks, a
+    fully masked tail tile, an encoder row with no valid key (B >= 3) that
+    must get 0 and zero gradients, and a masked key >= 100 above query 0's
+    valid scores. A bf16 row is timed with CUDA events beside the plain
+    versions, one ``scaled_dot_product_attention`` call with a dense bias
+    mask (its autograd for the backward kernels; none computes the LSE
+    alone) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    causal = mode == tfa.CAUSAL
+    q, k, v, mask, rel = _attention_case(b, lq, lk, dtype, gen, device, causal)
+    empty = not causal and b >= 3
+    if not causal:
+        mask[min(1, b - 1), lk - 100:] = 0  # a fully masked tail tile
+        if empty:
+            mask[-1] = 0
+    if mode == tfa.CROSS:
+        rel = None
+    dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    fn = _long_fn(tfa, mode, block_kv)
+    geo = (NUM_HEADS, 32, 128)
+    bf16 = dtype == torch.bfloat16
+
+    def tol(name, want):
+        base = BF16_REL_TOL if bf16 else (DREL_FP32_TOL if name.startswith("d_rel") else FP32_TOL)
+        return base * max(1.0, want.float().abs().max().item()) if bf16 or name != "out" else base
+
+    errs, ok = {}, True
+
+    def check(name, got, want):
+        nonlocal ok
+        errs[name] = (got.float() - want.float()).abs().max().item()
+        ok &= bool(torch.isfinite(got).all()) and errs[name] <= tol(name, want)
+
+    out = fn(q, k, v, mask, rel)
+    ref = tfa.long_attention_reference(mode, q, k, v, mask, rel, *geo)
+    check("out", out, ref)
+    mask32, rel32, table = tfa._kernel_operands(mode, mask, rel, 32, 128)
+    kernel_args = (mode, q, k, v, mask32, rel32, table, NUM_HEADS, 128)
+    lse = tfa._forward_cuda(*kernel_args, True, tfa.LONG_LSE)[1]
+    lse_ref = tfa.long_lse_reference(mode, q, k, mask, rel, *geo)
+    rows = torch.isfinite(lse_ref)
+    ok &= bool(torch.equal(torch.isinf(lse), ~rows))
+    check("lse", lse[rows], lse_ref[rows])
+
+    delta = tfa.row_delta(dout, ref, NUM_HEADS)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    bins = None if rel is None else torch.zeros((NUM_HEADS, 257), device=device)
+    common = (q, k, v, dout, mask32, rel32, table, lse_ref, delta)
+    tfa._backward_cuda(mode, "dq", *common, dq, bins, NUM_HEADS, 128, tfa.LONG)
+    tfa._backward_cuda(mode, "dkv", *common, dk, dv, NUM_HEADS, 128, tfa.LONG)
+    plain_args = (mode, q, k, v, dout, mask, rel, lse_ref, delta, *geo)
+    dq_ref, bins_ref = tfa.long_backward_dq_reference(*plain_args)
+    dk_ref, dv_ref = tfa.long_backward_dkv_reference(*plain_args)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        check(name, got, want)
+    if bins is not None:
+        check("d_rel", tfa.fold_rel_bins(bins, table, 32), tfa.fold_rel_bins(bins_ref, table, 32))
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel) if t is not None]
+    full = leaves + [None] * (4 - len(leaves))
+    got = torch.autograd.grad(fn(full[0], full[1], full[2], mask, full[3]), leaves, dout)
+    want = _long_backward_plain(tfa, mode, q, k, v, mask, rel, ref, dout)
+    for name, g, w in zip(("dq", "dk", "dv", "d_rel"), got, want):
+        check(f"{name}_e2e", g, w)
+    if mode == tfa.ENCODER and not bf16 and (b, lq) == LONG_PAIR_CHECK:
+        # The bias per pair, not per tile: a near/far rule that the plain
+        # versions share with the kernels cannot hide here.
+        pair = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
+        pair_out = tfa.encoder_attention_reference(*pair[:3], mask, pair[3], num_heads=NUM_HEADS)
+        check("out_pair", out, pair_out)
+        for name, g, w in zip(("dq", "dk", "dv", "d_rel"), got,
+                              torch.autograd.grad(pair_out, pair, dout)):
+            check(f"{name}_pair", g, w)
+        del pair, pair_out
+    if empty:
+        ok &= out[-1].abs().max().item() == 0.0 and all(
+            g[-1].abs().max().item() == 0.0 for g in got[:3])
+    row = dict(mode=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk, block_kv=block_kv,
+               dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok)
+    del got, want, leaves, full
+    if not bf16:
+        return row
+
+    iters = 5 if b * max(lq, lk) > 32 * 1024 else 10
+    lib_leaves, qkv, attn = _library(tfa, mode, q, k, v, mask, rel)
+    with torch.no_grad():
+        row.update(
+            ms=_time_ms(lambda: fn(q, k, v, mask, rel), iters),
+            plain_ms=_time_ms(lambda: tfa.long_attention_reference(mode, q, k, v, mask, rel,
+                                                                   *geo), iters),
+            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                *qkv, attn_mask=attn, scale=1.0), iters),
+            lse_ms=_time_ms(lambda: tfa._forward_cuda(*kernel_args, True, tfa.LONG_LSE), iters),
+            lse_plain_ms=_time_ms(lambda: tfa.long_lse_reference(mode, q, k, mask, rel, *geo),
+                                  iters),
+            dq_ms=_time_ms(lambda: tfa._backward_cuda(mode, "dq", *common, dq, bins, NUM_HEADS,
+                                                      128, tfa.LONG), iters),
+            dq_plain_ms=_time_ms(lambda: tfa.long_backward_dq_reference(*plain_args), iters),
+            dkv_ms=_time_ms(lambda: tfa._backward_cuda(mode, "dkv", *common, dk, dv, NUM_HEADS,
+                                                       128, tfa.LONG), iters),
+            dkv_plain_ms=_time_ms(lambda: tfa.long_backward_dkv_reference(*plain_args), iters))
+    out_l = F.scaled_dot_product_attention(*qkv, attn_mask=attn, scale=1.0)
+    dout_l = dout.view(b, lq, NUM_HEADS, HEAD_DIM).transpose(1, 2)
+    row["library_bwd_ms"] = _time_ms(
+        lambda: torch.autograd.grad(out_l, lib_leaves, dout_l, retain_graph=True), iters)
+    pairs = _valid_pairs(tfa, mode, mask, lq)
+    for part in ("fwd", "lse", "dq", "dkv"):
+        key = "" if part == "fwd" else f"{part}_"
+        row[f"{key}bound_ms"], row[f"{key}bound_by"] = _bound(part, b, lq, lk, pairs, 2)
+    return row
+
+
+def phase_long_kernels(device) -> list:
+    """Kernels 2, 5, 6 and 7 in the three modes against their plain versions
+    at ``LONG_CASES``, fp32 and bf16 (see :func:`_long_row`)."""
+    import torch
+
+    from reprover_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    modes = {"encoder": tfa.ENCODER, "causal": tfa.CAUSAL, "cross": tfa.CROSS}
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows = []
+    for kind, b, lq, lk, block_kv in LONG_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = _long_row(tfa, modes[kind], b, lq, lk, block_kv, dtype, gen, device)
+            log(f"[long_kernel] {json.dumps(row)}")
+            rows.append(row)
+            torch.cuda.empty_cache()
+    _check_rows(rows, "the long-route kernels")
+    return rows
+
+
 def _full_width_models(device):
     import torch
 
@@ -532,15 +771,19 @@ def _full_width_models(device):
             place_params(fuse_mlp_params(ret_params), cfg, device))
 
 
-def make_bench(work: str) -> str:
+def make_bench(work: str, long: bool = False) -> str:
     """The synthetic LeanDojo-format benchmark (12,900 premises) under
-    ``work``; returns its directory."""
-    bench = os.path.join(work, "bench")
+    ``work``; returns its directory. ``long``: premises of Mathlib-like
+    serialized length (~220 bytes on average) and theorems that can each
+    access >= 100 of them, so 100 retrieved premises pack a source to 8192
+    bytes."""
+    bench = os.path.join(work, "bench_long" if long else "bench")
     subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "make_synthetic_benchmark.py"),
          "--out", bench, "--num-files", str(SLICE["num_files"]),
          "--premises-per-file", str(SLICE["premises_per_file"]),
-         "--num-theorems", str(SLICE["num_theorems_made"])],
+         "--num-theorems", str(SLICE["num_theorems_made"])]
+        + (["--mathlib-lengths", "--min-accessible", "100"] if long else []),
         check=True, cwd=REPO, capture_output=True, timeout=300,
     )
     return bench
@@ -671,7 +914,9 @@ def phase_breakdown(device, generator, retriever, thm: dict) -> dict:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # Device events only: the share reads no host op, and a 511-step
+        # request runs ~180k of them, each traced and parsed otherwise.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             request()
         by_name: dict = {}
         count = 0
@@ -760,7 +1005,7 @@ def phase_train(device, work: str, bench: str, tiny: bool = False) -> dict:
         raise AssertionError(f"non-finite training loss: {losses}")
     if not val or not {"MRR", "emb_eff_rank"} <= set(val[-1]):
         raise AssertionError("metrics.jsonl lacks Recall@10_val, MRR or emb_eff_rank")
-    encoder = {k: n for k, n in launches.items() if k.startswith("encoder_attn")}
+    encoder = {k: launches[k] for k in FULL_ROW_KERNELS if k.startswith("encoder_attn")}
     if device.type == "cuda" and min(encoder.values()) < 1:
         raise AssertionError(f"training did not launch every encoder attention kernel: "
                              f"{launches}")
@@ -835,15 +1080,16 @@ def _timed_steps(state, loss_fn, model_cfg, batch: dict, n: int, device) -> list
     return out
 
 
-_ATTN_KERNEL = re.compile(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d)>")
+_ATTN_KERNEL = re.compile(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d),\s*(\d)>")
 
 
 def _attention_kernel_key(name: str):
-    """The ``KERNEL_LAUNCHES`` key of a profiled CUDA kernel name, or None."""
+    """The ``KERNEL_LAUNCHES`` key of a profiled CUDA kernel name
+    (``attn_<part>_kernel<T, mode, route>``), or None."""
     m = _ATTN_KERNEL.search(name)
     if m is None:
         return None
-    base = ("encoder_attn", "causal_attn", "cross_attn")[int(m.group(2))]
+    base = ATTENTIONS[int(m.group(2))] + ("", "_long", "_long_lse")[int(m.group(3))]
     return base if m.group(1) == "fwd" else f"{base}_{m.group(1)}"
 
 
@@ -937,10 +1183,10 @@ def phase_train_steps(device, bench: str, tiny: bool = False) -> dict:
     return results
 
 
-def _gen_argv(device, work: str, bench: str, preds: str, tiny: bool) -> list:
-    """``generation.main`` flags of the generator phase: the reference data
-    settings, remat on, seeded random init (or the tiny model), greedy
-    validation on one batch."""
+def _gen_argv(device, work: str, bench: str, preds: str, tiny: bool, gen: dict) -> list:
+    """``generation.main`` flags of a generator phase (``gen``: ``GEN``, the
+    reference data settings, or ``LONG_GEN``): remat on, seeded random init
+    (or the tiny model), greedy validation on one batch."""
     return [
         "--device", device.type,
         "--model.tiny" if tiny else "--model.random_init", "true",
@@ -949,20 +1195,25 @@ def _gen_argv(device, work: str, bench: str, preds: str, tiny: bool) -> list:
         "--data.data_path", os.path.join(bench, "random"),
         "--data.corpus_path", os.path.join(bench, "corpus.jsonl"),
         "--data.preds_path", preds,
-        "--data.batch_size", str(GEN["batch_size"]),
-        "--data.eval_batch_size", str(GEN["eval_batch_size"]),
-        "--data.max_inp_seq_len", str(GEN["max_inp_seq_len"]),
-        "--data.max_oup_seq_len", str(GEN["max_oup_seq_len"]),
+        "--data.batch_size", str(gen["batch_size"]),
+        "--data.eval_batch_size", str(gen["eval_batch_size"]),
+        "--data.max_inp_seq_len", str(gen["max_inp_seq_len"]),
+        "--data.max_oup_seq_len", str(gen["max_oup_seq_len"]),
         "--limit_val_batches", "1",
-        "--seed", str(GEN["seed"]),
+        "--seed", str(gen["seed"]),
         "--log_dir", os.path.join(work, "glogs"),
     ]
 
 
-def phase_generator_train(device, work: str, bench: str, tiny: bool = False) -> dict:
-    """Retriever predictions from phase 7's checkpoint, then generator
-    training through the CLI entry point: 20 steps, one validation and a
-    checkpoint, then ``validate --ckpt_dir`` restoring the checkpoint."""
+def phase_generator_train(device, work: str, bench: str, tiny: bool = False,
+                          gen: dict = GEN) -> dict:
+    """Retriever predictions from phase 7's checkpoint (``work/ckpts``),
+    then generator training through the CLI entry point: ``gen["steps"]``
+    steps, one validation and a checkpoint. ``GEN``: the reference settings
+    at 2300 bytes, every full-row attention kernel launched, then ``validate
+    --ckpt_dir`` restoring the checkpoint. ``LONG_GEN``: sources up to 8192
+    bytes (its outputs under ``work/long``), the encoder and cross modes of
+    kernels 2, 5, 6 and 7 launched."""
     import torch
 
     from reprover_tpu_torch.generation.datamodule import GeneratorDataModule
@@ -970,29 +1221,33 @@ def phase_generator_train(device, work: str, bench: str, tiny: bool = False) -> 
     from reprover_tpu_torch.ops import flash_attention as tfa
     from reprover_tpu_torch.retrieval.main import main as retrieval_main
 
+    tag, long = gen["tag"] + "_train", gen is LONG_GEN
+    out = os.path.join(work, "long") if long else work
+    os.makedirs(os.path.join(out, "logs"), exist_ok=True)
     t0 = time.perf_counter()
-    # 40 premises per tactic: the synthetic corpus's first files see only 43
-    # accessible premises (the reference retrieves 100 from Mathlib).
-    records = retrieval_main(["predict"] + _fit_argv(device, work, bench, tiny) + [
+    # GEN retrieves 40 premises per tactic: the synthetic corpus's first
+    # files see only 43 accessible premises (the reference retrieves 100 from
+    # Mathlib); LONG_GEN's benchmark keeps >= 100 accessible to each theorem.
+    records = retrieval_main(["predict"] + _fit_argv(device, out, bench, tiny) + [
         "--ckpt_dir", os.path.join(work, "ckpts"), "--preds_out", "predictions.pickle",
-        "--model.num_retrieved", "40"])
-    preds = os.path.join(work, "logs", "predictions.pickle")
-    log(f"[gen_train] retrieval.main predict: {len(records)} records in "
+        "--model.num_retrieved", str(gen["num_retrieved"])])
+    preds = os.path.join(out, "logs", "predictions.pickle")
+    log(f"[{tag}] retrieval.main predict: {len(records)} records in "
         f"{time.perf_counter() - t0:.3f}s -> {preds}")
 
-    dm = GeneratorDataModule(os.path.join(bench, "random"), GEN["batch_size"],
-                             GEN["eval_batch_size"], GEN["max_inp_seq_len"],
-                             GEN["max_oup_seq_len"], 0.5, preds_path=preds, seed=GEN["seed"])
+    dm = GeneratorDataModule(os.path.join(bench, "random"), gen["batch_size"],
+                             gen["eval_batch_size"], gen["max_inp_seq_len"],
+                             gen["max_oup_seq_len"], 0.5, preds_path=preds, seed=gen["seed"])
     dm.setup("fit")
     shapes = sorted({(tuple(b["state_ids"].shape), tuple(b["tactic_ids"].shape))
-                     for _, b in zip(range(GEN["steps"]), dm.train_dataloader())})
-    log(f"[gen_train] train batches (state_ids, tactic_ids) shapes: {shapes}")
+                     for _, b in zip(range(gen["steps"]), dm.train_dataloader())})
+    log(f"[{tag}] train batches (state_ids, tactic_ids) shapes: {shapes}")
 
-    ckpt = os.path.join(work, "gckpts")
-    argv = _gen_argv(device, work, bench, preds, tiny) + [
-        "--trainer.max_steps", str(GEN["steps"]),
-        "--trainer.val_interval", str(GEN["steps"]),
-        "--trainer.log_interval", str(GEN["log_interval"]),
+    ckpt = os.path.join(out, "gckpts")
+    argv = _gen_argv(device, out, bench, preds, tiny, gen) + [
+        "--trainer.max_steps", str(gen["steps"]),
+        "--trainer.val_interval", str(gen["steps"]),
+        "--trainer.log_interval", str(gen["log_interval"]),
         "--trainer.monitor", "loss_val",
         "--trainer.monitor_mode", "min",
         "--trainer.patience", "99",
@@ -1004,27 +1259,34 @@ def phase_generator_train(device, work: str, bench: str, tiny: bool = False) -> 
     _sync(device)
     fit_s = time.perf_counter() - t0
     launches = dict(tfa.KERNEL_LAUNCHES)
-    with open(os.path.join(work, "glogs", "metrics.jsonl")) as f:
+    with open(os.path.join(out, "glogs", "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r["loss"] for r in recs if "loss" in r]
     sps = [r["steps_per_sec"] for r in recs if "steps_per_sec" in r]
     val = [r for r in recs if "loss_val" in r]
-    log(f"[gen_train] fit {state.step} steps in {fit_s:.3f}s (validation and checkpoint "
-        f"included); losses {losses}; steps/s per {GEN['log_interval']}-step window {sps}; "
+    log(f"[{tag}] fit {state.step} steps in {fit_s:.3f}s (validation and checkpoint "
+        f"included); losses {losses}; steps/s per {gen['log_interval']}-step window {sps}; "
         f"kernel launches {launches}")
     if val:
-        log(f"[gen_train] validation {json.dumps(val[-1])}")
-    if state.step != GEN["steps"] or len(losses) != GEN["steps"] // GEN["log_interval"]:
+        log(f"[{tag}] validation {json.dumps(val[-1])}")
+    if state.step != gen["steps"] or len(losses) != gen["steps"] // gen["log_interval"]:
         raise AssertionError(f"fit ran {state.step} steps and logged {len(losses)} losses")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not val or "top1_acc_val" not in val[-1] or not math.isfinite(val[-1]["loss_val"]):
         raise AssertionError("metrics.jsonl lacks a finite loss_val and top1_acc_val")
-    if device.type == "cuda" and min(launches.values()) < 1:
-        raise AssertionError(f"generator training did not launch every attention kernel: "
-                             f"{launches}")
+    required = LONG_GEN_KERNELS if long else FULL_ROW_KERNELS
+    if device.type == "cuda" and min(launches[name] for name in required) < 1:
+        raise AssertionError(f"generator training did not launch every kernel of its route "
+                             f"({required}): {launches}")
+    if not os.path.exists(os.path.join(ckpt, str(gen["steps"]), "state.pt")):
+        raise AssertionError(f"fit wrote no checkpoint under {ckpt}")
+    result = dict(launches=launches, losses=losses, steps_per_sec=sps, fit_s=fit_s,
+                  validation=val[-1], shapes=shapes)
+    if long:
+        return result
 
-    saved = torch.load(os.path.join(ckpt, str(GEN["steps"]), "state.pt"),
+    saved = torch.load(os.path.join(ckpt, str(gen["steps"]), "state.pt"),
                        map_location="cpu", weights_only=True)["params"]
     del state
     if device.type == "cuda":
@@ -1034,17 +1296,17 @@ def phase_generator_train(device, work: str, bench: str, tiny: bool = False) -> 
                   if not torch.equal(t.detach().cpu(), _flat(saved)[name])]
     if mismatched:
         raise AssertionError(f"validate --ckpt_dir restored different parameters: {mismatched}")
-    log(f"[gen_train] validate --ckpt_dir restored {len(_flat(saved))} parameter tensors "
+    log(f"[{tag}] validate --ckpt_dir restored {len(_flat(saved))} parameter tensors "
         f"bit-equal")
-    return dict(launches=launches, losses=losses, steps_per_sec=sps, fit_s=fit_s,
-                validation=val[-1], shapes=shapes)
+    return result
 
 
-def phase_generator_steps(device, tiny: bool = False) -> dict:
-    """One fixed random batch at the reference cap ([8, 2304] sources, [8,
-    512] targets, ragged, -100 past each target), no warmup: 20 steps whose
-    loss must fall, timed by part, peak memory and each attention kernel's
-    share of a profiled step."""
+def phase_generator_steps(device, tiny: bool = False, gen: dict = GEN) -> dict:
+    """One fixed random batch at ``gen["shape"]`` (``GEN``: the reference cap,
+    [8, 2304] sources; ``LONG_GEN``: [4, 8192]) with [B, 512] targets,
+    ragged, -100 past each target, no warmup: ``gen["fixed_steps"]`` steps
+    whose loss must fall, timed by part, peak memory and each attention
+    kernel's share of a profiled step."""
     import numpy as np
     import torch
 
@@ -1059,13 +1321,13 @@ def phase_generator_steps(device, tiny: bool = False) -> dict:
                        num_decoder_layers=1, compute_dtype=dtype, remat=True)
     else:
         cfg = byt5_small(compute_dtype=dtype, remat=True)
-    params = init_params(cfg, torch.Generator().manual_seed(GEN["seed"]))
-    state = init_train_state(place_master_params(fuse_mlp_params(params), device), GEN["lr"],
+    params = init_params(cfg, torch.Generator().manual_seed(gen["seed"]))
+    state = init_train_state(place_master_params(fuse_mlp_params(params), device), gen["lr"],
                              warmup_steps=0)
     del params
-    rng = np.random.default_rng(GEN["seed"])
-    b, src, tgt = GEN["batch_size"], GEN_SHAPE[1], GEN["max_oup_seq_len"]
-    src_len = rng.integers(src // 2, GEN["max_inp_seq_len"] + 1, b)
+    rng = np.random.default_rng(gen["seed"])
+    (b, src), tgt = gen["shape"], gen["max_oup_seq_len"]
+    src_len = rng.integers(src // 2, min(src, gen["max_inp_seq_len"]) + 1, b)
     tgt_len = rng.integers(tgt // 8, tgt + 1, b)
     src_mask = (np.arange(src)[None, :] < src_len[:, None]).astype(np.int64)
     tactic = rng.integers(3, 259, (b, tgt))
@@ -1073,12 +1335,106 @@ def phase_generator_steps(device, tiny: bool = False) -> dict:
     batch = {"state_ids": torch.from_numpy(rng.integers(3, 259, (b, src)) * src_mask),
              "state_mask": torch.from_numpy(src_mask), "tactic_ids": torch.from_numpy(tactic)}
     batch = {k: v.to(device) for k, v in batch.items()}
-    row = _step_report("gen_step", state, generation_loss, cfg, batch, GEN["steps"], device)
+    tag = gen["tag"] + "_step"
+    row = _step_report(tag, state, generation_loss, cfg, batch, gen["fixed_steps"], device)
     losses = row["losses"]
-    log(f"[gen_step] repeated batch, lr {GEN['lr']} without warmup: loss "
+    log(f"[{tag}] repeated batch, lr {gen['lr']} without warmup: loss "
         f"{losses[0]:.6f} -> {losses[-1]:.6f} over {len(losses)} steps")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss on one fixed batch did not fall: {losses}")
+    return row
+
+
+def phase_long_serving(device, bench: str) -> dict:
+    """Long-context serving: the phase-4 models (made again from their
+    seeds) behind ``InferenceService`` with the generator at
+    ``max_inp_seq_len`` 8192, answering two prover workers on
+    ``LONG_SERVE`` theorems; each state packs its 100 retrieved premises
+    past 4096 bytes, so the encoder takes the long route (kernel 2). Logs
+    the padded encoder shape of every served batch, the length of each
+    served source and s/request over all
+    requests, and fails unless at least two batches were served, every
+    served source passed 4096 and ``encoder_attn_long`` launched. Then one packed state's encode, timed
+    with CUDA events."""
+    import torch
+
+    from reprover_tpu_torch.data import Context, Pos, format_augmented_state, remove_marks
+    from reprover_tpu_torch.generation import TacticGeneratorModel
+    from reprover_tpu_torch.models.t5 import encode
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.prover.environment import environment_from_dataset
+    from reprover_tpu_torch.prover.evaluate import evaluate
+    from reprover_tpu_torch.prover.service import InferenceService
+    from reprover_tpu_torch.prover.tactic_generator import FixedTacticGenerator
+    from reprover_tpu_torch.retrieval import PremiseRetriever
+
+    lengths: list = []
+    packed: list = []
+
+    class Recording(TacticGeneratorModel):
+        """The generator, recording the padded shape of each encoded batch
+        and the unpadded length of each of its sources."""
+
+        def generate_ids(self, input_ids, attention_mask, num_beams, max_length):
+            lengths.append(list(input_ids.shape))
+            packed.extend(int(n) for n in attention_mask.sum(1).tolist())
+            return super().generate_ids(input_ids, attention_mask, num_beams, max_length)
+
+    cfg, gen_params, ret_params = _full_width_models(device)
+    data_path = os.path.join(bench, "random")
+    with open(os.path.join(data_path, "val.json")) as f:
+        theorems = json.load(f)
+    retriever = PremiseRetriever(ret_params, cfg, max_seq_len=SLICE["max_inp_seq_len"])
+    retriever.load_corpus(os.path.join(bench, "corpus.jsonl"))
+    generator = Recording(gen_params, cfg, LONG_SERVE["max_inp_seq_len"],
+                          SLICE["max_oup_seq_len"])
+    service = InferenceService(generator, retriever=retriever, max_batch=8)
+    tfa.reset_launch_counts()
+    service.start()
+    t0 = time.perf_counter()
+    try:
+        pass_1, results = evaluate(
+            data_path, environment_from_dataset(theorems), FixedTacticGenerator("unused"),
+            split="val", num_theorems=LONG_SERVE["num_theorems"],
+            num_sampled_tactics=SLICE["num_sampled_tactics"], timeout=600,
+            max_expansions=LONG_SERVE["max_expansions"], num_workers=SLICE["num_workers"],
+            make_client=service.client, return_results=True,
+        )
+    finally:
+        service.stop()
+    _sync(device)
+    eval_s = time.perf_counter() - t0
+    launches = dict(tfa.KERNEL_LAUNCHES)
+    stats = service.stats_snapshot()
+    requests = int(stats["requests"])
+    row = dict(requests=requests, batches=int(stats["batches"]), encoder_shapes=lengths,
+               source_bytes=packed, s_per_request=stats["device_time"] / max(requests, 1), eval_s=eval_s,
+               pass_1=pass_1, launches={k: n for k, n in launches.items() if n})
+
+    # One packed state alone: its padded length and the encoder's time.
+    thm = theorems[0]
+    state = thm["traced_tactics"][0]["state_before"]
+    ctx = Context(thm["file_path"], thm["full_name"], Pos.of(thm["start"]), state)
+    premises, _ = retriever.retrieve_batch([ctx], 100)
+    aug = remove_marks(format_augmented_state(state, premises[0], generator.max_inp_seq_len))
+    batch = generator.tokenizer([aug], max_length=generator.max_inp_seq_len,
+                                bucket_multiple=generator.bucket_multiple)
+    ids = torch.from_numpy(batch.input_ids).to(device, torch.long)
+    mask = torch.from_numpy(batch.attention_mask).to(device)
+    with torch.inference_mode():
+        run = lambda: encode(generator.params, cfg, ids, mask)  # noqa: E731
+        row["encode_ms"] = _time_ms(run, 5) if device.type == "cuda" else None
+    row.update(packed_bytes=len(aug.encode("utf-8")), source_len=int(ids.shape[1]))
+    log(f"[long_serve] {json.dumps(row)}")
+    if len(results) != LONG_SERVE["num_theorems"] or any(r is None for r in results):
+        raise AssertionError(f"long-context searches failed or were discarded: {results}")
+    if row["batches"] < 2 or any(n <= tfa.LONG_CONTEXT for _, n in lengths):
+        raise AssertionError(f"fewer than two batches, or a served source within "
+                             f"{tfa.LONG_CONTEXT}: {lengths}")
+    if device.type == "cuda" and launches["encoder_attn_long"] < 1:
+        raise AssertionError(f"long serving did not launch kernel 2: {launches}")
+    del service, generator, retriever, gen_params, ret_params
+    _empty_cache(device)
     return row
 
 
@@ -1088,7 +1444,7 @@ def phase_generator_steps(device, tiny: bool = False) -> dict:
 # the geometry of benchmarks/causal7b_serve.py (4 slots x 8 beams, prompts
 # of 512 tokens, 129 decode positions incl. the start token).
 STREAM = dict(num_slots=2, fp32_beams=8, fp32_max_len=64)
-LLAMA = dict(num_slots=4, num_beams=8, src=512, dec=129, seed=0, clients=2, requests_per_client=3,
+LLAMA = dict(num_slots=4, num_beams=8, src=512, dec=129, seed=0, clients=2, requests_per_client=2,
              bpe_vocab=4096)
 LLAMA_ADMIT_ROWS = LLAMA["num_slots"] * (LLAMA["src"] - 1)  # one admission wave's prefill rows
 # Every LLaMA-7B weight that routes to kernel 11/12: (K, N) of q/k/v/o,
@@ -1603,6 +1959,16 @@ REPLACES = {
 }
 SERVING_SOURCES = {"quant_matmul": "quant_matmul.cu", "quant4_matmul": "quant_matmul.cu",
                    "beam_reorder": "beam_reorder.cu"}
+# The long route's kernels: the line of the TPU kernel each replaces (in
+# reprover_tpu/ops/flash_attention.py), and the prefix of their keys in a
+# ``_long_row``.
+LONG_REPLACES = {"_long": ("reprover_tpu/ops/flash_attention.py:274", ""),
+                 "_long_lse": ("reprover_tpu/ops/flash_attention.py:864", "lse_"),
+                 "_long_bwd_dq": ("reprover_tpu/ops/flash_attention.py:934", "dq_"),
+                 "_long_bwd_dkv": ("reprover_tpu/ops/flash_attention.py:1034", "dkv_")}
+LONG_ERRS = {"_long": ("out",), "_long_lse": ("lse",),
+             "_long_bwd_dq": ("dq", "d_rel", "dq_e2e", "d_rel_e2e"),
+             "_long_bwd_dkv": ("dk", "dv", "dk_e2e", "dv_e2e")}
 
 
 def serving_entry(name: str, rows: list, launches: int, llama_cache: list) -> dict:
@@ -1657,6 +2023,32 @@ def kernel_entries(fwd_rows: list, bwd_rows: list, launches: dict) -> list:
     return entries
 
 
+def long_kernel_entries(rows: list, launches: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of kernels 2, 5, 6 and 7 in the
+    three modes: launches on the long main paths, the largest bf16 error
+    over every checked shape (the whole backward's included for 6 and 7),
+    and the times, bound and library time at ``LONG_MAIN``, bf16. No
+    library call computes the LSE sweep alone (kernel 5): its
+    ``library_ms`` is null."""
+    entries = []
+    for attn in ATTENTIONS:
+        mine = [r for r in rows if r["mode"] == attn and r["dtype"] == "bfloat16"]
+        at = next(r for r in mine if (r["B"], r["Lq"], r["Lk"]) == LONG_MAIN[attn]
+                  and r["block_kv"] == 0)
+        for part, (replaces, key) in LONG_REPLACES.items():
+            err = max(r["errs"][e] for r in mine for e in LONG_ERRS[part] if e in r["errs"])
+            library = {"": at["library_ms"], "lse_": None}.get(key, at["library_bwd_ms"])
+            source = "encoder_attn.cu" if key in ("", "lse_") else "encoder_attn_bwd.cu"
+            entries.append({"name": attn + part, "route": "cuda",
+                            "source": f"reprover_tpu_torch/csrc/{source}",
+                            "replaces": replaces,
+                            "launches": launches[attn + part], "max_abs_err": err,
+                            "ms": at[f"{key}ms"], "plain_ms": at[f"{key}plain_ms"],
+                            "bound_ms": at[f"{key}bound_ms"], "bound_by": at[f"{key}bound_by"],
+                            "library_ms": library})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1665,30 +2057,47 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     device = torch.device("cuda")
-    info = phase_device()
-    phase_build()
-    rows = phase_kernel(device)
-    dec_fwd, dec_bwd = phase_decoder_kernels(device)
+    seconds: dict = {}
+
+    def phase(name: str, fn, *args, **kwargs):
+        """Run one phase; its wall seconds go to the ``[smoke]`` line."""
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    info = phase("device", phase_device)
+    phase("build", phase_build)
+    rows = phase("kernel", phase_kernel, device)
+    dec_fwd, dec_bwd = phase("decoder_kernels", phase_decoder_kernels, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         bench = make_bench(work)
-        bwd_rows = phase_kernel_backward(device, data_shapes(bench))
+        bwd_rows = phase("kernel_backward", phase_kernel_backward, device, data_shapes(bench))
         cfg, gen_params, ret_params = _full_width_models(device)
         byt5_cache = [cfg.num_decoder_layers, STREAM["num_slots"], SLICE["num_sampled_tactics"],
                       cfg.num_heads, SLICE["max_oup_seq_len"], cfg.d_kv]
-        serving_rows = phase_serving_kernels(device, byt5_cache)
-        sl = phase_slice(device, bench, cfg, gen_params, ret_params)
-        phase_sanity(device, cfg, ret_params)
-        st = phase_streaming(device, bench, cfg, gen_params, ret_params)
+        serving_rows = phase("serving_kernels", phase_serving_kernels, device, byt5_cache)
+        sl = phase("slice", phase_slice, device, bench, cfg, gen_params, ret_params)
+        phase("sanity", phase_sanity, device, cfg, ret_params)
+        st = phase("streaming", phase_streaming, device, bench, cfg, gen_params, ret_params)
         del gen_params, ret_params
         torch.cuda.empty_cache()
-        ll = phase_llama(device, bench)
+        ll = phase("llama", phase_llama, device, bench)
         torch.cuda.empty_cache()
-        tr = phase_train(device, work, bench)
-        phase_train_steps(device, bench)
+        tr = phase("train", phase_train, device, work, bench)
+        phase("train_steps", phase_train_steps, device, bench)
         torch.cuda.empty_cache()
-        gt = phase_generator_train(device, work, bench)
+        gt = phase("generator_train", phase_generator_train, device, work, bench)
         torch.cuda.empty_cache()
-        phase_generator_steps(device)
+        phase("generator_steps", phase_generator_steps, device)
+        torch.cuda.empty_cache()
+        long_rows = phase("long_kernels", phase_long_kernels, device)
+        ls = phase("long_serving", phase_long_serving, device, bench)
+        lg = phase("long_generator_train", phase_generator_train, device, work,
+                   make_bench(work, long=True), gen=LONG_GEN)
+        torch.cuda.empty_cache()
+        phase("long_generator_steps", phase_generator_steps, device, gen=LONG_GEN)
+    log(f"[smoke] phase seconds {json.dumps(seconds)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
     # Launches on the main paths: serving, retriever and generator training,
@@ -1706,6 +2115,15 @@ def main() -> int:
     }
     entries += [serving_entry(name, serving_rows, n, llama_cache)
                 for name, n in serving_launches.items()]
+    # The long route's main paths: long serving and generator training at
+    # 8192 bytes. The causal mode runs only in phase 15: no path has a
+    # target past 4096 (T <= 512).
+    long_launches = {a + p: ls["launches"].get(a + p, 0) + lg["launches"][a + p]
+                     for a in ATTENTIONS for p in LONG_PARTS}
+    log(f"[smoke] long-route launches on the main paths {json.dumps(long_launches)}; the "
+        f"causal_attn_long kernels are launched by the check phase only (T <= 512 on every "
+        f"path)")
+    entries += long_kernel_entries(long_rows, long_launches)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}), flush=True)

@@ -1,5 +1,6 @@
 // T5 attention backward for Hopper (sm_90a): the gradients of the three
-// attentions of encoder_attn.cu, selected by the same compile-time mode.
+// attentions of encoder_attn.cu, selected by the same compile-time mode and
+// route (encoder_attn_common.cuh).
 //
 // Replaces the Pallas TPU kernels of the custom VJPs in
 // reprover_tpu/ops/flash_attention.py:
@@ -7,12 +8,15 @@
 //   dQ kernel   <- _bwd_dq_kernel (:607): ENCODER, and CAUSAL_SELF (its
 //                  causal=True call at :1343); _cross_bwd_dq_kernel (:1721):
 //                  CROSS. dQ, and for the two self-attentions the
-//                  relative-bias gradient.
+//                  relative-bias gradient. On the LONG route
+//                  _bwd_dq_kernel_blockwise (:934), all three modes.
 //   dK/dV kernel <- _bwd_dkv_kernel (:715): ENCODER, and CAUSAL_SELF (:1384);
-//                  _cross_bwd_dkv_kernel (:1757): CROSS.
+//                  _cross_bwd_dkv_kernel (:1757): CROSS. On the LONG route
+//                  _bwd_dkv_kernel_blockwise (:1034), all three modes.
 //
-// Both take the forward's per-row log-sum-exp LSE [B, H, Lq] (written by
-// encoder_attn.cu; the Pallas dQ kernels recompute it) and delta =
+// Both take the per-row log-sum-exp LSE [B, H, Lq] (written by
+// encoder_attn.cu: by the FULL_ROW forward, or on the LONG route by the
+// LONG_LSE sweep; the Pallas dQ kernels recompute it) and delta =
 // rowsum(dO * O) [B, H, Lq] (plain torch), and rebuild each probability
 // exactly as P = exp(S - LSE) with S = q k^T (+ rel_bias[bucket(k - q), h])
 // over valid keys; masked keys, keys k > q under CAUSAL_SELF and query rows
@@ -32,9 +36,10 @@
 //
 // - dK/dV: one block per (64-key tile, head, batch row) loops over 64-query
 //   tiles (under CAUSAL_SELF from its own diagonal tile on), recomputes S^T,
-//   P^T and dS^T for the tile, and accumulates dV and dK in registers; each
-//   output tile is written once, with no atomics. A key tile with no valid
-//   key writes zeros and skips the loop.
+//   P^T and dS^T for the tile (a far pair's bias from one scalar on the LONG
+//   route), and accumulates dV and dK in registers; each output tile is
+//   written once, with no atomics. A key tile with no valid key writes zeros
+//   and skips the loop.
 // - dQ: one block per (64-query tile, head, batch row) loops over key tiles
 //   (under CAUSAL_SELF up to its diagonal tile) and accumulates dQ the same
 //   way. The TPU kernel summed d_rel in SMEM across its sequential grid;
@@ -43,7 +48,11 @@
 //   bucket table) into 2*max_distance+1 shared fp32 bins, keeps the two
 //   saturated bins in registers (every far pair lands there), and atomically
 //   adds its bins into a global [H, 2*max_distance+1] buffer. The caller
-//   folds the bins into the buckets with the bucket table. The atomics make
+//   folds the bins into the buckets with the bucket table. On the LONG
+//   route a far tile pair (encoder_attn_common.cuh) takes its bias from one
+//   scalar and adds its dS straight to the saturated bin's register, with
+//   no per-pair position test, as the JAX kernel sums a far block's dS into
+//   its one bucket. The atomics make
 //   d_rel's summation order, and so its last bits, vary from run to run; dQ,
 //   dK and dV are deterministic. CROSS has no bias and no bins.
 //
@@ -68,7 +77,7 @@ size_t dkv_shared_bytes(int nrel) {
          sizeof(int) * BK;
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, int ROUTE>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
     const T* __restrict__ q,               // [B, Lq, H*D]
     const T* __restrict__ k,               // [B, Lk, H*D]
@@ -84,6 +93,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
     int Lq, int kv_len, int H, int max_distance) {
   constexpr bool kBias = has_bias(MODE);
   constexpr bool kCausal = is_causal(MODE);
+  constexpr bool kLong = ROUTE == LONG;
   // Self-attention has as many keys as queries: saying so lets the
   // compiler share the two lengths and base offsets (one register less).
   const int Lk = MODE == CROSS ? kv_len : Lq;
@@ -140,6 +150,12 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
       key_ok[tid] = kj < Lk && mask[(long)b * Lk + kj] != 0;
     }
     __syncthreads();
+    int side = NEAR;
+    float far_bias = 0.f;
+    if constexpr (kLong && kBias) {
+      side = tile_side(q0, min(q0 + BQ, Lq) - 1, k0, min(k0 + BK, Lk) - 1, max_distance);
+      far_bias = bias[side == RIGHT_FAR ? 2 * max_distance : 0];
+    }
 
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -179,11 +195,17 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
         float ds = 0.f;
         if (key_ok[kc] && qi < Lq && (!kCausal || rel <= 0)) {
           float sc = s[i][j];
-          if constexpr (kBias) sc += bias[clamp_rel(rel, max_distance) + max_distance];
+          if constexpr (kBias)
+            sc += (kLong && side != NEAR) ? far_bias
+                                          : bias[clamp_rel(rel, max_distance) + max_distance];
           const float p = expf(sc - row_lse[r]);
           ds = p * (dp[i][j] - row_delta[r]);
           if constexpr (kBias) {
-            if (rel >= max_distance)
+            if (kLong && side == RIGHT_FAR)
+              sat_hi += ds;
+            else if (kLong && side == LEFT_FAR)
+              sat_lo += ds;
+            else if (rel >= max_distance)
               sat_hi += ds;
             else if (rel <= -max_distance)
               sat_lo += ds;
@@ -237,7 +259,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, int ROUTE>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
     const T* __restrict__ q,               // [B, Lq, H*D]
     const T* __restrict__ k,               // [B, Lk, H*D]
@@ -253,6 +275,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
     int Lq, int kv_len, int H, int max_distance) {
   constexpr bool kBias = has_bias(MODE);
   constexpr bool kCausal = is_causal(MODE);
+  constexpr bool kLong = ROUTE == LONG;
   // Self-attention has as many keys as queries: saying so lets the
   // compiler share the two lengths and base offsets (one register less).
   const int Lk = MODE == CROSS ? kv_len : Lq;
@@ -307,6 +330,12 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
       col_delta[tid] = qi < Lq ? delta[stat_base + qi] : 0.f;
     }
     __syncthreads();
+    int side = NEAR;
+    float far_bias = 0.f;
+    if constexpr (kLong && kBias) {
+      side = tile_side(q0, min(q0 + BQ, Lq) - 1, k0, min(k0 + BK, Lk) - 1, max_distance);
+      far_bias = bias[side == RIGHT_FAR ? 2 * max_distance : 0];
+    }
 
     float st[4][4], dpt[4][4];
 #pragma unroll
@@ -346,7 +375,9 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
         float p = 0.f, ds = 0.f;
         if (key_ok[r] && qi < Lq && (!kCausal || kj <= qi)) {
           float sc = st[i][j];
-          if constexpr (kBias) sc += bias[clamp_rel(kj - qi, max_distance) + max_distance];
+          if constexpr (kBias)
+            sc += (kLong && side != NEAR) ? far_bias
+                                          : bias[clamp_rel(kj - qi, max_distance) + max_distance];
           p = expf(sc - col_lse[qc]);
           ds = p * (dpt[i][j] - col_delta[qc]);
         }
@@ -401,14 +432,14 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int MODE>
+template <typename T, int MODE, int ROUTE>
 int launch_dq(const BwdArgs& a) {
   const size_t smem = dq_shared_bytes(bias_entries(MODE, a.max_distance));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, MODE, ROUTE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.q_len + BQ - 1) / BQ, a.num_heads, a.batch);
-  attn_bwd_dq_kernel<T, MODE><<<grid, THREADS, smem, a.stream>>>(
+  attn_bwd_dq_kernel<T, MODE, ROUTE><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const int*>(a.mask),
       static_cast<const float*>(a.rel_bias), static_cast<const int*>(a.bucket_table),
@@ -418,14 +449,14 @@ int launch_dq(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, int ROUTE>
 int launch_dkv(const BwdArgs& a) {
   const size_t smem = dkv_shared_bytes(bias_entries(MODE, a.max_distance));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, MODE, ROUTE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.kv_len + BK - 1) / BK, a.num_heads, a.batch);
-  attn_bwd_dkv_kernel<T, MODE><<<grid, THREADS, smem, a.stream>>>(
+  attn_bwd_dkv_kernel<T, MODE, ROUTE><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const int*>(a.mask),
       static_cast<const float*>(a.rel_bias), static_cast<const int*>(a.bucket_table),
@@ -435,28 +466,38 @@ int launch_dkv(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// Dispatch on dtype and mode; Launcher is DqLauncher or DkvLauncher.
-template <template <typename, int> class Launcher>
-int dispatch(const BwdArgs& a, int mode, int is_bf16) {
+// Dispatch on dtype and mode for one route; Launcher is DqLauncher or
+// DkvLauncher.
+template <template <typename, int, int> class Launcher, int ROUTE>
+int dispatch_mode(const BwdArgs& a, int mode, int is_bf16) {
   if (mode == CAUSAL_SELF && a.q_len != a.kv_len) return (int)cudaErrorInvalidValue;
   switch (mode * 2 + (is_bf16 ? 1 : 0)) {
-    case ENCODER * 2: return Launcher<float, ENCODER>::run(a);
-    case ENCODER * 2 + 1: return Launcher<__nv_bfloat16, ENCODER>::run(a);
-    case CAUSAL_SELF * 2: return Launcher<float, CAUSAL_SELF>::run(a);
-    case CAUSAL_SELF * 2 + 1: return Launcher<__nv_bfloat16, CAUSAL_SELF>::run(a);
-    case CROSS * 2: return Launcher<float, CROSS>::run(a);
-    case CROSS * 2 + 1: return Launcher<__nv_bfloat16, CROSS>::run(a);
+    case ENCODER * 2: return Launcher<float, ENCODER, ROUTE>::run(a);
+    case ENCODER * 2 + 1: return Launcher<__nv_bfloat16, ENCODER, ROUTE>::run(a);
+    case CAUSAL_SELF * 2: return Launcher<float, CAUSAL_SELF, ROUTE>::run(a);
+    case CAUSAL_SELF * 2 + 1: return Launcher<__nv_bfloat16, CAUSAL_SELF, ROUTE>::run(a);
+    case CROSS * 2: return Launcher<float, CROSS, ROUTE>::run(a);
+    case CROSS * 2 + 1: return Launcher<__nv_bfloat16, CROSS, ROUTE>::run(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int MODE>
+template <template <typename, int, int> class Launcher>
+int dispatch(const BwdArgs& a, int mode, int is_bf16, int route) {
+  switch (route) {
+    case FULL_ROW: return dispatch_mode<Launcher, FULL_ROW>(a, mode, is_bf16);
+    case LONG: return dispatch_mode<Launcher, LONG>(a, mode, is_bf16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int MODE, int ROUTE>
 struct DqLauncher {
-  static int run(const BwdArgs& a) { return launch_dq<T, MODE>(a); }
+  static int run(const BwdArgs& a) { return launch_dq<T, MODE, ROUTE>(a); }
 };
-template <typename T, int MODE>
+template <typename T, int MODE, int ROUTE>
 struct DkvLauncher {
-  static int run(const BwdArgs& a) { return launch_dkv<T, MODE>(a); }
+  static int run(const BwdArgs& a) { return launch_dkv<T, MODE, ROUTE>(a); }
 };
 
 }  // namespace
@@ -466,22 +507,22 @@ extern "C" {
 // q, dout, dq: [batch, q_len, num_heads * 64]; k, v: [batch, kv_len,
 // num_heads * 64]; contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 // mask: int32 [batch, kv_len]. mode: 0 encoder, 1 causal self-attention
-// (q_len == kv_len), 2 cross-attention. rel_bias: fp32 [num_buckets,
-// num_heads]; bucket_table: int32 [2 * max_distance + 1]. lse, delta: fp32
-// [batch, num_heads, q_len]. dbins: fp32 [num_heads, 2 * max_distance + 1],
-// zeroed by the caller; the kernel adds dS summed by clamped relative
-// position into it (rel_bias, bucket_table and dbins are unread in mode 2
-// and may be null).
+// (q_len == kv_len), 2 cross-attention. route: 0 full-row, 1 long.
+// rel_bias: fp32 [num_buckets, num_heads]; bucket_table: int32
+// [2 * max_distance + 1]. lse, delta: fp32 [batch, num_heads, q_len].
+// dbins: fp32 [num_heads, 2 * max_distance + 1], zeroed by the caller; the
+// kernel adds dS summed by clamped relative position into it (rel_bias,
+// bucket_table and dbins are unread in mode 2 and may be null).
 // Returns a cudaError_t value; 0 is success.
 int t5_attn_backward_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* mask, const void* rel_bias, const void* bucket_table,
                         const void* lse, const void* delta, void* dq, void* dbins, int batch,
                         int q_len, int kv_len, int num_heads, int max_distance, int mode,
-                        int is_bf16, void* stream) {
+                        int is_bf16, int route, void* stream) {
   const BwdArgs a{q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dq, dbins,
                   batch, q_len, kv_len, num_heads, max_distance,
                   static_cast<cudaStream_t>(stream)};
-  return dispatch<DqLauncher>(a, mode, is_bf16);
+  return dispatch<DqLauncher>(a, mode, is_bf16, route);
 }
 
 // As above; dk, dv: [batch, kv_len, num_heads * 64] in the input dtype.
@@ -489,11 +530,11 @@ int t5_attn_backward_dkv(const void* q, const void* k, const void* v, const void
                          const void* mask, const void* rel_bias, const void* bucket_table,
                          const void* lse, const void* delta, void* dk, void* dv, int batch,
                          int q_len, int kv_len, int num_heads, int max_distance, int mode,
-                         int is_bf16, void* stream) {
+                         int is_bf16, int route, void* stream) {
   const BwdArgs a{q, k, v, dout, mask, rel_bias, bucket_table, lse, delta, dk, dv,
                   batch, q_len, kv_len, num_heads, max_distance,
                   static_cast<cudaStream_t>(stream)};
-  return dispatch<DkvLauncher>(a, mode, is_bf16);
+  return dispatch<DkvLauncher>(a, mode, is_bf16, route);
 }
 
 }  // extern "C"

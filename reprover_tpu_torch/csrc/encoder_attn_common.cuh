@@ -23,6 +23,25 @@
 // max_distance) + max_distance]: bidirectional and unidirectional buckets
 // differ only in the table's contents, which the caller builds with the
 // plain bucket function.
+//
+// Each kernel is also compiled once per route (a second template
+// parameter):
+//
+//   FULL_ROW  the JAX package's full-row kernels (1, 3, 4 and their causal
+//             and cross forms): the forward saves each row's LSE for the
+//             backward;
+//   LONG      its KV-blocked long-context kernels (2, 6, 7): the forward
+//             saves no LSE, and a far tile pair (every |k - q| at or past
+//             max_distance, one side of the diagonal) takes its bias from
+//             one per-head scalar, the saturated bucket's, and reads no
+//             table; the dQ kernel adds such a tile's dS straight to that
+//             bucket's bin;
+//   LONG_LSE  the forward's sweep with q k^T only, writing the LSE that the
+//             LONG backward needs (kernel 5).
+//
+// Both routes walk the keys in the same 64-wide tiles; on this card the
+// full-row kernels were already KV-blocked, so the long route differs in
+// what it saves and in the far-tile scalar, not in its memory.
 
 #pragma once
 
@@ -40,8 +59,26 @@ constexpr int PPAD = BK + 1;   // shared row stride of a [rows][BK] tile
 
 enum Mode : int { ENCODER = 0, CAUSAL_SELF = 1, CROSS = 2 };
 
+enum Route : int { FULL_ROW = 0, LONG = 1, LONG_LSE = 2 };
+
 __host__ __device__ constexpr bool has_bias(int mode) { return mode != CROSS; }
 __host__ __device__ constexpr bool is_causal(int mode) { return mode == CAUSAL_SELF; }
+
+// Where a (query tile, key tile) pair lies, from the tiles' first and last
+// positions clipped to the lengths (the last tile of a ragged length is
+// short): NEAR reads the bias table; RIGHT_FAR has every k - q >=
+// max_distance (bias table entry 2*max_distance), LEFT_FAR every k - q <=
+// -max_distance (entry 0). The JAX package's _block_far_bias makes the same
+// split; CAUSAL_SELF never reaches a RIGHT_FAR pair (all-future tiles are
+// skipped).
+enum TileSide : int { NEAR = 0, RIGHT_FAR = 1, LEFT_FAR = 2 };
+
+__device__ __forceinline__ int tile_side(int q0, int q_last, int k0, int k_last,
+                                         int max_distance) {
+  if (k0 - q_last >= max_distance) return RIGHT_FAR;
+  if (q0 - k_last >= max_distance) return LEFT_FAR;
+  return NEAR;
+}
 
 // Entries of the per-head bias table a block keeps in shared memory.
 inline int bias_entries(int mode, int max_distance) {

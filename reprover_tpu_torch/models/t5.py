@@ -73,6 +73,11 @@ class T5Config:
     # "offload" raise.
     remat: bool = False
     remat_policy: str = "full"
+    # Send the encoder's self-attention down the long route (the KV-blocked
+    # kernels 2, 5, 6, 7) at every length, as the JAX package's field does;
+    # 0 leaves it to the length (past 4096). The kernels keep their 64-wide
+    # tiles, so only the route depends on the value.
+    flash_block_kv: int = 0
 
     @property
     def inner_dim(self) -> int:
@@ -381,7 +386,9 @@ def encode(
     """Encoder forward -> last hidden states ``[B, L, d_model]``.
 
     Self-attention runs through ``encoder_flash_attention`` at any ``L``:
-    the kernel masks its own ragged tile, so no length condition applies.
+    the kernels mask their own ragged tile, so no length condition applies
+    (the JAX package's flash path needs ``L % 128 == 0``). Past 4096, or at
+    any length with ``cfg.flash_block_kv``, it takes the long route.
     ``attention_fn`` lets a check run the plain version on the card instead.
     With ``cfg.remat`` and grad on, each layer runs under
     ``torch.utils.checkpoint`` and is recomputed in backward.
@@ -390,6 +397,7 @@ def encode(
     dtype = cfg.compute_dtype
     enc = params["encoder"]
     eps = cfg.layer_norm_epsilon
+    route = {"block_kv": cfg.flash_block_kv} if cfg.flash_block_kv else {}
 
     def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
         p = lp["attn"]
@@ -403,6 +411,7 @@ def encode(
             num_heads=cfg.num_heads,
             num_buckets=cfg.relative_attention_num_buckets,
             max_distance=cfg.relative_attention_max_distance,
+            **route,
         )
         h = h + _dense(attn, p["o"], dtype)
         return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
@@ -455,7 +464,9 @@ def decode(
     With ``decoder_mask=None`` (training's case: HF T5 feeds the decoder
     causal-only attention) the self- and cross-attention go through
     ``causal_flash_attention`` and ``cross_flash_attention`` at any length:
-    the kernels on the card, their plain versions on the CPU. With a
+    the kernels on the card, their plain versions on the CPU; a source or
+    target past 4096 takes the long route there, as in the JAX package,
+    which passes no ``block_kv`` to them. With a
     ``decoder_mask`` the naive path runs, padding keys masked with the finite
     ``NEG_INF``, as in the JAX package. With ``cfg.remat`` and grad on, each
     layer runs under ``torch.utils.checkpoint``.

@@ -65,32 +65,59 @@ A CPU tensor goes to the plain versions (:func:`encoder_attention_reference`,
 autograd is the backward's plain version, and the step-by-step
 ``*_backward_reference`` functions); a CUDA tensor launches the kernels or
 raises. There is no fallback between the two.
+
+**The long route.** As the JAX package does, the three functions switch to
+its KV-blocked long-context kernels when ``block_kv > 0`` or a query or key
+length passes :data:`LONG_CONTEXT` (4096): ``_encoder_attn_kernel_blockwise``
+(:274, kernel 2, the forward of all three attentions), then in the backward
+``_bwd_lse_kernel_blockwise`` (:864, kernel 5: the LSE, which the long
+forward does not save), ``delta`` in plain torch, ``_bwd_dq_kernel_blockwise``
+(:934, kernel 6) and ``_bwd_dkv_kernel_blockwise`` (:1034, kernel 7). Here
+they are the same CUDA sources on their ``LONG`` and ``LONG_LSE`` routes
+(``csrc/encoder_attn_common.cuh``), behind :class:`_LongAttention`, with a
+launch count of their own (``encoder_attn_long``, ``encoder_attn_long_lse``,
+``encoder_attn_long_bwd_dq``, ``encoder_attn_long_bwd_dkv``, and the same for
+``causal_`` and ``cross_``). A far (query tile, key tile) pair, every
+``|k - q|`` at or past ``max_distance`` on one side of the diagonal, takes
+its bias from one per-head scalar (the saturated bucket's) and sends its dS
+to that bucket whole. Their plain versions (:func:`long_attention_reference`,
+:func:`long_lse_reference`, :func:`long_backward_dq_reference`,
+:func:`long_backward_dkv_reference`) walk the keys in the kernels' 64-wide
+tiles with the same near/far split, so they hold ``O(L * 64)`` per head,
+never ``[B, H, L, L]``: the CPU route and the card's checks run at 8192.
+The kernels keep their 64-wide tiles whatever ``block_kv`` is (the JAX
+package's blocks are 512): ``block_kv`` only selects the route, and the
+result does not depend on its value.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+
+# The kernels' modes and routes (csrc/encoder_attn_common.cuh) and their
+# count names: ``KERNEL_NAMES[mode] + ROUTE_SUFFIX[route]``, then
+# ``_bwd_dq`` or ``_bwd_dkv`` for a backward kernel.
+ENCODER, CAUSAL, CROSS = 0, 1, 2
+KERNEL_NAMES = {ENCODER: "encoder_attn", CAUSAL: "causal_attn", CROSS: "cross_attn"}
+FULL_ROW, LONG, LONG_LSE = 0, 1, 2
+ROUTE_SUFFIX = {FULL_ROW: "", LONG: "_long", LONG_LSE: "_long_lse"}
 
 # Launches of each CUDA kernel in this process: each wrapper adds one where
 # it launches and nowhere else, so a run can show that its path used them.
 KERNEL_LAUNCHES: Dict[str, int] = {
-    "encoder_attn": 0,
-    "encoder_attn_bwd_dq": 0,
-    "encoder_attn_bwd_dkv": 0,
-    "causal_attn": 0,
-    "causal_attn_bwd_dq": 0,
-    "causal_attn_bwd_dkv": 0,
-    "cross_attn": 0,
-    "cross_attn_bwd_dq": 0,
-    "cross_attn_bwd_dkv": 0,
+    name + part: 0
+    for name in KERNEL_NAMES.values()
+    for part in ("", "_bwd_dq", "_bwd_dkv", "_long", "_long_lse", "_long_bwd_dq",
+                 "_long_bwd_dkv")
 }
 
-# The kernels' modes (csrc/encoder_attn_common.cuh) and their count names.
-ENCODER, CAUSAL, CROSS = 0, 1, 2
-KERNEL_NAMES = {ENCODER: "encoder_attn", CAUSAL: "causal_attn", CROSS: "cross_attn"}
+# A query or key length past this takes the long route (the JAX package's
+# switch, flash_attention.py:527, :1305, :1675, :1809).
+LONG_CONTEXT = 4096
+TILE = 64  # the kernels' query and key tile
 
 HEAD_DIM = 64
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -500,23 +527,27 @@ def _forward_cuda(
     num_heads: int,
     max_distance: int,
     with_lse: bool,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the forward kernel -> (out, LSE ``[B, H, Lq]`` fp32 or None)."""
+    route: int = FULL_ROW,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch a forward kernel -> (out or None, LSE ``[B, H, Lq]`` fp32 or
+    None). ``route`` FULL_ROW: kernel 1, 1c or 8, with the LSE if
+    ``with_lse``; LONG: kernel 2 (``with_lse`` False); LONG_LSE: kernel 5,
+    the LSE alone (``with_lse`` True)."""
     from reprover_tpu_torch.ops.native import load_library
 
     lib = load_library()
     b, lq, _ = q.shape
     lk = k.shape[1]
-    out = torch.empty_like(q)
+    out = None if route == LONG_LSE else torch.empty_like(q)
     lse = torch.empty((b, num_heads, lq), dtype=torch.float32, device=q.device) if with_lse else None
     if b == 0 or lq == 0:
         return out, lse
-    name = KERNEL_NAMES[mode]
+    name = KERNEL_NAMES[mode] + ROUTE_SUFFIX[route]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.t5_attn_forward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask32), _ptr(rel32), _ptr(table), _ptr(out), _ptr(lse),
         b, lq, lk, num_heads, 0 if mode == CROSS else max_distance, mode,
-        int(q.dtype == torch.bfloat16), ctypes.c_void_p(stream),
+        int(q.dtype == torch.bfloat16), route, ctypes.c_void_p(stream),
     )
     _raise_on_error(lib, err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -539,10 +570,12 @@ def _backward_cuda(
     out_b: Optional[torch.Tensor],
     num_heads: int,
     max_distance: int,
+    route: int = FULL_ROW,
 ) -> None:
     """Launch one backward kernel: ``part`` ``"dq"`` writes dq into ``out_a``
     and adds the bins into ``out_b`` (None for CROSS); ``"dkv"`` writes dk
-    and dv."""
+    and dv. ``route`` FULL_ROW: kernels 3/4 (and their causal and cross
+    forms); LONG: kernels 6/7."""
     from reprover_tpu_torch.ops.native import load_library
 
     lib = load_library()
@@ -550,14 +583,14 @@ def _backward_cuda(
     lk = k.shape[1]
     if b == 0 or lq == 0 or lk == 0:
         return
-    name = f"{KERNEL_NAMES[mode]}_bwd_{part}"
+    name = f"{KERNEL_NAMES[mode]}{ROUTE_SUFFIX[route]}_bwd_{part}"
     entry = {"dq": lib.t5_attn_backward_dq, "dkv": lib.t5_attn_backward_dkv}[part]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = entry(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(mask32), _ptr(rel32), _ptr(table),
         _ptr(lse), _ptr(delta), _ptr(out_a), _ptr(out_b),
         b, lq, lk, num_heads, 0 if mode == CROSS else max_distance, mode,
-        int(q.dtype == torch.bfloat16), ctypes.c_void_p(stream),
+        int(q.dtype == torch.bfloat16), route, ctypes.c_void_p(stream),
     )
     _raise_on_error(lib, err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -673,6 +706,22 @@ class _KernelAttention(torch.autograd.Function):
         return None, dq, dk, dv, None, d_rel, None, None, None
 
 
+def _check_card(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], num_heads: int, num_buckets: int,
+) -> None:
+    """Raise on anything the kernels do not take, a non-CUDA device included."""
+    _check_kernel_inputs(q, k, v, mask, rel_bias, num_heads, num_buckets, mode)
+    if q.device.type != "cuda":
+        raise ValueError(f"{KERNEL_NAMES[mode]}: no kernel for device {q.device}")
+
+
+def _wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd must record the attention: grad is on and one of
+    the differentiable inputs requires it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def _kernel_attention(
     mode: int,
     q: torch.Tensor,
@@ -687,15 +736,335 @@ def _kernel_attention(
     """The card path of the three public functions: checks, then the
     autograd.Function when a gradient is wanted, else the forward kernel
     alone (no LSE)."""
-    _check_kernel_inputs(q, k, v, mask, rel_bias, num_heads, num_buckets, mode)
-    if q.device.type != "cuda":
-        raise ValueError(f"{KERNEL_NAMES[mode]}: no kernel for device {q.device}")
-    leaves = [t for t in (q, k, v, rel_bias) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+    _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
+    if _wants_grad(q, k, v, rel_bias):
         return _KernelAttention.apply(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
                                       max_distance)
     mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
     return _forward_cuda(mode, q, k, v, mask32, rel32, table, num_heads, max_distance, False)[0]
+
+
+# ------------------------------------------------------------------ #
+# The long route: kernels 2, 5, 6, 7 and their plain versions
+# ------------------------------------------------------------------ #
+
+
+def takes_long_route(block_kv: int, q_len: int, kv_len: int) -> bool:
+    """The JAX package's switch to its KV-blocked kernels: ``block_kv > 0``,
+    or a query or key length past :data:`LONG_CONTEXT` (for the two
+    self-attentions the two lengths are one)."""
+    return block_kv > 0 or max(q_len, kv_len) > LONG_CONTEXT
+
+
+LongTile = Tuple[int, int, int, torch.Tensor, torch.Tensor, Optional[Tuple[int, int]]]
+
+
+def _long_tiles(
+    mode: int, q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], num_heads: int, num_buckets: int, max_distance: int,
+) -> Iterator[LongTile]:
+    """Walk the keys in the kernels' 64-wide tiles. Yields, per key tile
+    ``[k0, k1)``: ``(k0, k1, r0, scores, valid, near)``, where
+
+    - ``r0`` is the first query row that sees the tile (under CAUSAL the
+      first row of the query tile holding ``k0``: all-future tiles are
+      skipped, as the kernels skip them; else 0);
+    - ``scores`` fp32 ``[B, H, Lq - r0, k1 - k0]`` is ``q k^T`` plus the
+      bias, decided per (query tile, key tile) pair from the tiles' clipped
+      bounds as the kernels decide it: a right-far pair (every ``k - q >=
+      max_distance``) adds the per-head scalar at the bucket table's right
+      end, a left-far pair (every ``k - q <= -max_distance``) the one at its
+      left end, a near pair reads the table;
+    - ``valid`` (bool, broadcastable to ``scores``) marks the pairs the
+      attention keeps;
+    - ``near`` is ``(a, b)``: rows ``[r0, a)`` are right-far, ``[a, b)``
+      near and ``[b, Lq)`` left-far for this key tile (None for CROSS).
+
+    Query tiles right-far of a key tile form a prefix and left-far ones a
+    suffix, so the near rows are one band and only they read the table."""
+    lq, lk = q.shape[1], k.shape[1]
+    dev = q.device
+    qh, kh = _heads(q, num_heads), _heads(k, num_heads)
+    key_ok = mask.bool()[:, None, None, :]
+    pos = torch.arange(max(lq, lk), device=dev)
+    if mode != CROSS:
+        table = bucket_table(num_buckets, max_distance, dev, mode == ENCODER).long()
+        rel = rel_bias.float().t()  # [H, num_buckets]
+        far_right, far_left = rel[:, table[-1]], rel[:, table[0]]
+        tiles = range(0, lq, TILE)
+    for k0 in range(0, lk, TILE):
+        k1 = min(k0 + TILE, lk)
+        r0 = k0 if mode == CAUSAL else 0
+        scores = torch.matmul(qh[:, :, r0:], kh[:, :, k0:k1].transpose(-1, -2))
+        valid = key_ok[..., k0:k1]
+        if mode == CAUSAL:
+            valid = valid & (pos[None, k0:k1] <= pos[r0:lq, None])
+        near = None
+        if mode != CROSS:
+            n_right = sum(k0 - (min(t + TILE, lq) - 1) >= max_distance for t in tiles)
+            n_left = sum(t - (k1 - 1) >= max_distance for t in tiles)
+            a = max(r0, min(lq, n_right * TILE))
+            b = max(a, min(lq, (len(tiles) - n_left) * TILE))
+            bias = torch.empty((num_heads, lq - r0, k1 - k0), device=dev)
+            bias[:, : a - r0] = far_right[:, None, None]
+            bias[:, b - r0:] = far_left[:, None, None]
+            if b > a:
+                idx = (pos[None, k0:k1] - pos[a:b, None]).clamp(-max_distance, max_distance)
+                bias[:, a - r0 : b - r0] = rel[:, table[idx + max_distance]]
+            scores = scores + bias
+            near = (a, b)
+        yield k0, k1, r0, scores, valid, near
+
+
+@torch.no_grad()
+def long_attention_reference(
+    mode: int,
+    q: torch.Tensor,  # [B, Lq, H*d]
+    k: torch.Tensor,  # [B, Lk, H*d]
+    v: torch.Tensor,  # [B, Lk, H*d]
+    mask: torch.Tensor,  # [B, Lk] {0,1} (all ones for CAUSAL)
+    rel_bias: Optional[torch.Tensor],  # [num_buckets, H] fp32, None for CROSS
+    num_heads: int,
+    num_buckets: int = 32,
+    max_distance: int = 128,
+) -> torch.Tensor:
+    """Plain version of kernel 2 (the long-route forward of ``mode``): an
+    fp32 online softmax over the 64-wide key tiles of :func:`_long_tiles`,
+    the row max over valid keys only, output in q's dtype (0 for a row with
+    no valid key). Not differentiable: :class:`_LongAttention` gives it the
+    plain backward steps as its gradient."""
+    b, lq, _ = q.shape
+    vh = _heads(v, num_heads)
+    m = torch.full((b, num_heads, lq), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, num_heads, lq, vh.shape[-1]), device=q.device)
+    for k0, k1, r0, scores, valid, _ in _long_tiles(mode, q, k, mask, rel_bias, num_heads,
+                                                    num_buckets, max_distance):
+        scores = scores.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m[..., r0:], scores.amax(dim=-1))
+        shift = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        p = torch.exp(scores - shift[..., None])  # invalid keys: exp(-inf) = 0
+        scale = torch.exp(m[..., r0:] - shift)
+        l[..., r0:] = l[..., r0:] * scale + p.sum(dim=-1)
+        acc[..., r0:, :] = acc[..., r0:, :] * scale[..., None] + torch.matmul(p, vh[:, :, k0:k1])
+        m[..., r0:] = m_new
+    return _flat(acc / torch.where(l > 0, l, torch.ones_like(l))[..., None], q.dtype)
+
+
+@torch.no_grad()
+def long_lse_reference(
+    mode: int, q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], num_heads: int, num_buckets: int = 32,
+    max_distance: int = 128,
+) -> torch.Tensor:
+    """Plain version of kernel 5: fp32 ``[B, H, Lq]`` log-sum-exp of each
+    row over its valid keys by the same sweep without V, ``+inf`` for a row
+    with none."""
+    b, lq, _ = q.shape
+    m = torch.full((b, num_heads, lq), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    for _, _, r0, scores, valid, _ in _long_tiles(mode, q, k, mask, rel_bias, num_heads,
+                                                  num_buckets, max_distance):
+        scores = scores.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m[..., r0:], scores.amax(dim=-1))
+        shift = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        l[..., r0:] = (l[..., r0:] * torch.exp(m[..., r0:] - shift)
+                       + torch.exp(scores - shift[..., None]).sum(dim=-1))
+        m[..., r0:] = m_new
+    return torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("inf")))
+
+
+def _long_tile_grads(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    mask: torch.Tensor, rel_bias: Optional[torch.Tensor], lse: torch.Tensor,
+    delta: torch.Tensor, num_heads: int, num_buckets: int, max_distance: int,
+) -> Iterator[LongTile]:
+    """Per key tile of :func:`_long_tiles`: ``(k0, k1, r0, p, ds, near)``
+    with ``P = exp(S - LSE)`` over the valid pairs and ``dS = P (dO v^T -
+    delta)``, fp32 ``[B, H, Lq - r0, k1 - k0]``."""
+    vh, gh = _heads(v, num_heads), _heads(dout, num_heads)
+    for k0, k1, r0, scores, valid, near in _long_tiles(mode, q, k, mask, rel_bias, num_heads,
+                                                       num_buckets, max_distance):
+        p = torch.where(valid, torch.exp(scores - lse[..., r0:, None]), torch.zeros_like(scores))
+        dp = torch.matmul(gh[:, :, r0:], vh[:, :, k0:k1].transpose(-1, -2))
+        yield k0, k1, r0, p, p * (dp - delta[..., r0:, None]), near
+
+
+@torch.no_grad()
+def long_backward_dq_reference(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    mask: torch.Tensor, rel_bias: Optional[torch.Tensor], lse: torch.Tensor,
+    delta: torch.Tensor, num_heads: int, num_buckets: int = 32, max_distance: int = 128,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of kernel 6 -> ``(dq [B, Lq, H*d], bins)``: ``dq = dS
+    k`` summed over the key tiles, and for the self-attentions dS summed per
+    clamped relative position into fp32 ``[H, 2*max_distance+1]`` bins (a
+    far pair's whole sum into the saturated end bin; :func:`fold_rel_bins`
+    turns them into the bias gradient), None for CROSS."""
+    kh = _heads(k, num_heads)
+    dq = torch.zeros(q.shape[0], num_heads, q.shape[1], kh.shape[-1], device=q.device)
+    bins = None
+    if mode != CROSS:
+        bins = torch.zeros((num_heads, 2 * max_distance + 1), device=q.device)
+    pos = torch.arange(max(q.shape[1], k.shape[1]), device=q.device)
+    for k0, k1, r0, _, ds, near in _long_tile_grads(mode, q, k, v, dout, mask, rel_bias, lse,
+                                                    delta, num_heads, num_buckets,
+                                                    max_distance):
+        dq[:, :, r0:] += torch.matmul(ds, kh[:, :, k0:k1])
+        if near is not None:
+            a, b = near
+            per_head = ds.sum(dim=0)  # [H, Lq - r0, k1 - k0]
+            bins[:, -1] += per_head[:, : a - r0].sum(dim=(1, 2))
+            bins[:, 0] += per_head[:, b - r0:].sum(dim=(1, 2))
+            if b > a:
+                idx = (pos[None, k0:k1] - pos[a:b, None]).clamp(-max_distance, max_distance)
+                bins.index_add_(1, (idx + max_distance).flatten(),
+                                per_head[:, a - r0 : b - r0].reshape(num_heads, -1))
+    return _flat(dq, q.dtype), bins
+
+
+@torch.no_grad()
+def long_backward_dkv_reference(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    mask: torch.Tensor, rel_bias: Optional[torch.Tensor], lse: torch.Tensor,
+    delta: torch.Tensor, num_heads: int, num_buckets: int = 32, max_distance: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 7 -> ``(dk, dv)`` ``[B, Lk, H*d]``: per key
+    tile ``dk = dS^T q`` and ``dv = P^T dO`` over the queries that see it,
+    each tile written once."""
+    qh, gh = _heads(q, num_heads), _heads(dout, num_heads)
+    shape = (k.shape[0], num_heads, k.shape[1], qh.shape[-1])
+    dk = torch.zeros(shape, device=q.device)
+    dv = torch.zeros(shape, device=q.device)
+    for k0, k1, r0, p, ds, _ in _long_tile_grads(mode, q, k, v, dout, mask, rel_bias, lse,
+                                                 delta, num_heads, num_buckets, max_distance):
+        dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qh[:, :, r0:])
+        dv[:, :, k0:k1] = torch.matmul(p.transpose(-1, -2), gh[:, :, r0:])
+    return _flat(dk, k.dtype), _flat(dv, v.dtype)
+
+
+def long_attention_forward(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], num_heads: int, num_buckets: int = 32,
+    max_distance: int = 128,
+) -> torch.Tensor:
+    """The long route's forward -> out: :func:`long_attention_reference` on
+    CPU tensors, kernel 2 on CUDA tensors (or an error). Not
+    differentiable; the public functions wrap it in :class:`_LongAttention`."""
+    if _on_cpu(q, k, v, mask, rel_bias):
+        return long_attention_reference(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                        max_distance)
+    _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
+    mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
+    return _forward_cuda(mode, q, k, v, mask32, rel32, table, num_heads, max_distance, False,
+                         LONG)[0]
+
+
+def long_attention_backward(
+    mode: int,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor],
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    num_heads: int,
+    num_buckets: int = 32,
+    max_distance: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The long route's gradient -> ``(dq, dk, dv, d_rel)``, d_rel fp32
+    ``[num_buckets, H]`` or None for CROSS. As the JAX package's
+    ``_blockwise_backward_impl`` does: kernel 5 recomputes the LSE (the long
+    forward saves none), ``delta = rowsum(dO * O)`` in plain torch, kernel 6
+    gives dq and the bias-gradient bins, kernel 7 dk and dv. CPU tensors run
+    each kernel's plain version; CUDA tensors the kernels, or an error."""
+    dout = dout.to(q.dtype).contiguous()
+    if _on_cpu(q, k, v, mask, rel_bias, out, dout):
+        table = None if mode == CROSS else bucket_table(num_buckets, max_distance, q.device,
+                                                        mode == ENCODER)
+        geometry = (num_heads, num_buckets, max_distance)
+        lse = long_lse_reference(mode, q, k, mask, rel_bias, *geometry)
+        delta = row_delta(dout, out, num_heads)
+        common = (mode, q, k, v, dout, mask, rel_bias, lse, delta, *geometry)
+        dq, bins = long_backward_dq_reference(*common)
+        dk, dv = long_backward_dkv_reference(*common)
+    else:
+        _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
+        if dout.shape != q.shape or out.shape != q.shape:
+            raise ValueError(f"{KERNEL_NAMES[mode]} backward: out and dout must be shaped like q")
+        mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
+        lse = _forward_cuda(mode, q, k, v, mask32, rel32, table, num_heads, max_distance, True,
+                            LONG_LSE)[1]
+        delta = row_delta(dout, out, num_heads)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        bins = None
+        if mode != CROSS:
+            bins = torch.zeros((num_heads, 2 * max_distance + 1), dtype=torch.float32,
+                               device=q.device)
+        common = (q, k, v, dout, mask32, rel32, table, lse, delta)
+        _backward_cuda(mode, "dq", *common, dq, bins, num_heads, max_distance, LONG)
+        _backward_cuda(mode, "dkv", *common, dk, dv, num_heads, max_distance, LONG)
+    d_rel = None if bins is None else fold_rel_bins(bins, table, num_buckets)
+    return dq, dk, dv, d_rel
+
+
+class _LongAttention(torch.autograd.Function):
+    """The long route of one attention (``mode``): kernel 2 forward, kernels
+    5, 6 and 7 as its gradient, or their plain versions on CPU tensors. Its
+    residuals are the JAX package's: q, k, v, the mask, the bias table and
+    the output, no LSE."""
+
+    @staticmethod
+    def forward(  # type: ignore[override]
+        ctx: Any,
+        mode: int,
+        q: torch.Tensor,
+        k: torch.Tensor,
+        v: torch.Tensor,
+        mask: torch.Tensor,
+        rel_bias: Optional[torch.Tensor],
+        num_heads: int,
+        num_buckets: int,
+        max_distance: int,
+    ) -> torch.Tensor:
+        out = long_attention_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                     max_distance)
+        ctx.save_for_backward(q, k, v, mask, rel_bias, out)
+        ctx.geometry = (num_heads, num_buckets, max_distance)
+        ctx.mode = mode
+        return out
+
+    @staticmethod
+    def backward(  # type: ignore[override]
+        ctx: Any, dout: torch.Tensor
+    ) -> Tuple[Optional[torch.Tensor], ...]:
+        q, k, v, mask, rel_bias, out = ctx.saved_tensors
+        dq, dk, dv, d_rel = long_attention_backward(ctx.mode, q, k, v, mask, rel_bias, out, dout,
+                                                    *ctx.geometry)
+        d_rel = None if d_rel is None else d_rel.to(rel_bias.dtype)
+        return None, dq, dk, dv, None, d_rel, None, None, None
+
+
+def _long_attention(
+    mode: int,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor],
+    num_heads: int,
+    num_buckets: int,
+    max_distance: int,
+) -> torch.Tensor:
+    """The long route of the three public functions, on either device:
+    :class:`_LongAttention` when a gradient is wanted, else the forward
+    alone (each checks what the kernels take)."""
+    if _wants_grad(q, k, v, rel_bias):
+        return _LongAttention.apply(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                    max_distance)
+    return long_attention_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                  max_distance)
 
 
 def encoder_flash_attention(
@@ -707,6 +1076,7 @@ def encoder_flash_attention(
     num_heads: int,
     num_buckets: int = 32,
     max_distance: int = 128,
+    block_kv: int = 0,
 ) -> torch.Tensor:
     """Bidirectional T5 self-attention -> ``[B, L, H*d]`` in the input dtype.
     Differentiable in q, k, v and ``rel_bias``.
@@ -714,8 +1084,14 @@ def encoder_flash_attention(
     CPU tensors: :func:`encoder_attention_reference` (plain autograd). CUDA
     tensors: the forward kernel (fp32 or bf16, head width 64, contiguous
     q/k/v, one device), with the backward kernels as its gradient when grad
-    is on and an input requires it, or an error.
+    is on and an input requires it, or an error. ``block_kv > 0`` or ``L >
+    4096`` takes the long route (kernels 2, 5, 6, 7, or their plain versions
+    on the CPU) instead; the kernels keep their 64-wide tiles whatever the
+    value, so the result does not depend on it.
     """
+    if takes_long_route(block_kv, q.shape[1], k.shape[1]):
+        return _long_attention(ENCODER, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                               max_distance)
     if _on_cpu(q, k, v, mask, rel_bias):
         return encoder_attention_reference(
             q, k, v, mask, rel_bias, num_heads, num_buckets, max_distance
@@ -732,9 +1108,11 @@ def causal_flash_attention(
     num_heads: int,
     num_buckets: int = 32,
     max_distance: int = 128,
+    block_kv: int = 0,
 ) -> torch.Tensor:
     """Causal T5 decoder self-attention -> ``[B, T, H*d]``. Differentiable in
-    q, k, v and ``rel_bias``.
+    q, k, v and ``rel_bias``. ``block_kv > 0`` or ``T > 4096`` takes the long
+    route (see :func:`encoder_flash_attention`).
 
     No padding mask: HF T5 training feeds the decoder causal-only attention
     (pad positions are excluded through the -100 labels instead), as the
@@ -742,9 +1120,12 @@ def causal_flash_attention(
     mask. CPU tensors: :func:`causal_attention_reference`. CUDA tensors: the
     causal kernels (unidirectional buckets, key ``k > q`` masked), or an
     error."""
+    ones = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+    if takes_long_route(block_kv, q.shape[1], k.shape[1]):
+        return _long_attention(CAUSAL, q, k, v, ones, rel_bias, num_heads, num_buckets,
+                               max_distance)
     if _on_cpu(q, k, v, rel_bias):
         return causal_attention_reference(q, k, v, rel_bias, num_heads, num_buckets, max_distance)
-    ones = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
     return _kernel_attention(CAUSAL, q, k, v, ones, rel_bias, num_heads, num_buckets,
                              max_distance)
 
@@ -755,15 +1136,19 @@ def cross_flash_attention(
     v: torch.Tensor,  # [B, S, H*d]
     mask: torch.Tensor,  # [B, S] int {0,1} — encoder padding mask
     num_heads: int,
+    block_kv: int = 0,
 ) -> torch.Tensor:
     """Encoder-decoder cross-attention -> ``[B, T, H*d]``. Differentiable in
-    q, k and v.
+    q, k and v. ``block_kv > 0``, ``S > 4096`` or ``T > 4096`` takes the
+    long route (see :func:`encoder_flash_attention`).
 
     T5 cross-attention carries no positional bias, only the encoder padding
     mask. A query row whose source has no valid key gives 0 (the Pallas
     kernel gives the mean of ``v`` there). CPU tensors:
     :func:`cross_attention_reference`. CUDA tensors: the cross kernels, or
     an error."""
+    if takes_long_route(block_kv, q.shape[1], k.shape[1]):
+        return _long_attention(CROSS, q, k, v, mask, None, num_heads, 32, 128)
     if _on_cpu(q, k, v, mask):
         return cross_attention_reference(q, k, v, mask, num_heads)
     return _kernel_attention(CROSS, q, k, v, mask, None, num_heads, 32, 128)

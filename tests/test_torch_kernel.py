@@ -1,6 +1,6 @@
 """PyTorch port on the card: the T5 attention CUDA kernels (encoder, causal
-decoder and cross-attention; forward and backward) against their plain
-versions, and the encoder and the teacher-forced decoder through the
+decoder and cross-attention; forward and backward; the full-row and the
+long route) against their plain versions, and the encoder and the teacher-forced decoder through the
 kernels against the CPU, forward and gradients. These tests need a CUDA
 card and skip elsewhere. The file imports no JAX, so it also runs on a
 machine without it:
@@ -294,8 +294,119 @@ def test_generation_loss_gradients_on_card_match_cpu(cuda_device, remat):
     before = dict(tfa.KERNEL_LAUNCHES)
     loss_card, on_card = run(cuda_device)
     torch.cuda.synchronize()
+    for name in tfa.KERNEL_LAUNCHES:  # the full-row kernels: no length passes 4096
+        assert (tfa.KERNEL_LAUNCHES[name] > before[name]) == ("_long" not in name), name
+    loss_cpu, cpu = run(torch.device("cpu"))
+    assert abs(loss_card - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
+    for g, w in zip(on_card, cpu):
+        scale = max(1e-6, w.abs().max().item())
+        assert (g - w).abs().max().item() <= 1e-3 * scale
+
+
+# ------------------------------------------------------------------ #
+# The long route: kernels 2, 5, 6, 7
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode, b, t, s, max_distance", [
+    (tfa.ENCODER, 3, 300, 300, 32), (tfa.ENCODER, 2, 1000, 1000, 128),
+    (tfa.CAUSAL, 2, 333, 333, 128), (tfa.CAUSAL, 1, 200, 200, 32),
+    (tfa.CROSS, 3, 200, 1000, 128), (tfa.CROSS, 2, 70, 130, 128)])
+def test_long_kernels_match_plain(cuda_device, dtype, mode, b, t, s, max_distance):
+    """The long route forced with ``block_kv``: kernel 2's output and kernel
+    5's LSE against their plain versions, and the autograd gradients
+    (kernels 5, 6, 7) against autograd of the full-row plain version; an
+    encoder row with no valid key gives 0 and zero gradients."""
+    (q, k, v), mask, rel, dout = _decoder_case(cuda_device, dtype, b, t, s, t + s + mode)
+    if mode == tfa.CAUSAL:
+        mask = torch.ones_like(mask)
+    elif b > 2:
+        mask[-1] = 0
+    if mode == tfa.CROSS:
+        rel = None
+    fns = {
+        tfa.ENCODER: (lambda q, k, v, r: tfa.encoder_flash_attention(
+                          q, k, v, mask, r, HEADS, max_distance=max_distance, block_kv=64),
+                      lambda q, k, v, r: tfa.encoder_attention_reference(
+                          q, k, v, mask, r, HEADS, max_distance=max_distance)),
+        tfa.CAUSAL: (lambda q, k, v, r: tfa.causal_flash_attention(
+                         q, k, v, r, HEADS, max_distance=max_distance, block_kv=64),
+                     lambda q, k, v, r: tfa.causal_attention_reference(
+                         q, k, v, r, HEADS, max_distance=max_distance)),
+        tfa.CROSS: (lambda q, k, v, r: tfa.cross_flash_attention(q, k, v, mask, HEADS,
+                                                                 block_kv=64),
+                    lambda q, k, v, r: tfa.cross_attention_reference(q, k, v, mask, HEADS)),
+    }
+    kernel, plain = fns[mode]
+    n = 3 if rel is None else 4
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, rel)[:n]]
+    base = tfa.KERNEL_NAMES[mode]
+    names = [base + "_long" + part for part in ("", "_lse", "_bwd_dq", "_bwd_dkv")]
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out = kernel(*leaves, *([None] * (4 - n)))
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
     for name in tfa.KERNEL_LAUNCHES:
+        assert tfa.KERNEL_LAUNCHES[name] == before[name] + (name in names), name
+    ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v, rel)[:n]]
+    ref = plain(*ref_leaves, *([None] * (4 - n)))
+    want = torch.autograd.grad(ref, ref_leaves, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    long_ref = tfa.long_attention_reference(mode, q, k, v, mask, rel, HEADS,
+                                            max_distance=max_distance)
+    assert (out.float() - long_ref.float()).abs().max().item() <= tol
+    _check_grads(got, want, dtype)
+    if mode != tfa.CAUSAL and b > 2:
+        assert out[-1].abs().max().item() == 0.0
+        for g in got[:3]:
+            assert g[-1].abs().max().item() == 0.0
+
+    mask32, rel32, table = tfa._kernel_operands(mode, mask, rel, 32, max_distance)
+    _, lse = tfa._forward_cuda(mode, q, k, v, mask32, rel32, table, HEADS, max_distance, True,
+                               tfa.LONG_LSE)
+    lse_ref = tfa.long_lse_reference(mode, q, k, mask, rel, HEADS, max_distance=max_distance)
+    rows = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isinf(lse), ~rows)
+    assert (lse[rows] - lse_ref[rows]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_long_generation_loss_gradients_on_card_match_cpu(cuda_device):
+    """``flash_block_kv``: the encoder on the long route (kernels 2, 5, 6, 7),
+    the loss and every parameter gradient on the card equal the CPU's (the
+    long route's plain versions)."""
+    from reprover_tpu_torch.training.tasks import generation_loss, param_leaves
+
+    cfg = tt5.T5Config(d_model=128, d_kv=64, d_ff=256, num_heads=2, num_encoder_layers=2,
+                       num_decoder_layers=1, remat=True, flash_block_kv=128)
+    base = tt5.fuse_mlp_params(tt5.init_params(cfg, torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(4)
+    state_ids = torch.from_numpy(rng.integers(3, 259, (2, 400)))
+    state_mask = torch.ones((2, 400), dtype=torch.int32)
+    state_mask[1, 250:] = 0
+    tactic_ids = torch.from_numpy(rng.integers(3, 259, (2, 50)))
+
+    def run(device):
+        params = tt5.place_master_params(base, device)
+        leaves = param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {"state_ids": state_ids.to(device), "state_mask": state_mask.to(device),
+                 "tactic_ids": tactic_ids.to(device)}
+        loss = generation_loss(params, cfg, batch)
+        loss.backward()
+        return loss.item(), [t.grad.cpu() for t in leaves]
+
+    before = dict(tfa.KERNEL_LAUNCHES)
+    loss_card, on_card = run(cuda_device)
+    torch.cuda.synchronize()
+    for name in ("encoder_attn_long", "encoder_attn_long_lse", "encoder_attn_long_bwd_dq",
+                 "encoder_attn_long_bwd_dkv"):
         assert tfa.KERNEL_LAUNCHES[name] > before[name], name
+    assert tfa.KERNEL_LAUNCHES["encoder_attn"] == before["encoder_attn"]
     loss_cpu, cpu = run(torch.device("cpu"))
     assert abs(loss_card - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
     for g, w in zip(on_card, cpu):
