@@ -107,17 +107,46 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     encoder and cross modes of kernels 2, 5, 6 and 7 launched;
 18. long train step: one fixed random batch at [4, 8192] -> [4, 512],
     ragged, 20 steps whose loss must fall, timed by part, peak memory and
-    each attention kernel's share of a profiled step.
+    each attention kernel's share of a profiled step;
+19. scaled causal kernels vs plain: ``scaled_causal_flash_attention``'s
+    kernels (1s forward, 3s dQ, 4s dK/dV; on the long route 2, 5, 6, 7 in
+    this mode) against their plain versions: the forward, the LSE, each
+    backward kernel alone and the whole autograd backward, at LLaMA-7B
+    width [4, 2048] x 32 heads x 128, a ragged [3, 1000] with a
+    left-padded row (whose query has no valid key: 0 and zero gradients),
+    the JAX benchmark's [8, 2048] x 16 x 64, and the long route at [2, 4608] x
+    4 x 128; fp32 within 1e-4, bf16 within 2e-2 of max(1, max|ref|); bf16
+    times beside the plain versions, ``scaled_dot_product_attention`` with
+    the causal-and-key boolean mask and the bounds;
+20. decoder-only fine-tuning at LLaMA-7B width cut to depth 4 of 32
+    (seeded float32 masters made on the card, bf16 products,
+    ``flash_attention`` on): ``CausalGeneratorDataModule`` batches of the
+    phase-4 benchmark with phase 10's ``predictions.pickle`` (a BPE
+    tokenizer trained on the corpus, up to 2048 tokens, padded to multiples
+    of 128), 20 ``make_train_step`` steps over ``causal_lm_loss``, every
+    loss finite and the three scaled causal kernels launched; then
+    ``causal_validation_metrics`` on one validation batch (greedy);
+21. fine-tuning step: ``benchmarks/causal_finetune_step.py``'s fixed ragged
+    batch at [4, 2048] (LLaMA-7B width, depth 4) and at the JAX benchmark's
+    geometry [8, 2048], plain attention and flash, 10 steps each whose loss
+    must fall, first losses within 2e-2 relative; timed by part, peak
+    memory, the attention kernels' share of a profiled flash step;
+22. kernel 14: the ablation variants of kernel 1
+    (``benchmarks/flash_kernel_bisect.py``) against their plain versions at
+    [2, 512], ``full`` bit-equal to kernel 1, then the harness's default
+    sweep at [64, 1024] x 6 x 64, 12 layers.
 
-The line before the last is ``{"kernels": [...]}`` (the 24 kernels, with
+The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
 their launches on the main paths: serving, retriever training, generator
-training, streaming byt5-small, LLaMA-7B int4 and int8, long serving and
-long generator training (the causal long-route kernels run in phase 15
-only: no path's target passes 4096), and their times, bounds and library
-times at the generator-training shapes, the LLaMA-7B decode shapes for the
-serving kernels, or [4, 8192] for the long route); the last line is
-``{"ok": true, "device": {...}}``. Without a card the script exits 2 and
-prints no result.
+training, streaming byt5-small, LLaMA-7B int4 and int8, long serving, long
+generator training and decoder-only fine-tuning (the causal and scaled
+causal long-route kernels run in phases 15 and 19 only: no path's sequence
+passes 4096), kernel 14's in its sweep; and their times, bounds and
+library times at the generator-training shapes, the LLaMA-7B decode shapes
+for the serving kernels, [4, 8192] for the long route, [4, 2048] x 32 x
+128 for the scaled causal kernels and [64, 1024] for kernel 14); the last
+line is ``{"ok": true, "device": {...}}``. Without a card the script exits
+2 and prints no result.
 
 Rehearse the training phases on the CPU at tiny width (a minute)::
 
@@ -145,7 +174,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -329,15 +357,16 @@ def _valid_pairs(tfa, mode, mask, lq: int) -> int:
     return lq * int(mask.sum().item())
 
 
-def _bound(part: str, b: int, lq: int, lk: int, pairs: int, itemsize: int):
+def _bound(part: str, b: int, lq: int, lk: int, pairs: int, itemsize: int,
+           heads: int = NUM_HEADS, head_dim: int = HEAD_DIM):
     """(least ms, "operations" or "bytes") of one kernel on the card: the
     larger of its FMA work (per kept pair and head: 4d forward, 2d for the
     LSE sweep, 6d dQ, 8d dK/dV operations) over the bf16 peak and of its
     bytes (each input read once, each output written once) over the memory
     rate."""
-    inner = NUM_HEADS * HEAD_DIM
-    flops = {"fwd": 4, "lse": 2, "dq": 6, "dkv": 8}[part] * HEAD_DIM * NUM_HEADS * pairs
-    stats = 8 * b * NUM_HEADS * lq  # LSE and delta, fp32
+    inner = heads * head_dim
+    flops = {"fwd": 4, "lse": 2, "dq": 6, "dkv": 8}[part] * head_dim * heads * pairs
+    stats = 8 * b * heads * lq  # LSE and delta, fp32
     nbytes = {
         "fwd": itemsize * inner * 2 * (b * lq + b * lk) + 4 * b * lk,
         "lse": itemsize * inner * (b * lq + b * lk) + 4 * b * lk + stats // 2,
@@ -1045,63 +1074,18 @@ def _long_batch(batch: dict, gen) -> dict:
     return out
 
 
-def _mark(cuda: bool):
-    """A point in time: a recorded CUDA event on the card, else the host clock."""
-    import torch
-
-    if not cuda:
-        return time.perf_counter()
-    event = torch.cuda.Event(enable_timing=True)
-    event.record()
-    return event
-
-
-def _ms_between(a, b, cuda: bool) -> float:
-    return a.elapsed_time(b) if cuda else 1e3 * (b - a)
-
-
-def _timed_steps(state, loss_fn, model_cfg, batch: dict, n: int, device) -> list:
-    """``n`` train steps on one batch; per step: (loss tensor, forward ms,
-    backward ms, optimizer ms)."""
-    cuda = device.type == "cuda"
-    out = []
-    for _ in range(n):
-        m0 = _mark(cuda)
-        state.optimizer.zero_grad()
-        loss = loss_fn(state.params, model_cfg, batch)
-        m1 = _mark(cuda)
-        loss.backward()
-        m2 = _mark(cuda)
-        state.optimizer.step()
-        m3 = _mark(cuda)
-        _sync(device)
-        out.append((loss.detach(), _ms_between(m0, m1, cuda), _ms_between(m1, m2, cuda),
-                    _ms_between(m2, m3, cuda)))
-    return out
-
-
-_ATTN_KERNEL = re.compile(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d),\s*(\d)>")
-
-
-def _attention_kernel_key(name: str):
-    """The ``KERNEL_LAUNCHES`` key of a profiled CUDA kernel name
-    (``attn_<part>_kernel<T, mode, route>``), or None."""
-    m = _ATTN_KERNEL.search(name)
-    if m is None:
-        return None
-    base = ATTENTIONS[int(m.group(2))] + ("", "_long", "_long_lse")[int(m.group(3))]
-    return base if m.group(1) == "fwd" else f"{base}_{m.group(1)}"
-
-
 def _profiled_share(state, loss_fn, model_cfg, batch: dict, device) -> dict:
     """Device time of one profiled train step by kernel, and each attention
     kernel's share of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from reprover_tpu_torch.ops.flash_attention import launch_key
+    from reprover_tpu_torch.training.tasks import timed_train_steps
+
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _timed_steps(state, loss_fn, model_cfg, batch, 1, device)
+            timed_train_steps(state, loss_fn, model_cfg, batch, 1)
         by_name: dict = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
@@ -1111,7 +1095,7 @@ def _profiled_share(state, loss_fn, model_cfg, batch: dict, device) -> dict:
     total = sum(by_name.values())
     attn: dict = {}
     for name, us in by_name.items():
-        key = _attention_kernel_key(name)
+        key = launch_key(name)
         if key is not None:
             attn[key] = attn.get(key, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -1130,10 +1114,12 @@ def _step_report(tag: str, state, loss_fn, model_cfg, tensors: dict, steps: int,
     starts with ``labels``."""
     import torch
 
+    from reprover_tpu_torch.training.tasks import timed_train_steps
+
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    timed = _timed_steps(state, loss_fn, model_cfg, tensors, steps, device)
+    timed = timed_train_steps(state, loss_fn, model_cfg, tensors, steps)
     losses = [float(s[0]) for s in timed]
     warm = timed[2:]
     row = dict(**labels, shapes={k: list(v.shape) for k, v in tensors.items()
@@ -1454,17 +1440,19 @@ L2_BYTES = 50 * 2 ** 20
 
 
 def reset_all_launch_counts() -> None:
+    from reprover_tpu_torch.benchmarks import flash_kernel_bisect
     from reprover_tpu_torch.ops import beam_reorder, flash_attention, quant_matmul
 
-    for mod in (flash_attention, beam_reorder, quant_matmul):
+    for mod in (flash_attention, beam_reorder, quant_matmul, flash_kernel_bisect):
         mod.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
+    from reprover_tpu_torch.benchmarks import flash_kernel_bisect
     from reprover_tpu_torch.ops import beam_reorder, flash_attention, quant_matmul
 
     return {**flash_attention.KERNEL_LAUNCHES, **beam_reorder.KERNEL_LAUNCHES,
-            **quant_matmul.KERNEL_LAUNCHES}
+            **quant_matmul.KERNEL_LAUNCHES, **flash_kernel_bisect.KERNEL_LAUNCHES}
 
 
 def _time_cold_ms(fn, copies: int, iters: int) -> float:
@@ -1941,6 +1929,377 @@ def phase_llama(device, bench: str, tiny: bool = False) -> dict:
     return report
 
 
+# Decoder-only fine-tuning (phases 19-22). The scaled causal kernels'
+# checks: (B, T, heads, head width, block_kv, a left-padded row): LLaMA-7B
+# width at the fine-tuning step's [4, 2048] (the kernels line's times), a
+# ragged [3, 1000] right-padded with one left-padded row (a query with no
+# valid key), the JAX benchmark's geometry [8, 2048] x 16 x 64, and the long
+# route past 4096 with a ragged key mask.
+SCALED_CASES = [(4, 2048, 32, 128, 0, False), (3, 1000, 32, 128, 0, True),
+                (8, 2048, 16, 64, 0, False), (2, 4608, 4, 128, 0, True)]
+SCALED_MAIN = (4, 2048, 32, 128)
+SCALED_LONG_MAIN = (2, 4608, 4, 128)
+# Fine-tuning at LLaMA-7B width (vocab 32000, d_model 4096, 32 heads x 128,
+# d_ff 11008), cut to depth 4 of 32 (float32 masters, gradients and Adam
+# moments of all 32 layers, ~108 GB, do not fit one 80 GB card): batches of
+# the phase-4 benchmark with phase 10's retrieved premises, BPE-tokenized,
+# up to 2048 tokens, padded to multiples of 128 (so flash is taken), 20
+# steps and one greedy validation batch; then the benchmark's fixed step at
+# [4, 2048] and at the JAX benchmark's geometry [8, 2048], 10 steps each way.
+FINETUNE = dict(layers=4, batch_size=4, max_seq_len=2048, bucket_multiple=128, steps=20,
+                lr=1e-4, seed=0, bpe_vocab=4096, max_oup_seq_len=32, fixed_steps=10)
+SCALED_PARTS = ("", "_bwd_dq", "_bwd_dkv")
+# Kernel 14's check: each ablation variant against its plain version.
+BISECT_CHECK = (2, 512)
+
+
+def _scaled_case(b: int, t: int, h: int, d: int, left_pad: bool, dtype, gen, device):
+    """Random q, k, v, dO [b, t, h*d] and a key mask: ragged right padding
+    (row 0 full), and with ``left_pad`` the last row left-padded by 37 keys."""
+    import torch
+
+    q, k, v, dout = (torch.randn((b, t, h * d), generator=gen, device=device).to(dtype)
+                     for _ in range(4))
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
+    lengths[0] = t
+    mask = (torch.arange(t, device=device)[None, :] < lengths[:, None]).to(torch.int32)
+    if left_pad:
+        mask[-1] = 0
+        mask[-1, 37:] = 1
+    return q, k, v, dout, mask
+
+
+def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict:
+    """The scaled causal kernels at one shape against their plain versions:
+    the forward (kernel 1s, or 2 on the long route), the LSE (the forward's,
+    or kernel 5's), the dQ and dK/dV kernels alone on the plain LSE (3s/4s,
+    or 6/7), and the whole autograd backward through the public function;
+    a left-padded row gives 0 and zero gradients. A bf16 row is timed
+    beside the plain versions, one ``scaled_dot_product_attention`` call
+    with the causal-and-key boolean mask (its autograd for the backward)
+    and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, dout, mask = _scaled_case(b, t, h, d, left_pad, dtype, gen, device)
+    scale = d ** -0.5
+    long = tfa.takes_long_route(block_kv, t, t)
+    route = tfa.LONG if long else tfa.FULL_ROW
+    mode = tfa.SCALED_CAUSAL
+    bf16 = dtype == torch.bfloat16
+    errs, ok = {}, True
+
+    def check(name, got, want, relative=True):
+        nonlocal ok
+        errs[name] = (got.float() - want.float()).abs().max().item()
+        tol = (BF16_REL_TOL if bf16 else FP32_TOL) * (
+            max(1.0, want.float().abs().max().item()) if bf16 or relative else 1.0)
+        ok &= bool(torch.isfinite(got).all()) and errs[name] <= tol
+
+    def fn(q_, k_, v_):
+        return tfa.scaled_causal_flash_attention(q_, k_, v_, mask, h, scale, block_kv=block_kv)
+
+    with torch.no_grad():
+        out, ref = fn(q, k, v), tfa.scaled_causal_attention_reference(q, k, v, mask, h, scale)
+    check("out", out, ref, relative=False)
+    qs = tfa.scale_queries(q, scale)
+    mask32 = mask.contiguous()
+    kernel_args = (mode, qs, k, v, mask32, None, None, h, 128)
+    lse = tfa._forward_cuda(*kernel_args, True, tfa.LONG_LSE if long else tfa.FULL_ROW)[1]
+    lse_ref = tfa.scaled_causal_attention_lse_reference(qs, k, mask, h)
+    rows = torch.isfinite(lse_ref)
+    ok &= bool(torch.equal(torch.isinf(lse), ~rows))
+    check("lse", lse[rows], lse_ref[rows], relative=False)
+    delta = tfa.row_delta(dout, ref, h)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    common = (qs, k, v, dout, mask32, None, None, lse_ref, delta)
+    tfa._backward_cuda(mode, "dq", *common, dq, None, h, 128, route)
+    tfa._backward_cuda(mode, "dkv", *common, dk, dv, h, 128, route)
+    want = tfa.scaled_causal_attention_backward_reference(qs, k, v, mask, ref, lse_ref, dout, h)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        check(name, g, w)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(fn(*leaves), leaves, dout)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(tfa.scaled_causal_attention_reference(*plain, mask, h, scale),
+                               plain, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(f"{name}_e2e", g, w)
+    if left_pad:
+        # The padded query rows get 0 and no gradient; the padded keys none.
+        ok &= out[-1, :37].abs().max().item() == 0.0 and all(
+            g[-1, :37].abs().max().item() == 0.0 for g in got)
+    row = dict(B=b, T=t, H=h, d=d, block_kv=block_kv, route="long" if long else "full_row",
+               dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok)
+    del got, want, leaves, plain
+    if not bf16:
+        return row
+
+    iters = 5 if b * t * h * d > 2 ** 22 else 10
+    valid = tfa._valid(mode, mask, q)  # [B, 1, T, T]
+    lib_leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    heads = [x.view(b, t, h, d).transpose(1, 2) for x in lib_leaves]
+    with torch.no_grad():
+        row.update(
+            ms=_time_ms(lambda: fn(q, k, v), iters),
+            plain_ms=_time_ms(lambda: tfa.scaled_causal_attention_reference(q, k, v, mask, h,
+                                                                            scale), iters),
+            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=valid, scale=scale), iters))
+    if long:
+        row["lse_ms"] = _time_ms(lambda: tfa._forward_cuda(*kernel_args, True, tfa.LONG_LSE),
+                                 iters)
+        row["lse_plain_ms"] = _time_ms(
+            lambda: tfa.scaled_causal_attention_lse_reference(qs, k, mask, h), iters)
+    row["dq_ms"] = _time_ms(lambda: tfa._backward_cuda(mode, "dq", *common, dq, None, h, 128,
+                                                       route), iters)
+    row["dkv_ms"] = _time_ms(lambda: tfa._backward_cuda(mode, "dkv", *common, dk, dv, h, 128,
+                                                        route), iters)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out_p = tfa.scaled_causal_attention_reference(*plain, mask, h, scale)
+    row["plain_bwd_ms"] = _time_ms(
+        lambda: torch.autograd.grad(out_p, plain, dout, retain_graph=True), iters)
+    out_l = F.scaled_dot_product_attention(*heads, attn_mask=valid, scale=scale)
+    dout_l = dout.view(b, t, h, d).transpose(1, 2)
+    row["library_bwd_ms"] = _time_ms(
+        lambda: torch.autograd.grad(out_l, lib_leaves, dout_l, retain_graph=True), iters)
+    pairs = int(torch.cumsum(mask.long(), dim=1).sum().item())  # (q, k <= q) with k valid
+    for part in ("fwd", "lse", "dq", "dkv"):
+        key = "" if part == "fwd" else f"{part}_"
+        row[f"{key}bound_ms"], row[f"{key}bound_by"] = _bound(part, b, t, t, pairs, 2, h, d)
+    return row
+
+
+def phase_scaled_kernels(device) -> list:
+    """Phase 19: the scaled causal kernels (kernels 1s, 3s, 4s at head width
+    128 and 64, and the long route's 2, 5, 6, 7 in this mode) against their
+    plain versions at ``SCALED_CASES``, fp32 and bf16."""
+    import torch
+
+    from reprover_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(19)
+    rows = []
+    for b, t, h, d, block_kv, left_pad in SCALED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device)
+            log(f"[scaled_kernel] {json.dumps(row)}")
+            rows.append(row)
+            torch.cuda.empty_cache()
+    _check_rows(rows, "the scaled causal kernels")
+    return rows
+
+
+def _finetune_cfg(device, tiny: bool, flash: bool = True):
+    from reprover_tpu_torch.models.causal_lm import CausalLMConfig
+    from reprover_tpu_torch.models.t5 import default_dtype
+
+    dtype = default_dtype(device)
+    if tiny:
+        return CausalLMConfig(vocab_size=512, d_model=64, num_layers=2, num_heads=2,
+                              num_kv_heads=2, d_ff=128, compute_dtype=dtype,
+                              flash_attention=flash)
+    return CausalLMConfig(num_layers=FINETUNE["layers"], compute_dtype=dtype,
+                          flash_attention=flash)
+
+
+def phase_finetune(device, work: str, bench: str, tiny: bool = False) -> dict:
+    """Phase 20: decoder-only fine-tuning at LLaMA-7B width (depth 4) through
+    the port's entry points: ``CausalGeneratorDataModule`` over the phase-4
+    benchmark with phase 10's ``predictions.pickle`` and a BPE tokenizer
+    trained on the corpus, seeded float32 masters made on the card,
+    ``init_train_state`` / ``make_train_step`` over ``causal_lm_loss`` with
+    ``flash_attention`` on (bf16 products); every loss finite, the three
+    scaled causal kernels launched; then ``causal_validation_metrics`` on one
+    validation batch (greedy)."""
+    import torch
+
+    from reprover_tpu_torch.benchmarks.causal_finetune_step import batch_loss
+    from reprover_tpu_torch.generation import CausalGeneratorDataModule
+    from reprover_tpu_torch.generation.causal_generator import CausalTacticGeneratorModel
+    from reprover_tpu_torch.generation.validate import causal_validation_metrics
+    from reprover_tpu_torch.models.causal_lm import init_params, place_params
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.training.tasks import (
+        init_train_state, make_train_step, numeric_batch,
+    )
+
+    t0 = time.perf_counter()
+    tok = _tactic_tokenizer(bench, 300 if tiny else FINETUNE["bpe_vocab"])
+    preds = os.path.join(work, "logs", "predictions.pickle")
+    max_len = 256 if tiny else FINETUNE["max_seq_len"]
+    dm = CausalGeneratorDataModule(
+        os.path.join(bench, "random"), tok, FINETUNE["batch_size"], FINETUNE["batch_size"],
+        max_len, 0.5, corpus_path=os.path.join(bench, "corpus.jsonl"), preds_path=preds,
+        bucket_multiple=FINETUNE["bucket_multiple"], seed=FINETUNE["seed"])
+    dm.setup("fit")
+    cfg = _finetune_cfg(device, tiny)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(FINETUNE["seed"]))
+    state = init_train_state(params, FINETUNE["lr"], warmup_steps=0)
+    step = make_train_step(batch_loss, cfg)
+    setup_s = time.perf_counter() - t0
+    reset_all_launch_counts()
+    losses, shapes = [], set()
+    t0 = time.perf_counter()
+    for _, host in zip(range(FINETUNE["steps"]), dm.train_dataloader()):
+        batch = numeric_batch({k: host[k] for k in ("input_ids", "attention_mask", "labels")},
+                              device)
+        shapes.add(tuple(batch["input_ids"].shape))
+        state, loss = step(state, batch)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    launches = {k: n for k, n in all_launch_counts().items() if n}
+    with torch.no_grad():
+        served = place_params(state.params, cfg, device)
+    model = CausalTacticGeneratorModel(served, cfg, tok, max_inp_seq_len=max_len,
+                                       max_oup_seq_len=FINETUNE["max_oup_seq_len"])
+    t0 = time.perf_counter()
+    val = causal_validation_metrics(model, dm.val_dataloader(), num_beams=1, limit_batches=1)
+    _sync(device)
+    report = dict(layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+                  head_dim=cfg.head_dim, setup_s=setup_s, train_s=train_s, steps=len(losses),
+                  shapes=sorted(shapes), losses=losses, launches=launches, validation=val,
+                  validation_s=time.perf_counter() - t0, tokenizer_vocab=tok.vocab_size)
+    if device.type == "cuda":
+        report["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[finetune] {json.dumps(report)}")
+    if len(losses) != FINETUNE["steps"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fine-tuning losses: {losses}")
+    if not math.isfinite(val["loss_val"]) or "top1_acc_val" not in val:
+        raise AssertionError(f"causal_validation_metrics: {val}")
+    needed = ["scaled_causal_attn" + p for p in SCALED_PARTS]
+    if device.type == "cuda" and min(launches.get(n, 0) for n in needed) < 1:
+        raise AssertionError(f"fine-tuning missed a scaled causal kernel: {launches}")
+    del state, params, served, model
+    _empty_cache(device)
+    return report
+
+
+def phase_finetune_steps(device, tiny: bool = False) -> dict:
+    """Phase 21: ``benchmarks/causal_finetune_step.py``'s fixed ragged batch,
+    plain attention then flash, ``FINETUNE["fixed_steps"]`` steps each from
+    the same seeded weights, at LLaMA-7B width (depth 4) [4, 2048] and at
+    the JAX benchmark's geometry [8, 2048]: timed by part, peak memory, the
+    attention kernels' share of a profiled flash step; the loss must fall
+    both ways and the first losses agree within 2e-2 relative (bf16)."""
+    from reprover_tpu_torch.benchmarks import causal_finetune_step as cfs
+
+    report: dict = {}
+    runs = [("llama7b", 4, 2048, None), ("jax", 8, 2048, None)]
+    if tiny:
+        runs = [("jax", 2, 256, 1)]
+    for geometry, b, t, layers in runs:
+        rows = {}
+        for flash in (False, True):
+            state, cfg, batch = cfs.setup(geometry, flash, device, layers, b, t, True,
+                                          FINETUNE["seed"], FINETUNE["lr"])
+            row = dict(geometry=geometry, flash=flash, B=b, T=t, layers=cfg.num_layers,
+                       head_dim=cfg.head_dim,
+                       **cfs.run_steps(state, cfg, batch, FINETUNE["fixed_steps"]))
+            if flash and device.type == "cuda":
+                row.update(_profiled_share(state, cfs.batch_loss, cfg, batch, device))
+            log(f"[finetune_step] {json.dumps(row)}")
+            rows[flash] = row
+            del state, batch
+            _empty_cache(device)
+        for row in rows.values():
+            if not row["losses"][-1] < row["losses"][0]:
+                raise AssertionError(f"the loss on the fixed batch did not fall: {row}")
+        first = (rows[False]["losses"][0], rows[True]["losses"][0])
+        if abs(first[1] - first[0]) > 2e-2 * abs(first[0]):
+            raise AssertionError(f"plain and flash first-step losses differ: {first}")
+        report[geometry] = rows
+    return report
+
+
+def phase_bisect(device) -> dict:
+    """Phase 22: kernel 14's ablation variants against their plain versions
+    (``flash_kernel_bisect.variant_error``: fp32 within 1e-4, bf16 within
+    2e-2, of max|ref| for the largest error and of the output's norm for the
+    error's), fp32 and bf16, at ``BISECT_CHECK`` (a ragged key mask for the
+    softmax variants, all keys for ``nosoftmax``, whose masked keys add
+    -1e10, and ``matmulonly``, which has no mask) and for one layer at the
+    sweep's own operands; ``full`` bit-equal to kernel 1
+    (``encoder_flash_attention``) at both; then the harness's default sweep
+    (``python -m reprover_tpu_torch.benchmarks.flash_kernel_bisect
+    --block-kv 64``: [64, 1024] x 6 x 64, 12 layers, bf16) with its launch
+    counts, and each variant's plain version and library call at that
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from reprover_tpu_torch.benchmarks import flash_kernel_bisect as fkb
+    from reprover_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ["--block-kv", "64"]
+    args = fkb.parser().parse_args(argv)
+    gen = torch.Generator(device=device).manual_seed(22)
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(_attention_case(*BISECT_CHECK, BISECT_CHECK[1], dtype, gen, device),
+                  NUM_HEADS),
+                 (fkb.make_inputs(args.batch, args.seq, args.heads, device, dtype), args.heads)]
+        for (q, k, v, mask, rel), heads in cases:
+            for variant in fkb.VARIANTS:
+                m = mask if variant in ("full", "nobias", "sharedcmp") else torch.ones_like(mask)
+                got = fkb.bisect_attention(variant, q, k, v, m, rel, heads)
+                check = fkb.variant_error(
+                    got, fkb.bisect_attention_reference(variant, q, k, v, m, rel, heads))
+                if variant == "full":
+                    check["ok"] &= torch.equal(
+                        got, tfa.encoder_flash_attention(q, k, v, m, rel, heads))
+                checks.append(dict(variant=variant, dtype=str(dtype).replace("torch.", ""),
+                                   shape=list(q.shape), **check))
+        del cases, got
+        _empty_cache(device)
+    log(f"[bisect] checks {json.dumps(checks)}")
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"kernel 14's variants disagree with their plain versions: {checks}")
+
+    reset_all_launch_counts()
+    sweep = fkb.main(argv)
+    _sync(device)
+    launches = dict(fkb.KERNEL_LAUNCHES)
+    q, k, v, mask, rel = fkb.make_inputs(args.batch, args.seq, args.heads, device)
+    same = torch.equal(
+        fkb.run_layers(lambda *a: tfa.encoder_flash_attention(*a, args.heads), args.layers, q,
+                       k, v, mask, rel),
+        fkb.run_layers(fkb.variant_fn("full", args.heads), args.layers, q, k, v, mask, rel))
+    heads = [t.view(args.batch, args.seq, args.heads, fkb.D).transpose(1, 2) for t in (q, k, v)]
+    library = {
+        "full": tfa._bucket_bias(rel, args.seq, True, fkb.NB, fkb.MAXD).to(torch.bfloat16),
+        "sharedcmp": fkb._tile_bias(rel, args.seq, fkb.NB, fkb.MAXD).to(torch.bfloat16),
+        "nobias": None,
+    }
+    pairs = args.batch * args.seq * args.seq
+    rows = {}
+    with torch.no_grad():
+        for r in sweep:
+            name = r["variant"]
+            if name not in fkb.VARIANTS:
+                continue
+            row = dict(ms=r["ms_per_layer"], launches=launches[f"bisect_{name}"],
+                       plain_ms=_time_ms(lambda: fkb.bisect_attention_reference(
+                           name, q, k, v, mask, rel, args.heads), 3),
+                       library_ms=None)
+            if name in library:
+                row["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=library[name], scale=1.0), 10)
+            row["bound_ms"], row["bound_by"] = _bound("fwd", args.batch, args.seq, args.seq,
+                                                      pairs, 2, args.heads, fkb.D)
+            rows[name] = row
+    report = dict(sweep=sweep, variants=rows, checks=checks, production_equals_full=same)
+    log(f"[bisect] {json.dumps(report)}")
+    if not same or min(launches.values()) < 1:
+        raise AssertionError(f"the bisect sweep: {report}")
+    return report
+
+
 # The TPU kernel each of the nine replaces (file:line of its pallas_call or
 # kernel function in the JAX package).
 REPLACES = {
@@ -2049,6 +2408,65 @@ def long_kernel_entries(rows: list, launches: dict) -> list:
     return entries
 
 
+# The scaled causal kernels: the line of the TPU code each replaces (the
+# function that reaches kernel 1's pallas_call, then the backward's
+# pallas_calls, then the long route's kernels), and the prefix of their keys
+# in a ``_scaled_row``.
+SCALED_REPLACES = {"": ("reprover_tpu/ops/flash_attention.py:1589", ""),
+                   "_bwd_dq": ("reprover_tpu/ops/flash_attention.py:1343", "dq_"),
+                   "_bwd_dkv": ("reprover_tpu/ops/flash_attention.py:1384", "dkv_"),
+                   "_long": ("reprover_tpu/ops/flash_attention.py:274", ""),
+                   "_long_lse": ("reprover_tpu/ops/flash_attention.py:864", "lse_"),
+                   "_long_bwd_dq": ("reprover_tpu/ops/flash_attention.py:934", "dq_"),
+                   "_long_bwd_dkv": ("reprover_tpu/ops/flash_attention.py:1034", "dkv_")}
+SCALED_ERRS = {"": ("out",), "_lse": ("lse",), "_bwd_dq": ("dq", "dq_e2e"),
+               "_bwd_dkv": ("dk", "dv", "dk_e2e", "dv_e2e")}
+
+
+def scaled_kernel_entries(rows: list, launches: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of the scaled causal kernels: the
+    full-row ones (1s, 3s, 4s) with their launches in fine-tuning (phase 20)
+    and their times at ``SCALED_MAIN``, the long route's with their
+    main-path launches (none: fine-tuning stays at or below 2048 tokens) and
+    their times at ``SCALED_LONG_MAIN``; each with its largest error over
+    every checked shape of its route (bf16 and fp32)."""
+    entries = []
+    for part, (replaces, key) in SCALED_REPLACES.items():
+        long = part.startswith("_long")
+        mine = [r for r in rows if (r["route"] == "long") == long]
+        at = next(r for r in mine if r["dtype"] == "bfloat16" and (r["B"], r["T"], r["H"], r["d"])
+                  == (SCALED_LONG_MAIN if long else SCALED_MAIN))
+        kind = part.replace("_long", "") or ""
+        err = max(r["errs"][e] for r in mine for e in SCALED_ERRS[kind])
+        plain = at["lse_plain_ms"] if key == "lse_" else (
+            at["plain_ms"] if key == "" else at["plain_bwd_ms"])
+        library = {"": at["library_ms"], "lse_": None}.get(key, at["library_bwd_ms"])
+        source = "encoder_attn.cu" if key in ("", "lse_") else "encoder_attn_bwd.cu"
+        name = "scaled_causal_attn" + part
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"reprover_tpu_torch/csrc/{source}", "replaces": replaces,
+                        "launches": launches.get(name, 0), "max_abs_err": err,
+                        "ms": at[f"{key}ms"], "plain_ms": plain,
+                        "bound_ms": at[f"{key}bound_ms"], "bound_by": at[f"{key}bound_by"],
+                        "library_ms": library})
+    return entries
+
+
+def bisect_entries(report: dict) -> list:
+    """The entries of kernel 14's variants: launches in the harness's sweep,
+    the largest error of the checks, and the times at the sweep's shape."""
+    entries = []
+    for name, row in report["variants"].items():
+        err = max(c["max_abs_err"] for c in report["checks"] if c["variant"] == name)
+        entries.append({"name": f"bisect_{name}", "route": "cuda",
+                        "source": "reprover_tpu_torch/csrc/encoder_attn.cu",
+                        "replaces": "benchmarks/flash_kernel_bisect.py:71",
+                        "launches": row["launches"], "max_abs_err": err, "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2097,6 +2515,13 @@ def main() -> int:
                    make_bench(work, long=True), gen=LONG_GEN)
         torch.cuda.empty_cache()
         phase("long_generator_steps", phase_generator_steps, device, gen=LONG_GEN)
+        torch.cuda.empty_cache()
+        reset_all_launch_counts()
+        scaled_rows = phase("scaled_kernels", phase_scaled_kernels, device)
+        scaled_check_launches = {k: n for k, n in all_launch_counts().items() if n}
+        ft = phase("finetune", phase_finetune, device, work, bench)
+        phase("finetune_steps", phase_finetune_steps, device)
+        bs = phase("bisect", phase_bisect, device)
     log(f"[smoke] phase seconds {json.dumps(seconds)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
@@ -2124,6 +2549,14 @@ def main() -> int:
         f"causal_attn_long kernels are launched by the check phase only (T <= 512 on every "
         f"path)")
     entries += long_kernel_entries(long_rows, long_launches)
+    # Decoder-only fine-tuning: the scaled causal kernels' launches in phase
+    # 20; their long route runs in phase 19's checks only (fine-tuning
+    # sequences stay at or below 2048 tokens); kernel 14's in its sweep.
+    log(f"[smoke] phase-19 check launches {json.dumps(scaled_check_launches)}; the "
+        f"scaled_causal_attn_long kernels are launched by the check phase only (T <= 2048 in "
+        f"fine-tuning)")
+    entries += scaled_kernel_entries(scaled_rows, ft["launches"])
+    entries += bisect_entries(bs)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}), flush=True)

@@ -3,12 +3,19 @@
 //
 // Every kernel runs 256 threads as a 16 x 16 grid over a 64 x 64 tile; the
 // thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32,
-// tx+48, so the 16 threads of one row are one half-warp and row reductions
-// are four xor-shuffles. Tiles sit in shared memory as fp32 with a padded
-// row stride, so column reads hit 32 different banks.
+// tx+48 of a score tile, and columns tx + 16*j (j < D/16) of a [64][D]
+// output tile, so the 16 threads of one row are one half-warp and row
+// reductions are four xor-shuffles. Tiles sit in shared memory as fp32 with
+// a padded row stride, so column reads hit 32 different banks.
 //
-// One source serves the three attentions of T5, chosen at compile time by a
-// mode (a template parameter; the C entry points take it as an int):
+// The head width D is a template parameter: 64 (T5, and every mode), or 128
+// (SCALED_CAUSAL only: LLaMA-7B's 4096 / 32 heads). At D = 128 a tile is
+// twice the shared memory (the forward's block 113 KiB, dQ's 146 KiB, dK/dV's
+// 162 KiB, one block per SM) and a thread owns twice the output columns.
+//
+// One source serves the three attentions of T5 and the LLaMA-family causal
+// attention, chosen at compile time by a mode (a template parameter; the C
+// entry points take it as an int):
 //
 //   ENCODER      bidirectional self-attention: the relative-position bias,
 //                the encoder's key mask (kernels 1, 3, 4 of the JAX package);
@@ -17,7 +24,13 @@
 //                masked (kernels 1c, 3c, 4c);
 //   CROSS        decoder-encoder attention: no bias, the encoder's key mask,
 //                query length T and key length S independent (kernels 8, 9,
-//                10).
+//                10);
+//   SCALED_CAUSAL the LLaMA-family teacher-forced self-attention of
+//                scaled_causal_flash_attention: no bias, key k > query q
+//                masked and the key padding mask (the 1/sqrt(d) scale is
+//                folded into q by the caller), D = 64 or 128 (kernels 1s,
+//                3s, 4s: the JAX package runs it through kernels 1, 3, 4
+//                with a zero bias table).
 //
 // The bias is always read as table[clamp(k - q, -max_distance,
 // max_distance) + max_distance]: bidirectional and unidirectional buckets
@@ -50,19 +63,28 @@
 
 namespace encoder_attn {
 
-constexpr int D = 64;          // head width
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
-constexpr int THREADS = 256;   // a 16 x 16 grid of threads, 4 x 4 outputs each
-constexpr int PAD = D + 1;     // shared row stride of a [rows][D] tile
+constexpr int THREADS = 256;   // a 16 x 16 grid of threads, 4 x 4 scores each
 constexpr int PPAD = BK + 1;   // shared row stride of a [rows][BK] tile
 
-enum Mode : int { ENCODER = 0, CAUSAL_SELF = 1, CROSS = 2 };
+// Shared row stride of a [rows][D] tile.
+__host__ __device__ constexpr int pad_of(int d) { return d + 1; }
+
+enum Mode : int { ENCODER = 0, CAUSAL_SELF = 1, CROSS = 2, SCALED_CAUSAL = 3 };
 
 enum Route : int { FULL_ROW = 0, LONG = 1, LONG_LSE = 2 };
 
-__host__ __device__ constexpr bool has_bias(int mode) { return mode != CROSS; }
-__host__ __device__ constexpr bool is_causal(int mode) { return mode == CAUSAL_SELF; }
+__host__ __device__ constexpr bool has_bias(int mode) {
+  return mode == ENCODER || mode == CAUSAL_SELF;
+}
+__host__ __device__ constexpr bool is_causal(int mode) {
+  return mode == CAUSAL_SELF || mode == SCALED_CAUSAL;
+}
+// The head widths a mode is compiled for.
+__host__ __device__ constexpr bool takes_head_dim(int mode, int d) {
+  return d == 64 || (mode == SCALED_CAUSAL && d == 128);
+}
 
 // Where a (query tile, key tile) pair lies, from the tiles' first and last
 // positions clipped to the lengths (the last tile of a ragged length is
@@ -110,20 +132,20 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Load rows [r0, r0 + 64) of one head of a flat [*, L, H*D] tensor into a
-// [64][PAD] fp32 tile; rows at or past L read as 0.
-template <typename T>
+// [64][D + 1] fp32 tile; rows at or past L read as 0.
+template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src, long base,
                                           long row_stride, int r0, int L, int tid) {
   for (int idx = tid; idx < 64 * D; idx += THREADS) {
     const int r = idx / D, c = idx % D, row = r0 + r;
-    tile[r * PAD + c] = row < L ? to_float(src[base + (long)row * row_stride + c]) : 0.f;
+    tile[r * pad_of(D) + c] = row < L ? to_float(src[base + (long)row * row_stride + c]) : 0.f;
   }
 }
 
 // The same rows of two tensors of one layout (K and V, or Q and dO) into two
 // tiles, in one loop: each thread keeps two global loads in flight, where two
 // load_tile calls keep one (measured: kernel 1 ran ~10% slower with two).
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_tile_pair(float* tile_a, float* tile_b,
                                                const T* __restrict__ a, const T* __restrict__ b,
                                                long base, long row_stride, int r0, int L,
@@ -132,8 +154,8 @@ __device__ __forceinline__ void load_tile_pair(float* tile_a, float* tile_b,
     const int r = idx / D, c = idx % D, row = r0 + r;
     const bool in = row < L;
     const long off = base + (long)row * row_stride + c;
-    tile_a[r * PAD + c] = in ? to_float(a[off]) : 0.f;
-    tile_b[r * PAD + c] = in ? to_float(b[off]) : 0.f;
+    tile_a[r * pad_of(D) + c] = in ? to_float(a[off]) : 0.f;
+    tile_b[r * pad_of(D) + c] = in ? to_float(b[off]) : 0.f;
   }
 }
 

@@ -5,7 +5,9 @@ Left-padded prompt prefill fills the KV cache, then the port's beam search
 continues from each prompt's last token, so the returned sequences hold only
 generated tokens (no prompt echo to strip). Prompts use the
 ``[GOAL]\\n{state}\\n[PROOFSTEP]\\n`` template of the reference's decoder-only
-serving. The tokenizer is anything with the HF surface (``__call__`` ->
+serving, read from :data:`~reprover_tpu_torch.generation.preprocess.TEMPLATE`
+so that the serving prompt matches the fine-tuning instruction byte for
+byte. The tokenizer is anything with the HF surface (``__call__`` ->
 ``input_ids``, ``decode``): a checkpoint's own, or the trainable
 :class:`~reprover_tpu_torch.generation.bpe_tokenizer.TacticBpeTokenizer`.
 """
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from reprover_tpu_torch.generation.beam_search import BeamSearchResult, beam_search
+from reprover_tpu_torch.generation.preprocess import TEMPLATE as GOAL_TEMPLATE
 from reprover_tpu_torch.models.causal_lm import (
     CausalDecodeState,
     CausalLMConfig,
@@ -29,10 +32,6 @@ from reprover_tpu_torch.models.causal_lm import (
 )
 from reprover_tpu_torch.models.quantize import quantize_causal_params, resolve_quantize_bits
 from reprover_tpu_torch.models.t5 import default_dtype, resolve_device
-
-# The serving prompt must match the fine-tuning instruction byte for byte
-# (the JAX package's ``generation/preprocess.py`` TEMPLATE).
-GOAL_TEMPLATE = "[GOAL]\n%s\n[PROOFSTEP]\n"
 
 
 def _round_up(n: int, multiple: int) -> int:

@@ -9,8 +9,9 @@ top-k decoded candidates exactly equals the ground-truth tactic (the
 reference's ``TopkAccuracy`` torchmetric with sum reduction,
 `generation/model.py:25-46`; ``<a>`` marks are stripped on both sides).
 
-The decoder-only family's ``causal_validation_metrics`` is not ported (the
-decoder-only models are not, ROADMAP.md Queue 1 item 7).
+``causal_validation_metrics`` does the same for the decoder-only family:
+the teacher-forced ``causal_lm_loss`` on ``CausalGeneratorDataModule``
+batches and the same beam-search Top-k exact match.
 """
 
 from __future__ import annotations
@@ -71,6 +72,48 @@ def validation_metrics(
 
     if writer is not None and samples:
         writer.write_text(step, "val_samples", samples)
+    metrics: Dict[str, float] = {"loss_val": float(np.mean(losses)) if losses else 0.0}
+    if total:
+        for k in range(num_beams):
+            metrics[f"top{k + 1}_acc_val"] = float(correct[k]) / total
+    return metrics
+
+
+def causal_validation_metrics(
+    model: Any,  # CausalTacticGeneratorModel
+    loader: Iterable[Dict[str, Any]],
+    num_beams: int = 1,
+    limit_batches: Optional[int] = None,
+) -> Dict[str, float]:
+    """Decoder-only counterpart of :func:`validation_metrics`: teacher-forced
+    ``causal_lm_loss`` on ``CausalGeneratorDataModule`` batches plus the same
+    beam-search Top-k exact-match accuracy (the reference delegates this
+    family's evaluation to LLaMA-Factory; in-framework here)."""
+    from reprover_tpu_torch.models.causal_lm import causal_lm_loss
+
+    losses = []
+    correct = np.zeros(num_beams, dtype=np.int64)
+    total = 0
+    for i, batch in enumerate(loader):
+        if limit_batches is not None and i >= limit_batches:
+            break
+        tensors = numeric_batch(
+            {k: batch[k] for k in ("input_ids", "attention_mask", "labels")}, model.device
+        )
+        with torch.no_grad():
+            losses.append(float(causal_lm_loss(model.params, model.cfg, tensors["input_ids"],
+                                               tensors["attention_mask"], tensors["labels"])))
+        if num_beams > 0:
+            candidates = model.generate(batch["state"], num_beams)
+            for cands, target in zip(candidates, batch["tactic"]):
+                texts = [remove_marks(t) for t, _ in cands]
+                tgt = remove_marks(target)
+                for k in range(num_beams):
+                    if tgt in texts[: k + 1]:
+                        correct[k:] += 1
+                        break
+                total += 1
+
     metrics: Dict[str, float] = {"loss_val": float(np.mean(losses)) if losses else 0.0}
     if total:
         for k in range(num_beams):

@@ -1,5 +1,5 @@
 """Decoder-only (LLaMA-family) causal LM in PyTorch: the counterpart of
-:mod:`reprover_tpu.models.causal_lm`, serving half.
+:mod:`reprover_tpu.models.causal_lm`.
 
 RMSNorm pre-norm, rotary position embeddings (HF ``rotate_half``),
 grouped-query attention and a SwiGLU MLP. Parameters are a nested dict in
@@ -12,10 +12,13 @@ products of ``compute_dtype`` operands.
 
 Prompts are LEFT-padded (the HF decoder-only convention), so every
 sequence's last real token sits in the last column; RoPE positions come
-from the mask. Ported: the full-sequence forward (plain attention),
-``prefill`` and the in-place incremental ``decode_step``. Not ported yet:
-the fused causal attention of the teacher-forced path
-(``flash_attention=True``) and ``causal_lm_loss``, which raise.
+from the mask; fine-tuning batches are right-padded. The full-sequence
+forward (plain attention, or with ``flash_attention=True`` and ``T % 128 ==
+0`` the fused scaled causal attention of
+:func:`~reprover_tpu_torch.ops.flash_attention.scaled_causal_flash_attention`:
+the CUDA kernels on a card, their plain version on the CPU),
+``causal_lm_loss`` (decoder-only fine-tuning), ``prefill`` and the in-place
+incremental ``decode_step``.
 """
 
 from __future__ import annotations
@@ -33,16 +36,11 @@ from reprover_tpu_torch.models.quantize import (
     stack_quantized,
 )
 from reprover_tpu_torch.models.t5 import layer_params
+from reprover_tpu_torch.ops.flash_attention import scaled_causal_flash_attention
 
 Params = Dict[str, Any]
 
 NEG_INF = -1e10
-
-TRAINING_TODO = (
-    "decoder-only training (causal_lm_loss, the fused causal attention of "
-    "flash_attention=True) is not ported yet: ROADMAP.md Queue 1 item 7, "
-    "training half"
-)
 
 _MATMULS = ("q", "k", "v", "o", "gate", "up", "down")
 
@@ -62,7 +60,9 @@ class CausalLMConfig:
     eos_token_id: int = 2
     pad_token_id: int = 0
     compute_dtype: torch.dtype = torch.float32
-    # The fused causal attention of the teacher-forced path: not ported.
+    # The fused scaled causal attention for the teacher-forced (fine-tuning)
+    # forward, taken when T % 128 == 0 as in the JAX package: no [B, H, T, T]
+    # score or bias tensor. Prefill and decode steps are unaffected.
     flash_attention: bool = False
 
     @property
@@ -84,23 +84,26 @@ def _shapes(cfg: CausalLMConfig) -> Dict[str, Tuple[int, int]]:
 
 
 def init_params(cfg: CausalLMConfig, generator: torch.Generator) -> Params:
-    """Random float32 CPU parameters (the JAX package's init scheme: dense
-    ``N(0, 1/in)``, embedding ``N(0, 0.02^2)``; the draws differ)."""
+    """Random float32 parameters on the generator's device (the JAX
+    package's init scheme: dense ``N(0, 1/in)``, embedding ``N(0, 0.02^2)``;
+    the draws differ), e.g. float32 masters made on the card for training."""
     g = generator
+    dev = g.device
 
     def dense(i: int, o: int) -> torch.Tensor:
-        return torch.randn((i, o), generator=g) * (i ** -0.5)
+        return torch.randn((i, o), generator=g, device=dev) * (i ** -0.5)
 
-    layers = []
-    for _ in range(cfg.num_layers):
-        lp = {name: dense(i, o) for name, (i, o) in _shapes(cfg).items()}
-        lp["input_norm"] = torch.ones(cfg.d_model)
-        lp["post_norm"] = torch.ones(cfg.d_model)
-        layers.append(lp)
+    layers: Params = {name: torch.empty((cfg.num_layers, i, o), device=dev)
+                      for name, (i, o) in _shapes(cfg).items()}
+    for n in range(cfg.num_layers):
+        for name, (i, o) in _shapes(cfg).items():
+            layers[name][n] = dense(i, o)
+    layers["input_norm"] = torch.ones((cfg.num_layers, cfg.d_model), device=dev)
+    layers["post_norm"] = torch.ones((cfg.num_layers, cfg.d_model), device=dev)
     params: Params = {
-        "embedding": torch.randn((cfg.vocab_size, cfg.d_model), generator=g) * 0.02,
-        "layers": {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]},
-        "final_norm": torch.ones(cfg.d_model),
+        "embedding": torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device=dev) * 0.02,
+        "layers": layers,
+        "final_norm": torch.ones(cfg.d_model, device=dev),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
@@ -184,16 +187,19 @@ def _lm_logits(params: Params, cfg: CausalLMConfig, h: torch.Tensor) -> torch.Te
     return torch.matmul(h.to(dt).float(), w.to(dt).float())
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          head_axis: int = 1) -> torch.Tensor:
     """Rotary embedding, HF Llama convention (rotate_half): x ``[B, H, T,
-    d]``, positions ``[B, T]`` (or ``[T]``)."""
+    d]`` (``head_axis`` 1) or ``[B, T, H, d]`` (``head_axis`` 2, the flash
+    path's layout: heads stay slices of the flat projection), positions
+    ``[B, T]`` (or ``[T]``)."""
     d = x.shape[-1]
     inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
     if positions.dim() == 1:
         positions = positions[None, :]
     angles = positions[:, :, None].float() * inv_freq  # [B, T, d/2]
-    cos = torch.cat([torch.cos(angles)] * 2, dim=-1)[:, None]  # [B, 1, T, d]
-    sin = torch.cat([torch.sin(angles)] * 2, dim=-1)[:, None]
+    cos = torch.cat([torch.cos(angles)] * 2, dim=-1).unsqueeze(head_axis)
+    sin = torch.cat([torch.sin(angles)] * 2, dim=-1).unsqueeze(head_axis)
     x32 = x.float()
     x1, x2 = x32.chunk(2, dim=-1)
     rotated = torch.cat([-x2, x1], dim=-1)
@@ -254,6 +260,30 @@ def _block(
     return h + _mlp(h, lp, cfg), k, v
 
 
+def _flash_block(
+    h: torch.Tensor, lp: Params, cfg: CausalLMConfig, positions: torch.Tensor,
+    key_mask: torch.Tensor,
+) -> torch.Tensor:
+    """One layer over a full sequence through the fused scaled causal
+    attention (the JAX package's flash layer): RoPE in ``[B, T, H, d]``, the
+    GQA K/V heads repeated to H, the flat ``[B, T, H*d]`` layout into the
+    kernel."""
+    dt = cfg.compute_dtype
+    b, t, _ = h.shape
+    hh, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = _rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+    q = _rope(_dense(n, lp["q"], dt).view(b, t, hh, dh), positions, cfg.rope_theta, 2)
+    k = _rope(_dense(n, lp["k"], dt).view(b, t, hkv, dh), positions, cfg.rope_theta, 2)
+    v = _dense(n, lp["v"], dt).view(b, t, hkv, dh)
+    groups = hh // hkv
+    k, v = (x.repeat_interleave(groups, dim=2) if groups > 1 else x for x in (k, v))
+    attn = scaled_causal_flash_attention(
+        q.reshape(b, t, hh * dh), k.reshape(b, t, hh * dh), v.reshape(b, t, hh * dh), key_mask,
+        hh, dh ** -0.5)
+    h = h + _dense(attn, lp["o"], dt)
+    return h + _mlp(h, lp, cfg)
+
+
 def _prompt_bias(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(positions ``[B, T]`` from the mask cumsum, causal + key-mask bias
     ``[B, 1, T, T]`` fp32)."""
@@ -277,16 +307,27 @@ def forward_logits(
     input_ids: torch.Tensor,  # [B, T]
     attention_mask: Optional[torch.Tensor] = None,  # [B, T]; None = all real
 ) -> torch.Tensor:
-    """Causal forward -> fp32 logits ``[B, T, vocab]`` (plain attention;
-    left or right padding: positions come from the mask)."""
-    if cfg.flash_attention:
-        raise NotImplementedError(TRAINING_TODO)
+    """Causal forward -> fp32 logits ``[B, T, vocab]``; left or right
+    padding (positions come from the mask, padded keys are masked).
+    ``cfg.flash_attention`` with ``T % 128 == 0`` takes the fused scaled
+    causal attention (the JAX package's rule, kept so that one config
+    computes the same way in both packages, though the port's kernels take
+    any length); otherwise the plain ``[B, H, T, T]`` attention. A query row
+    with no valid key (left padding) differs between the two paths, and
+    reaches only its own logits."""
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
-    positions, bias = _prompt_bias(attention_mask)
+    t = input_ids.shape[1]
     h = params["embedding"].to(cfg.compute_dtype)[input_ids.long()]
-    for i in range(cfg.num_layers):
-        h, _, _ = _block(h, layer_params(params["layers"], i), cfg, positions, bias)
+    if cfg.flash_attention and t % 128 == 0:
+        positions = (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp_min(0)
+        for i in range(cfg.num_layers):
+            h = _flash_block(h, layer_params(params["layers"], i), cfg, positions,
+                             attention_mask)
+    else:
+        positions, bias = _prompt_bias(attention_mask)
+        for i in range(cfg.num_layers):
+            h, _, _ = _block(h, layer_params(params["layers"], i), cfg, positions, bias)
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return _lm_logits(params, cfg, h)
 
@@ -295,8 +336,16 @@ def causal_lm_loss(
     params: Params, cfg: CausalLMConfig, input_ids: torch.Tensor,
     attention_mask: torch.Tensor, labels: torch.Tensor,
 ) -> torch.Tensor:
-    """Next-token cross entropy of decoder-only fine-tuning: not ported yet."""
-    raise NotImplementedError(TRAINING_TODO)
+    """Next-token cross entropy with -100 ignored (the HF convention),
+    summed and divided by max(valid targets, 1): the in-framework
+    decoder-only fine-tuning loss on the ``[GOAL]/[PROOFSTEP]`` pairs
+    (:mod:`~reprover_tpu_torch.generation.causal_datamodule`)."""
+    logits = forward_logits(params, cfg, input_ids, attention_mask)[:, :-1]
+    targets = labels[:, 1:].long()
+    nll = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), ignore_index=-100,
+        reduction="sum")
+    return nll / (targets != -100).sum().clamp_min(1)
 
 
 # ------------------------------------------------------------------ #

@@ -1,5 +1,6 @@
-"""Fused T5 attention and its gradient: CUDA kernels for Hopper and their
-plain PyTorch versions, for the three attentions of T5.
+"""Fused attention and its gradient: CUDA kernels for Hopper and their
+plain PyTorch versions, for the three attentions of T5 and the LLaMA-family
+teacher-forced causal attention.
 
 - :func:`encoder_flash_attention`: bidirectional encoder self-attention
   with the relative-position bias and the encoder's key mask;
@@ -7,14 +8,21 @@ plain PyTorch versions, for the three attentions of T5.
   self-attention, with the bias from unidirectional buckets and key
   ``k > q`` masked;
 - :func:`cross_flash_attention`: decoder-encoder attention, no bias, the
-  encoder's key mask, query length ``T`` and key length ``S`` independent.
+  encoder's key mask, query length ``T`` and key length ``S`` independent;
+- :func:`scaled_causal_flash_attention`: the LLaMA family's teacher-forced
+  self-attention, ``softmax((q s) k^T)`` with key ``k > q`` and padded keys
+  masked, no bias, head width 64 or 128 (LLaMA-7B's), the scale folded
+  into q before the kernel as the JAX package folds it.
 
 One forward kernel (``reprover_tpu_torch/csrc/encoder_attn.cu``) and two
 backward kernels (``csrc/encoder_attn_bwd.cu``, dQ and dK/dV) serve all
-three, each compiled once per attention (a template mode), so each
-attention has three kernels with a launch count of their own in
-:data:`KERNEL_LAUNCHES`. They replace the Pallas TPU kernels of
-``reprover_tpu/ops/flash_attention.py``: ``_encoder_attn_kernel`` (:176,
+four, each compiled once per attention (a template mode, and for the
+scaled causal mode once per head width), so each attention has three
+kernels with a launch count of their own in :data:`KERNEL_LAUNCHES`.
+The JAX package runs the scaled causal attention through its T5 causal
+kernels with a zero bias table (``scaled_causal_flash_attention``, :1589);
+here it is a mode of its own with no table. They replace the Pallas TPU
+kernels of ``reprover_tpu/ops/flash_attention.py``: ``_encoder_attn_kernel`` (:176,
 also with ``causal=True`` behind ``causal_flash_attention``, :1553),
 ``_bwd_dq_kernel`` (:607) and ``_bwd_dkv_kernel`` (:715) (both also causal,
 :1343, :1384), and ``_cross_attn_kernel`` (:1624), ``_cross_bwd_dq_kernel``
@@ -61,12 +69,13 @@ Choices that differ from the Pallas kernels on purpose:
   flip at an exact boundary such as ``|k - q| = 16, 32, 64``.
 
 A CPU tensor goes to the plain versions (:func:`encoder_attention_reference`,
-:func:`causal_attention_reference`, :func:`cross_attention_reference`, whose
+:func:`causal_attention_reference`, :func:`cross_attention_reference`,
+:func:`scaled_causal_attention_reference`, whose
 autograd is the backward's plain version, and the step-by-step
 ``*_backward_reference`` functions); a CUDA tensor launches the kernels or
 raises. There is no fallback between the two.
 
-**The long route.** As the JAX package does, the three functions switch to
+**The long route.** As the JAX package does, the four functions switch to
 its KV-blocked long-context kernels when ``block_kv > 0`` or a query or key
 length passes :data:`LONG_CONTEXT` (4096): ``_encoder_attn_kernel_blockwise``
 (:274, kernel 2, the forward of all three attentions), then in the backward
@@ -77,9 +86,9 @@ they are the same CUDA sources on their ``LONG`` and ``LONG_LSE`` routes
 (``csrc/encoder_attn_common.cuh``), behind :class:`_LongAttention`, with a
 launch count of their own (``encoder_attn_long``, ``encoder_attn_long_lse``,
 ``encoder_attn_long_bwd_dq``, ``encoder_attn_long_bwd_dkv``, and the same for
-``causal_`` and ``cross_``). A far (query tile, key tile) pair, every
-``|k - q|`` at or past ``max_distance`` on one side of the diagonal, takes
-its bias from one per-head scalar (the saturated bucket's) and sends its dS
+``causal_``, ``cross_`` and ``scaled_causal_``). A far (query tile, key
+tile) pair, every ``|k - q|`` at or past ``max_distance`` on one side of
+the diagonal, takes its bias from one per-head scalar (the saturated bucket's) and sends its dS
 to that bucket whole. Their plain versions (:func:`long_attention_reference`,
 :func:`long_lse_reference`, :func:`long_backward_dq_reference`,
 :func:`long_backward_dkv_reference`) walk the keys in the kernels' 64-wide
@@ -93,6 +102,7 @@ result does not depend on its value.
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -100,8 +110,9 @@ import torch
 # The kernels' modes and routes (csrc/encoder_attn_common.cuh) and their
 # count names: ``KERNEL_NAMES[mode] + ROUTE_SUFFIX[route]``, then
 # ``_bwd_dq`` or ``_bwd_dkv`` for a backward kernel.
-ENCODER, CAUSAL, CROSS = 0, 1, 2
-KERNEL_NAMES = {ENCODER: "encoder_attn", CAUSAL: "causal_attn", CROSS: "cross_attn"}
+ENCODER, CAUSAL, CROSS, SCALED_CAUSAL = 0, 1, 2, 3
+KERNEL_NAMES = {ENCODER: "encoder_attn", CAUSAL: "causal_attn", CROSS: "cross_attn",
+                SCALED_CAUSAL: "scaled_causal_attn"}
 FULL_ROW, LONG, LONG_LSE = 0, 1, 2
 ROUTE_SUFFIX = {FULL_ROW: "", LONG: "_long", LONG_LSE: "_long_lse"}
 
@@ -119,7 +130,8 @@ KERNEL_LAUNCHES: Dict[str, int] = {
 LONG_CONTEXT = 4096
 TILE = 64  # the kernels' query and key tile
 
-HEAD_DIM = 64
+# The head widths each mode's kernels are compiled for.
+HEAD_DIMS = {ENCODER: (64,), CAUSAL: (64,), CROSS: (64,), SCALED_CAUSAL: (64, 128)}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -132,6 +144,33 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
+
+
+# A profiled kernel name: attn_<part>_kernel<T, mode, route, D[, variant]>.
+_PROFILED = re.compile(
+    r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d),\s*(\d),\s*\d+(?:,\s*(\d))?>")
+
+
+def launch_key(kernel_name: str) -> Optional[str]:
+    """The launch-count name of a profiled attention kernel (``causal_attn``,
+    ``encoder_attn_long_bwd_dq``, ...), or None for any other kernel,
+    including the forward's ablation variants (a nonzero fifth parameter)."""
+    m = _PROFILED.search(kernel_name)
+    if m is None or m.group(4) not in (None, "0"):
+        return None
+    base = KERNEL_NAMES[int(m.group(2))] + ROUTE_SUFFIX[int(m.group(3))]
+    return base if m.group(1) == "fwd" else f"{base}_{m.group(1)}"
+
+
+def has_bias(mode: int) -> bool:
+    """Whether a mode adds the T5 relative-position bias (and has its
+    gradient)."""
+    return mode in (ENCODER, CAUSAL)
+
+
+def is_causal(mode: int) -> bool:
+    """Whether a mode masks keys ``k > q``."""
+    return mode in (CAUSAL, SCALED_CAUSAL)
 
 
 def bucket_table(
@@ -282,7 +321,7 @@ def _scores_plain(
     """fp32 ``[B, H, Lq, Lk]`` scores ``q k^T`` (+ the bias through the bucket
     table, as the kernels index it)."""
     scores = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
-    if mode == CROSS:
+    if not has_bias(mode):
         return scores
     idx = rel_index(q.shape[1], max_distance, q.device)
     table = bucket_table(num_buckets, max_distance, q.device, mode == ENCODER).long()
@@ -293,7 +332,10 @@ def _valid(mode: int, mask: Optional[torch.Tensor], q: torch.Tensor) -> torch.Te
     """bool, broadcastable to ``[B, H, Lq, Lk]``: the pairs a kernel keeps."""
     if mode == CAUSAL:
         return _causal_valid(q.shape[1], q.device)
-    return mask.bool()[:, None, None, :]
+    valid = mask.bool()[:, None, None, :]
+    if mode == SCALED_CAUSAL:
+        valid = valid & _causal_valid(q.shape[1], q.device)
+    return valid
 
 
 def _lse_plain(
@@ -341,6 +383,40 @@ def cross_attention_lse_reference(
     return _lse_plain(CROSS, q, k, mask, None, num_heads, 32, 128)
 
 
+def scale_queries(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``q * scale`` rounded once to q's dtype: the scaled causal attention's
+    kernel operand, as the JAX package folds the scale
+    (``(q.astype(float32) * scale).astype(q.dtype)``). At head width 128 the
+    scale 1/sqrt(128) is not a power of two, so scaling the scores in fp32
+    instead would round differently from it in bf16."""
+    return (q.float() * scale).to(q.dtype)
+
+
+def scaled_causal_attention_reference(
+    q: torch.Tensor,  # [B, T, H*d]
+    k: torch.Tensor,  # [B, T, H*d]
+    v: torch.Tensor,  # [B, T, H*d]
+    key_mask: torch.Tensor,  # [B, T] {0,1}
+    num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the scaled causal attention: the scale folded
+    into q (:func:`scale_queries`), then fp32 over the full ``[B, H, T, T]``
+    score tensor with key ``k > q`` and padded keys dropped; a row with no
+    valid key (a left-padded query) gives 0; differentiable."""
+    qs = scale_queries(q, scale)
+    return _plain_attention(qs, k, v, _valid(SCALED_CAUSAL, key_mask, qs), None, num_heads)
+
+
+def scaled_causal_attention_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor, num_heads: int
+) -> torch.Tensor:
+    """Plain version of the scaled causal forward kernel's LSE output ``[B,
+    H, T]`` on its operands (q already scaled), ``+inf`` for a row with no
+    valid key."""
+    return _lse_plain(SCALED_CAUSAL, q, k, key_mask, None, num_heads, 32, 128)
+
+
 def row_delta(dout: torch.Tensor, out: torch.Tensor, num_heads: int) -> torch.Tensor:
     """``delta = rowsum(dO * O)`` per head: fp32 ``[B, H, L]`` (plain torch
     on every device, as the JAX package computes it outside Pallas)."""
@@ -374,7 +450,7 @@ def _backward_plain(
     dp = torch.matmul(gh, _heads(v, num_heads).transpose(-1, -2))
     ds = p * (dp - row_delta(dout, out, num_heads)[..., None])
     d_rel = None
-    if mode != CROSS:
+    if has_bias(mode):
         l = q.shape[1]
         idx = rel_index(l, max_distance, q.device).flatten()
         bins = torch.zeros((num_heads, 2 * max_distance + 1), dtype=torch.float32, device=q.device)
@@ -441,6 +517,24 @@ def cross_attention_backward_reference(
     return dq, dk, dv
 
 
+def scaled_causal_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,  # [B, H, T] fp32
+    dout: torch.Tensor,
+    num_heads: int,
+) -> CrossGrads:
+    """Plain version of the scaled causal backward kernels on their operands
+    (q already scaled), step for step -> ``(dq, dk, dv)``, dq with respect to
+    the scaled q."""
+    dq, dk, dv, _ = _backward_plain(SCALED_CAUSAL, q, k, v, key_mask, None, out, lse, dout,
+                                    num_heads, 32, 128)
+    return dq, dk, dv
+
+
 # ------------------------------------------------------------------ #
 # Kernel wrappers
 # ------------------------------------------------------------------ #
@@ -474,13 +568,14 @@ def _check_kernel_inputs(
     lk = k.shape[1]
     if mode != CROSS and lk != lq:
         raise ValueError(f"{name}: self-attention needs as many keys as queries, got {lq}, {lk}")
-    if inner != num_heads * HEAD_DIM:
+    if num_heads < 1 or inner % num_heads or inner // num_heads not in HEAD_DIMS[mode]:
         raise ValueError(
-            f"{name}: the kernel takes head width {HEAD_DIM}, got {inner} / {num_heads} heads"
+            f"{name}: the kernel takes head width {' or '.join(map(str, HEAD_DIMS[mode]))}, "
+            f"got {inner} / {num_heads} heads"
         )
     if tuple(mask.shape) != (b, lk):
         raise ValueError(f"{name}: mask must be [{b}, {lk}], got {tuple(mask.shape)}")
-    if mode != CROSS and (rel_bias is None or tuple(rel_bias.shape) != (num_buckets, num_heads)):
+    if has_bias(mode) and (rel_bias is None or tuple(rel_bias.shape) != (num_buckets, num_heads)):
         raise ValueError(
             f"{name}: rel_bias must be [{num_buckets}, {num_heads}], got "
             f"{None if rel_bias is None else tuple(rel_bias.shape)}"
@@ -508,9 +603,9 @@ def _kernel_operands(
     max_distance: int,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(int32 mask, fp32 bias, int32 bucket table), contiguous on the card;
-    the bias and table are None for CROSS."""
+    the bias and table are None for the modes without a bias."""
     mask32 = mask.to(torch.int32).contiguous()
-    if mode == CROSS:
+    if not has_bias(mode):
         return mask32, None, None
     table = bucket_table(num_buckets, max_distance, mask.device, mode == ENCODER)
     return mask32, rel_bias.to(torch.float32).contiguous(), table
@@ -546,8 +641,8 @@ def _forward_cuda(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.t5_attn_forward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask32), _ptr(rel32), _ptr(table), _ptr(out), _ptr(lse),
-        b, lq, lk, num_heads, 0 if mode == CROSS else max_distance, mode,
-        int(q.dtype == torch.bfloat16), route, ctypes.c_void_p(stream),
+        b, lq, lk, num_heads, q.shape[2] // num_heads, max_distance if has_bias(mode) else 0,
+        mode, int(q.dtype == torch.bfloat16), route, ctypes.c_void_p(stream),
     )
     _raise_on_error(lib, err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -573,7 +668,7 @@ def _backward_cuda(
     route: int = FULL_ROW,
 ) -> None:
     """Launch one backward kernel: ``part`` ``"dq"`` writes dq into ``out_a``
-    and adds the bins into ``out_b`` (None for CROSS); ``"dkv"`` writes dk
+    and adds the bins into ``out_b`` (None without a bias); ``"dkv"`` writes dk
     and dv. ``route`` FULL_ROW: kernels 3/4 (and their causal and cross
     forms); LONG: kernels 6/7."""
     from reprover_tpu_torch.ops.native import load_library
@@ -589,8 +684,8 @@ def _backward_cuda(
     err = entry(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(mask32), _ptr(rel32), _ptr(table),
         _ptr(lse), _ptr(delta), _ptr(out_a), _ptr(out_b),
-        b, lq, lk, num_heads, 0 if mode == CROSS else max_distance, mode,
-        int(q.dtype == torch.bfloat16), route, ctypes.c_void_p(stream),
+        b, lq, lk, num_heads, q.shape[2] // num_heads, max_distance if has_bias(mode) else 0,
+        mode, int(q.dtype == torch.bfloat16), route, ctypes.c_void_p(stream),
     )
     _raise_on_error(lib, err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -611,7 +706,7 @@ def _backward_kernels(
     max_distance: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Check and launch the dQ and dK/dV kernels -> ``(dq, dk, dv, d_rel)``,
-    d_rel None for CROSS."""
+    d_rel None without a bias."""
     name = KERNEL_NAMES[mode]
     _check_kernel_inputs(q, k, v, mask, rel_bias, num_heads, num_buckets, mode)
     if q.device.type != "cuda":
@@ -627,7 +722,7 @@ def _backward_kernels(
     delta = row_delta(dout, out, num_heads)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     bins = None
-    if mode != CROSS:
+    if has_bias(mode):
         bins = torch.zeros((num_heads, 2 * max_distance + 1), dtype=torch.float32,
                            device=q.device)
     common = (q, k, v, dout, mask32, rel32, table, lse, delta)
@@ -733,7 +828,7 @@ def _kernel_attention(
     num_buckets: int,
     max_distance: int,
 ) -> torch.Tensor:
-    """The card path of the three public functions: checks, then the
+    """The card path of the four public functions: checks, then the
     autograd.Function when a gradient is wanted, else the forward kernel
     alone (no LSE)."""
     _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
@@ -766,7 +861,7 @@ def _long_tiles(
     """Walk the keys in the kernels' 64-wide tiles. Yields, per key tile
     ``[k0, k1)``: ``(k0, k1, r0, scores, valid, near)``, where
 
-    - ``r0`` is the first query row that sees the tile (under CAUSAL the
+    - ``r0`` is the first query row that sees the tile (in a causal mode the
       first row of the query tile holding ``k0``: all-future tiles are
       skipped, as the kernels skip them; else 0);
     - ``scores`` fp32 ``[B, H, Lq - r0, k1 - k0]`` is ``q k^T`` plus the
@@ -778,7 +873,7 @@ def _long_tiles(
     - ``valid`` (bool, broadcastable to ``scores``) marks the pairs the
       attention keeps;
     - ``near`` is ``(a, b)``: rows ``[r0, a)`` are right-far, ``[a, b)``
-      near and ``[b, Lq)`` left-far for this key tile (None for CROSS).
+      near and ``[b, Lq)`` left-far for this key tile (None without a bias).
 
     Query tiles right-far of a key tile form a prefix and left-far ones a
     suffix, so the near rows are one band and only they read the table."""
@@ -787,20 +882,20 @@ def _long_tiles(
     qh, kh = _heads(q, num_heads), _heads(k, num_heads)
     key_ok = mask.bool()[:, None, None, :]
     pos = torch.arange(max(lq, lk), device=dev)
-    if mode != CROSS:
+    if has_bias(mode):
         table = bucket_table(num_buckets, max_distance, dev, mode == ENCODER).long()
         rel = rel_bias.float().t()  # [H, num_buckets]
         far_right, far_left = rel[:, table[-1]], rel[:, table[0]]
         tiles = range(0, lq, TILE)
     for k0 in range(0, lk, TILE):
         k1 = min(k0 + TILE, lk)
-        r0 = k0 if mode == CAUSAL else 0
+        r0 = k0 if is_causal(mode) else 0
         scores = torch.matmul(qh[:, :, r0:], kh[:, :, k0:k1].transpose(-1, -2))
         valid = key_ok[..., k0:k1]
-        if mode == CAUSAL:
+        if is_causal(mode):
             valid = valid & (pos[None, k0:k1] <= pos[r0:lq, None])
         near = None
-        if mode != CROSS:
+        if has_bias(mode):
             n_right = sum(k0 - (min(t + TILE, lq) - 1) >= max_distance for t in tiles)
             n_left = sum(t - (k1 - 1) >= max_distance for t in tiles)
             a = max(r0, min(lq, n_right * TILE))
@@ -823,7 +918,7 @@ def long_attention_reference(
     k: torch.Tensor,  # [B, Lk, H*d]
     v: torch.Tensor,  # [B, Lk, H*d]
     mask: torch.Tensor,  # [B, Lk] {0,1} (all ones for CAUSAL)
-    rel_bias: Optional[torch.Tensor],  # [num_buckets, H] fp32, None for CROSS
+    rel_bias: Optional[torch.Tensor],  # [num_buckets, H] fp32, None without a bias
     num_heads: int,
     num_buckets: int = 32,
     max_distance: int = 128,
@@ -900,11 +995,11 @@ def long_backward_dq_reference(
     k`` summed over the key tiles, and for the self-attentions dS summed per
     clamped relative position into fp32 ``[H, 2*max_distance+1]`` bins (a
     far pair's whole sum into the saturated end bin; :func:`fold_rel_bins`
-    turns them into the bias gradient), None for CROSS."""
+    turns them into the bias gradient), None without a bias."""
     kh = _heads(k, num_heads)
     dq = torch.zeros(q.shape[0], num_heads, q.shape[1], kh.shape[-1], device=q.device)
     bins = None
-    if mode != CROSS:
+    if has_bias(mode):
         bins = torch.zeros((num_heads, 2 * max_distance + 1), device=q.device)
     pos = torch.arange(max(q.shape[1], k.shape[1]), device=q.device)
     for k0, k1, r0, _, ds, near in _long_tile_grads(mode, q, k, v, dout, mask, rel_bias, lse,
@@ -974,15 +1069,15 @@ def long_attention_backward(
     max_distance: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The long route's gradient -> ``(dq, dk, dv, d_rel)``, d_rel fp32
-    ``[num_buckets, H]`` or None for CROSS. As the JAX package's
+    ``[num_buckets, H]`` or None without a bias. As the JAX package's
     ``_blockwise_backward_impl`` does: kernel 5 recomputes the LSE (the long
     forward saves none), ``delta = rowsum(dO * O)`` in plain torch, kernel 6
     gives dq and the bias-gradient bins, kernel 7 dk and dv. CPU tensors run
     each kernel's plain version; CUDA tensors the kernels, or an error."""
     dout = dout.to(q.dtype).contiguous()
     if _on_cpu(q, k, v, mask, rel_bias, out, dout):
-        table = None if mode == CROSS else bucket_table(num_buckets, max_distance, q.device,
-                                                        mode == ENCODER)
+        table = bucket_table(num_buckets, max_distance, q.device,
+                             mode == ENCODER) if has_bias(mode) else None
         geometry = (num_heads, num_buckets, max_distance)
         lse = long_lse_reference(mode, q, k, mask, rel_bias, *geometry)
         delta = row_delta(dout, out, num_heads)
@@ -999,7 +1094,7 @@ def long_attention_backward(
         delta = row_delta(dout, out, num_heads)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         bins = None
-        if mode != CROSS:
+        if has_bias(mode):
             bins = torch.zeros((num_heads, 2 * max_distance + 1), dtype=torch.float32,
                                device=q.device)
         common = (q, k, v, dout, mask32, rel32, table, lse, delta)
@@ -1057,7 +1152,7 @@ def _long_attention(
     num_buckets: int,
     max_distance: int,
 ) -> torch.Tensor:
-    """The long route of the three public functions, on either device:
+    """The long route of the four public functions, on either device:
     :class:`_LongAttention` when a gradient is wanted, else the forward
     alone (each checks what the kernels take)."""
     if _wants_grad(q, k, v, rel_bias):
@@ -1152,3 +1247,35 @@ def cross_flash_attention(
     if _on_cpu(q, k, v, mask):
         return cross_attention_reference(q, k, v, mask, num_heads)
     return _kernel_attention(CROSS, q, k, v, mask, None, num_heads, 32, 128)
+
+
+def scaled_causal_flash_attention(
+    q: torch.Tensor,  # [B, T, H*d] — raw projection layout, RoPE applied
+    k: torch.Tensor,  # [B, T, H*d] — GQA heads repeated to H
+    v: torch.Tensor,  # [B, T, H*d]
+    key_mask: torch.Tensor,  # [B, T] int {0,1} — padding mask over keys
+    num_heads: int,
+    scale: float,
+    block_kv: int = 0,
+) -> torch.Tensor:
+    """Causal self-attention with the ``scale`` (1/sqrt(d)) and a key padding
+    mask, no positional bias: the LLaMA family's teacher-forced form, RoPE
+    applied to q and k upstream -> ``[B, T, H*d]``. Differentiable in q, k
+    and v (the JAX package's ``scaled_causal_flash_attention`` without its
+    TPU tiling arguments).
+
+    The scale is folded into q first (:func:`scale_queries`), as the JAX
+    package folds it. CPU tensors: the plain attention on the scaled q
+    (plain autograd). CUDA tensors: the ``SCALED_CAUSAL`` kernels (fp32 or
+    bf16, head width 64 or 128, contiguous q/k/v), or an error. ``block_kv >
+    0`` or ``T > 4096`` takes the long route (kernels 2, 5, 6, 7 in this
+    mode; see :func:`encoder_flash_attention`). A query row with no valid key
+    (left padding) gives 0 and zero gradients; the Pallas kernel gives it
+    other values, which reach only that row's own output."""
+    if takes_long_route(block_kv, q.shape[1], k.shape[1]):
+        return _long_attention(SCALED_CAUSAL, scale_queries(q, scale), k, v, key_mask, None,
+                               num_heads, 32, 128)
+    if _on_cpu(q, k, v, key_mask):
+        return scaled_causal_attention_reference(q, k, v, key_mask, num_heads, scale)
+    return _kernel_attention(SCALED_CAUSAL, scale_queries(q, scale), k, v, key_mask, None,
+                             num_heads, 32, 128)

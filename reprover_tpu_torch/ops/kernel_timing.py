@@ -1,8 +1,8 @@
-"""Time the encoder-attention kernels (forward, dQ, dK/dV) of one checkout of
-this repository on the card, for comparing two versions in one call.
+"""Time the attention kernels (forward, dQ, dK/dV) of one checkout of this
+repository on the card, for comparing two versions in one call.
 
     python reprover_tpu_torch/ops/kernel_timing.py --checkout DIR --label NAME \
-        [--shapes 8x2304] [--long 4x8192]
+        [--shapes 8x2304] [--decoder 8x512x2304] [--long 4x8192]
 
 imports ``reprover_tpu_torch`` from ``DIR`` (which builds its own kernels into
 ``DIR/build/kernels``) and prints one JSON line per shape: bf16 q/k/v of
@@ -12,7 +12,10 @@ The ``--shapes`` rows use only functions that every version of the port has
 ``encoder_attention_lse_reference``; keep their lengths within 4096, the
 full-row route); each kernel's time is its device time from
 ``torch.profiler`` over ``--iters`` launches, beside the forward's time
-from CUDA events. ``--long BxL`` adds the long route's kernels 2, 5, 6 and 7
+from CUDA events. ``--decoder BxTxS`` adds the generator decoder's kernels
+1c/3c/4c (causal self-attention at ``[B, T]``) and 8/9/10 (cross-attention
+of ``[B, T]`` queries over ``[B, S]`` keys), forward and autograd backward
+through ``causal_flash_attention`` and ``cross_flash_attention``. ``--long BxL`` adds the long route's kernels 2, 5, 6 and 7
 (a checkout that has ``long_attention_backward``): the encoder at
 ``[B, L]`` and the cross-attention of ``[B, 512]`` queries (the
 generator's target cap) over it. Run the checkouts in turns (parent, change, change, parent), each
@@ -30,25 +33,34 @@ import sys
 from typing import Callable, Dict, List, Tuple
 
 
-# attn_<part>_kernel<T, mode> (versions before the long route) or
-# attn_<part>_kernel<T, mode, route>.
-_KERNEL = re.compile(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*\d(?:,\s*(\d))?>")
+# attn_<part>_kernel<T, mode> (versions before the long route),
+# attn_<part>_kernel<T, mode, route>, or with the head width (and, for the
+# forward, the ablation variant) after the route.
+_KERNEL = re.compile(
+    r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d)(?:,\s*(\d))?((?:,\s*\d+)*)>")
+_MODE_PREFIX = {0: "", 1: "causal_", 2: "cross_", 3: "scaled_causal_"}
 
 
 def _kernel_kind(name: str) -> str:
-    """'fwd', 'dq' or 'dkv' for a full-row attention kernel's profiled name,
-    'long', 'long_lse', 'long_dq' or 'long_dkv' for the long route's, else
-    ''."""
+    """'fwd', 'dq' or 'dkv' for a full-row encoder attention kernel's
+    profiled name, 'long', 'long_lse', 'long_dq' or 'long_dkv' for the long
+    route's, the same with 'causal_', 'cross_' or 'scaled_causal_' before it
+    for the other modes; '' for another kernel (or an ablation variant)."""
     m = _KERNEL.search(name)
     if m is None:
         return ""
+    extra = [int(x) for x in re.findall(r"\d+", m.group(4))]
+    if len(extra) == 2 and extra[1] != 0:
+        return ""
     part = {"fwd": "fwd", "bwd_dq": "dq", "bwd_dkv": "dkv"}[m.group(1)]
-    route = int(m.group(2) or 0)
+    route = int(m.group(3) or 0)
     if route == 0:
-        return part
-    if part == "fwd":
-        return "long" if route == 1 else "long_lse"
-    return f"long_{part}"
+        kind = part
+    elif part == "fwd":
+        kind = "long" if route == 1 else "long_lse"
+    else:
+        kind = f"long_{part}"
+    return _MODE_PREFIX[int(m.group(2))] + kind
 
 
 def _device_ms(fn: Callable[[], object], iters: int) -> Dict[str, float]:
@@ -105,6 +117,37 @@ def time_shape(tfa: object, b: int, length: int, iters: int, seed: int) -> Dict[
     return row
 
 
+def time_decoder(tfa: object, b: int, t: int, s: int, iters: int,
+                 seed: int) -> Dict[str, float]:
+    """Per-launch ms of the decoder's kernels, bf16: causal self-attention
+    at ``[b, t]`` (kernels 1c/3c/4c, the relative-position bias included)
+    and cross-attention of ``[b, t]`` over ``[b, s]`` with ragged source
+    masks (8/9/10), each forward and autograd backward."""
+    import torch
+
+    heads, inner = 6, 384
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(n: int) -> "torch.Tensor":
+        return torch.randn((b, n, inner), generator=gen, device="cuda").to(torch.bfloat16)
+
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen, device="cuda")
+    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    rel = torch.randn((32, heads), generator=gen, device="cuda")
+    q, dout, k_self, v_self, k, v = rand(t), rand(t), rand(t), rand(t), rand(s), rand(s)
+    leaves = [x.requires_grad_(True) for x in (q, k_self, v_self, k, v)]
+
+    def step() -> None:
+        out = tfa.causal_flash_attention(leaves[0], leaves[1], leaves[2], rel, num_heads=heads)
+        torch.autograd.grad(out, leaves[:3], dout)
+        out = tfa.cross_flash_attention(leaves[0], leaves[3], leaves[4], mask, num_heads=heads)
+        torch.autograd.grad(out, [leaves[0], leaves[3], leaves[4]], dout)
+
+    step()
+    torch.cuda.synchronize()
+    return _device_ms(step, iters)
+
+
 def time_long(tfa: object, b: int, length: int, queries: int, iters: int,
               seed: int) -> List[Dict[str, float]]:
     """Per-launch ms of the long route's kernels at ``[b, length]`` bf16:
@@ -144,6 +187,7 @@ def main(argv: List[str] | None = None) -> None:
     parser.add_argument("--label", required=True)
     parser.add_argument("--shapes", default="8x2048,8x1024,40x1024",
                         help="comma-separated BxL")
+    parser.add_argument("--decoder", default="", help="BxTxS of the decoder rows, e.g. 8x512x2304")
     parser.add_argument("--long", default="", help="BxL of the long-route rows, e.g. 4x8192")
     parser.add_argument("--iters", type=int, default=20)
     args = parser.parse_args(argv)
@@ -164,6 +208,11 @@ def main(argv: List[str] | None = None) -> None:
     for i, (b, length) in enumerate(shapes):
         row = {"label": args.label, "card": card, "B": b, "L": length, "dtype": "bfloat16"}
         row.update(time_shape(tfa, b, length, args.iters, seed=i))
+        print(json.dumps(row), flush=True)
+    if args.decoder:
+        b, t, s = (int(x) for x in args.decoder.split("x"))
+        row = {"label": args.label, "card": card, "B": b, "T": t, "S": s, "dtype": "bfloat16"}
+        row.update(time_decoder(tfa, b, t, s, args.iters, seed=len(shapes)))
         print(json.dumps(row), flush=True)
     if args.long:
         b, length = (int(x) for x in args.long.split("x"))

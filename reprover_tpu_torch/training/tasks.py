@@ -15,6 +15,7 @@ specs) and Adam moments in host memory (``offload_opt``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -150,6 +151,45 @@ def make_train_step(
         return state, loss.detach()
 
     return step
+
+
+def _mark(cuda: bool) -> Any:
+    """A point in time: a recorded CUDA event on the card, else the host clock."""
+    if not cuda:
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _ms_between(a: Any, b: Any, cuda: bool) -> float:
+    return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+
+
+def timed_train_steps(
+    state: TrainState, loss_fn: LossFn, cfg: Any, batch: Batch, n: int
+) -> List[Tuple[torch.Tensor, float, float, float]]:
+    """``n`` steps of :func:`make_train_step`'s update on one batch, each
+    split by CUDA events on the card (the host clock on the CPU) and synced
+    -> per step (detached loss, forward ms, backward ms, optimizer ms)."""
+    device = next(iter(batch.values())).device
+    cuda = device.type == "cuda"
+    out = []
+    for _ in range(n):
+        m0 = _mark(cuda)
+        state.optimizer.zero_grad()
+        loss = loss_fn(state.params, cfg, batch)
+        m1 = _mark(cuda)
+        loss.backward()
+        m2 = _mark(cuda)
+        state.optimizer.step()
+        state.step += 1
+        m3 = _mark(cuda)
+        if cuda:
+            torch.cuda.synchronize(device)
+        out.append((loss.detach(), _ms_between(m0, m1, cuda), _ms_between(m1, m2, cuda),
+                    _ms_between(m2, m3, cuda)))
+    return out
 
 
 def numeric_batch(batch: Dict[str, Any], device: Any = "cpu") -> Batch:

@@ -109,12 +109,21 @@ def test_classic_generate_matches_jax(setup):
         _assert_same(classic[text], theirs.generate([text], num_samples=K)[0])
 
 
-def test_training_half_raises():
-    with pytest.raises(NotImplementedError, match="training"):
-        tcl.forward_logits({}, tcl.CausalLMConfig(flash_attention=True),
-                           torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="training"):
-        tcl.causal_lm_loss({}, CFG, *(torch.zeros((1, 4), dtype=torch.long),) * 3)
+def test_training_half_raises(setup, monkeypatch):
+    """The training half is ported (its parity is tests/test_torch_causal_training.py):
+    the fused forward and the loss run on the CPU, and a CUDA request where
+    there is no card raises instead of falling back to the CPU."""
+    from reprover_tpu_torch.benchmarks import causal_finetune_step as cfs
+
+    _, params, _, _, _ = setup
+    ids, mask = (torch.from_numpy(x) for x in _batch(2))
+    flash = tcl.CausalLMConfig(**{**CFG.__dict__, "flash_attention": True})
+    assert torch.isfinite(tcl.causal_lm_loss(params, flash, ids, mask, ids)).item()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cfs.main(["--device", "cuda", "--batch", "1", "--seq", "128", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cfs.setup("jax", True, "cuda", 1, 1, 128, False, 0, 1e-4)
 
 
 def _collect(engine, model):

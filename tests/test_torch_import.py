@@ -30,6 +30,12 @@ NEW_MODULES = (
     "reprover_tpu_torch.generation.causal_generator",
     "reprover_tpu_torch.generation.bpe_tokenizer",
     "reprover_tpu_torch.native.bpe",
+    # Decoder-only fine-tuning and the kernel-timing scripts.
+    "reprover_tpu_torch.generation.preprocess",
+    "reprover_tpu_torch.generation.causal_datamodule",
+    "reprover_tpu_torch.benchmarks",
+    "reprover_tpu_torch.benchmarks.causal_finetune_step",
+    "reprover_tpu_torch.benchmarks.flash_kernel_bisect",
 )
 
 

@@ -1,7 +1,9 @@
-"""PyTorch port on the card: the T5 attention CUDA kernels (encoder, causal
-decoder and cross-attention; forward and backward; the full-row and the
-long route) against their plain versions, and the encoder and the teacher-forced decoder through the
-kernels against the CPU, forward and gradients. These tests need a CUDA
+"""PyTorch port on the card: the attention CUDA kernels (encoder, causal
+decoder and cross-attention, the LLaMA family's scaled causal attention at
+head width 64 and 128, and kernel 1's ablation variants; forward and
+backward; the full-row and the long route) against their plain versions,
+and the encoder, the teacher-forced decoder and the decoder-only loss
+through the kernels against the CPU, forward and gradients. These tests need a CUDA
 card and skip elsewhere. The file imports no JAX, so it also runs on a
 machine without it:
 
@@ -294,7 +296,9 @@ def test_generation_loss_gradients_on_card_match_cpu(cuda_device, remat):
     before = dict(tfa.KERNEL_LAUNCHES)
     loss_card, on_card = run(cuda_device)
     torch.cuda.synchronize()
-    for name in tfa.KERNEL_LAUNCHES:  # the full-row kernels: no length passes 4096
+    # The T5 attentions' full-row kernels (no length passes 4096); the scaled
+    # causal mode is the decoder-only family's.
+    for name in (n for n in tfa.KERNEL_LAUNCHES if not n.startswith("scaled_causal_attn")):
         assert (tfa.KERNEL_LAUNCHES[name] > before[name]) == ("_long" not in name), name
     loss_cpu, cpu = run(torch.device("cpu"))
     assert abs(loss_card - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
@@ -479,3 +483,93 @@ def test_quant_matmul_kernels_match_plain(cuda_device, bits, m, k, n):
         assert got.dtype == out_dtype and qm.KERNEL_LAUNCHES[name] > 0
         tol = 2e-2 * max(1.0, ref.abs().max().item())
         assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, t, h, d, block_kv", [(3, 1000, 4, 128, 0), (2, 256, 4, 64, 0),
+                                                  (2, 640, 2, 128, 64), (1, 7, 2, 128, 0)])
+def test_scaled_causal_kernels_match_plain(cuda_device, dtype, b, t, h, d, block_kv):
+    """The scaled causal kernels (kernels 1s/3s/4s, or 2/5/6/7 on the long
+    route) against their plain version: a ragged key mask and a left-padded
+    row, whose padded queries have no valid key (0, zero gradients)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    q, k, v, dout = (torch.randn((b, t, h * d), generator=gen, device=cuda_device).to(dtype)
+                     for _ in range(4))
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    mask[0, t - t // 3:] = 0
+    mask[-1, : t // 4] = 0
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tfa.scaled_causal_flash_attention(*leaves, mask, h, d ** -0.5, block_kv=block_kv)
+    got = torch.autograd.grad(out, leaves, dout)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = tfa.scaled_causal_attention_reference(*plain, mask, h, d ** -0.5)
+    want = torch.autograd.grad(ref, plain, dout)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    for g, w in [(out, ref)] + list(zip(got, want)):
+        tol = (2e-2 if bf16 else 1e-4) * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol
+    if t // 4:
+        assert out[-1, : t // 4].abs().max().item() == 0.0
+        assert all(g[-1, : t // 4].abs().max().item() == 0.0 for g in got)
+
+
+@pytest.mark.cuda
+def test_causal_lm_loss_gradients_on_card_match_cpu(cuda_device):
+    """``causal_lm_loss`` with the fused attention (head width 128, GQA) on
+    the card in fp32 against the CPU: the loss within 1e-4, every gradient
+    within 1e-3 of max(1, max|ref|)."""
+    from reprover_tpu_torch.models import causal_lm as tcl
+
+    cfg = tcl.CausalLMConfig(vocab_size=96, d_model=256, num_layers=2, num_heads=2,
+                             num_kv_heads=1, d_ff=128, flash_attention=True)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(3, 96, (2, 256)))
+    mask = torch.ones_like(ids)
+    mask[1, 200:] = 0
+    labels = torch.where(mask == 1, ids, -100)
+    params = tcl.init_params(cfg, torch.Generator().manual_seed(0))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        with torch.no_grad():
+            leaves = tcl.place_params(params, cfg, dev)
+        flat = [leaves["embedding"], leaves["lm_head"], leaves["final_norm"]] + list(
+            leaves["layers"].values())
+        for t in flat:
+            t.requires_grad_(True)
+        loss = tcl.causal_lm_loss(leaves, cfg, ids.to(dev), mask.to(dev), labels.to(dev))
+        grads[str(dev)] = (loss.item(), [g.cpu() for g in torch.autograd.grad(loss, flat)])
+    assert tfa.KERNEL_LAUNCHES["scaled_causal_attn_bwd_dkv"] > 0
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = grads.values()
+    assert abs(card_loss - cpu_loss) <= 1e-4
+    for g, w in zip(card_grads, cpu_grads):
+        assert (g - w).abs().max().item() <= 1e-3 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bisect_variants_match_plain(cuda_device, dtype):
+    """Kernel 14: each ablation variant of kernel 1 against its plain
+    version (``variant_error``'s limits, from the output's own size), and
+    ``full`` bit-equal to kernel 1. ``nosoftmax`` runs on all keys (a masked
+    key adds -1e10, which would swamp the rest of its row), and on the
+    ragged mask only the row with masked keys is compared, to show the
+    mask term is there."""
+    from reprover_tpu_torch.benchmarks import flash_kernel_bisect as fkb
+
+    q, k, v, mask, rel = _case(cuda_device, dtype, 2, 200, 5)
+    mask[-1] = 1
+    every = torch.ones_like(mask)
+    for variant in fkb.VARIANTS:
+        m = every if variant == "nosoftmax" else mask
+        got = fkb.bisect_attention(variant, q, k, v, m, rel, HEADS)
+        want = fkb.bisect_attention_reference(variant, q, k, v, m, rel, HEADS)
+        check = fkb.variant_error(got, want)
+        assert check["ok"], (variant, check)
+    row0 = (q[:1], k[:1], v[:1], mask[:1], rel)  # about 20% of its keys masked
+    want = fkb.bisect_attention_reference("nosoftmax", *row0, HEADS)
+    assert want.float().abs().max().item() > 1e5
+    assert fkb.variant_error(fkb.bisect_attention("nosoftmax", *row0, HEADS), want)["ok"]
+    assert torch.equal(fkb.bisect_attention("full", q, k, v, mask, rel, HEADS),
+                       tfa.encoder_flash_attention(q, k, v, mask, rel, HEADS))
