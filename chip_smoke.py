@@ -6,12 +6,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: compiles the port's CUDA kernels from ``reprover_tpu_torch/csrc``;
+2. build: compiles the port's CUDA kernels from ``reprover_tpu_torch/csrc``
+   (each attention forward instantiation's registers, stack and spills
+   from ``-Xptxas -v`` on a ``[build]`` line), then reads the library's
+   machine code (``cuobjdump -sass``, ``[sass]``): every bf16 forward
+   instantiation must hold HGMMA (tensor-core) instructions with fewer
+   waits than HGMMAs (not serialized) and every fp32 one none;
 3. kernel vs plain: ``encoder_flash_attention`` against
    ``encoder_attention_reference`` on the card at byt5-small attention
    shapes (H=6, d=64), ragged masks, a masked key >= 100 above its row's
    valid scores, and a length that is not a multiple of 64; fp32 within
-   1e-4, bf16 within 2e-2 * max(1, max|ref|); times from CUDA events;
+   1e-4, bf16 within 2e-2 * max(1, max|ref|) and each (row, head) within
+   2e-2 of its own max|ref| (``row_error``); times from CUDA events;
 4. the slice: a synthetic LeanDojo-format benchmark (12,900 premises),
    the port's retriever and generator at full byt5-small width (bf16,
    seeded random weights), ``reindex_corpus``, then the reused
@@ -46,7 +52,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    [3, 200]; cross T=512 against S=2304 at B=8 and a ragged [3, 200] x
    [3, 1000]), ragged encoder masks, a masked key >= 100 above its row's
    valid scores; fp32 within 1e-4 (d_rel 1e-3), bf16 within 2e-2 of
-   max(1, max|ref|); times from CUDA events, beside one
+   max(1, max|ref|) (the forward also row by row, ``row_error``); times
+   from CUDA events, beside one
    ``scaled_dot_product_attention`` call (and its autograd) on the same
    inputs as the library's yardstick;
 10. generator training: ``retrieval.main predict`` from the retriever
@@ -90,7 +97,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     whole autograd backward against the plain versions (at encoder [2,
     4608] fp32 also against the full-row reference's per-pair bias and its
     autograd), fp32 within 1e-4
-    (d_rel 1e-3), bf16 within 2e-2 of max(1, max|ref|); bf16 times beside
+    (d_rel 1e-3), bf16 within 2e-2 of max(1, max|ref|), its output also
+    row by row (``row_error``) and its LSE within 1e-2; bf16 times beside
     the plain versions, ``scaled_dot_product_attention`` with a dense bias
     mask and the bounds;
 16. long serving: the phase-4 models behind ``InferenceService`` at
@@ -115,9 +123,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     width [4, 2048] x 32 heads x 128, a ragged [3, 1000] with a
     left-padded row (whose query has no valid key: 0 and zero gradients),
     the JAX benchmark's [8, 2048] x 16 x 64, and the long route at [2, 4608] x
-    4 x 128; fp32 within 1e-4, bf16 within 2e-2 of max(1, max|ref|); bf16
+    4 x 128; fp32 within 1e-4, bf16 within 2e-2 of max(1, max|ref|), its
+    output also row by row (``row_error``) and its LSE within 1e-2; bf16
     times beside the plain versions, ``scaled_dot_product_attention`` with
-    the causal-and-key boolean mask and the bounds;
+    the causal-and-key boolean mask (and, as a reading, with
+    ``is_causal=True`` alone) and the bounds;
 20. decoder-only fine-tuning at LLaMA-7B width cut to depth 4 of 32
     (seeded float32 masters made on the card, bf16 products,
     ``flash_attention`` on): ``CausalGeneratorDataModule`` batches of the
@@ -174,6 +184,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -191,6 +202,7 @@ NUM_HEADS, HEAD_DIM = 6, 64
 FP32_TOL = 1e-4
 BF16_REL_TOL = 2e-2
 DREL_FP32_TOL = 1e-3  # d_rel sums L^2 terms with atomics, in any order
+BF16_LSE_TOL = 1e-2  # absolute: the LSE is an fp32 sum of fp32 scores
 
 # Retriever training at the reference data settings.
 TRAIN = dict(batch_size=8, num_negatives=3, num_in_file_negatives=1, max_seq_len=1024,
@@ -239,6 +251,11 @@ FULL_ROW_KERNELS = [a + p for a in ATTENTIONS for p in ("", "_bwd_dq", "_bwd_dkv
 LONG_PARTS = ("_long", "_long_lse", "_long_bwd_dq", "_long_bwd_dkv")
 LONG_GEN_KERNELS = [a + p for a in ("encoder_attn", "cross_attn") for p in LONG_PARTS]
 
+# Instantiations of the attention forward per input type: 3 routes x (3
+# modes at D 64 + the scaled causal mode at D 64 and 128), and kernel 14's
+# 4 variants beside FULL.
+FWD_INSTANCES = 3 * 5 + 4
+
 # The card's published peaks (H100 SXM): the bound of a kernel is the larger
 # of its operations over the bf16 tensor-core rate and its bytes over the
 # memory rate.
@@ -275,15 +292,115 @@ def phase_device() -> dict:
     return {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
 
 
+# One kernel's lines in ``-Xptxas -v`` output.
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Registers, stack and spill bytes of every kernel in an ``nvcc -Xptxas
+    -v`` log, by mangled name."""
+    report: dict = {}
+    name = None
+    for line in build_log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def _fwd_instance(name: str):
+    """("bf16" or "fp32", "mode/route/D/variant") of an attention forward
+    instantiation's name, or None for another kernel."""
+    from reprover_tpu_torch.ops.flash_attention import kernel_instance
+
+    inst = kernel_instance(name)
+    if inst is None or inst[0] != "fwd":
+        return None
+    return inst[1], "/".join(str(x) for x in inst[2:])
+
+
 def phase_build() -> None:
+    """Builds the kernels; logs each forward instantiation's registers,
+    stack and spills from ``-Xptxas -v``, and the assembler's warnings and
+    serialization notes."""
     from reprover_tpu_torch.ops.native import BuildInfo, load_library
 
     load_library()
     log(f"[build] {'built' if BuildInfo.built else 'reused'} {BuildInfo.path} "
         f"in {BuildInfo.seconds:.2f}s")
+    fwd = {}
+    for name, props in ptxas_report(BuildInfo.log).items():
+        inst = _fwd_instance(name)
+        if inst is not None:
+            fwd[f"{inst[0]} {inst[1]}"] = props
+        elif props:
+            log(f"[build] {name} {json.dumps(props)}")
+    log(f"[build] attn_fwd_kernel (T mode/route/D/variant) {json.dumps(fwd)}")
     for line in BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "warning" in line.lower() or "Performance Loss" in line:
             log(f"[build] {line.strip()}")
+
+
+def sass_mma_counts(sass: str) -> dict:
+    """``{(T, "mode/route/D/variant"): {"HGMMA": n, "HMMA": n, "DEPBAR": n}}``
+    for every attention forward instantiation in ``cuobjdump -sass``
+    output: its tensor-core instructions and its waits on them (one per
+    product when the products are pipelined, one per HGMMA when the
+    assembler serialized them)."""
+    counts: dict = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = _fwd_instance(line.split("Function :", 1)[1].strip())
+            if current is not None:
+                counts[current] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}
+        elif current is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[current][op] += 1
+            if "WARPGROUP.DEPBAR" in line:
+                counts[current]["DEPBAR"] += 1
+    return counts
+
+
+def phase_sass() -> dict:
+    """Phase 2's second half: the built library's machine code
+    (``cuobjdump -sass``) shows that every bf16 instantiation of the
+    attention forward runs its products on the tensor cores (HGMMA, Hopper's
+    warpgroup MMA), unserialized (fewer waits than HGMMAs), and every fp32
+    one keeps the FMA body (no HGMMA, no HMMA); raises otherwise, or if an
+    instantiation is missing."""
+    from reprover_tpu_torch.ops.native import BuildInfo, cuda_tool
+
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", BuildInfo.path],
+                          capture_output=True, text=True, check=True, timeout=600).stdout
+    counts = sass_mma_counts(sass)
+    by_type = {t: {k: c for (tt, k), c in counts.items() if tt == t} for t in ("bf16", "fp32")}
+    log(f"[sass] {json.dumps(by_type)}")
+    # A bf16 body with as many waits as HGMMAs had its products serialized
+    # by the assembler (ptxas C7515, C7520).
+    bad = [f"{t} {k}" for (t, k), c in counts.items()
+           if (t == "bf16" and not 0 < c["DEPBAR"] < c["HGMMA"])
+           or (t == "fp32" and c["HGMMA"] + c["HMMA"])]
+    if len(by_type["bf16"]) != FWD_INSTANCES or len(by_type["fp32"]) != FWD_INSTANCES or bad:
+        raise AssertionError(
+            f"attention forward machine code: {len(by_type['bf16'])} bf16 and "
+            f"{len(by_type['fp32'])} fp32 instantiations (want {FWD_INSTANCES} each); "
+            f"wrong units or serialized products in {bad}")
+    return by_type
 
 
 def _sync(device) -> None:
@@ -399,7 +516,8 @@ def _library(tfa, mode, q, k, v, mask, rel):
 
 def _forward_row(tfa, mode, b, lq, lk, dtype, gen, device) -> dict:
     """The kernel's forward against its plain version (error, times) beside
-    the library call and the bound."""
+    the library call and the bound; bf16 also row by row
+    (:func:`row_error`)."""
     import torch
     import torch.nn.functional as F
 
@@ -412,16 +530,18 @@ def _forward_row(tfa, mode, b, lq, lk, dtype, gen, device) -> dict:
     tol = FP32_TOL if dtype == torch.float32 else (
         BF16_REL_TOL * max(1.0, ref.float().abs().max().item()))
     finite = bool(torch.isfinite(out).all())
+    row_err = row_error(out, ref, NUM_HEADS)
+    rows_ok = dtype == torch.float32 or row_err <= BF16_REL_TOL
     iters = 20 if b * max(lq, lk) <= 32 * 1024 else 10
     _, qkv, attn = _library(tfa, mode, *args)
     with torch.no_grad():
         row = dict(kernel=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol,
-                   ms=_time_ms(lambda: kernel(*args), iters),
+                   row_err=row_err, ms=_time_ms(lambda: kernel(*args), iters),
                    plain_ms=_time_ms(lambda: plain(*args), iters),
                    library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                        *qkv, attn_mask=attn, scale=1.0), iters),
-                   ok=finite and err <= tol)
+                   ok=finite and err <= tol and rows_ok)
     row["bound_ms"], row["bound_by"] = _bound(
         "fwd", b, lq, lk, _valid_pairs(tfa, mode, mask, lq), q.element_size())
     return row
@@ -490,6 +610,24 @@ def _backward_row(tfa, mode, b, lq, lk, dtype, gen, device, empty_row: bool) -> 
     row["dq_bound_ms"], row["dq_bound_by"] = _bound("dq", b, lq, lk, pairs, q.element_size())
     row["dkv_bound_ms"], row["dkv_bound_by"] = _bound("dkv", b, lq, lk, pairs, q.element_size())
     return row
+
+
+def row_error(got, want, num_heads: int) -> float:
+    """The largest, over the (batch row, query, head) rows of an attention
+    output ``[B, L, H*d]``, of the row's largest error over the row's own
+    max|ref|; inf if a row whose reference is all zero (no valid key) is
+    not. The bf16 limit 2e-2 * max(1, max|ref|) follows the largest rows
+    (a query that sees a few keys gets their v, |out| ~ 4), so it passes
+    errors as large as a late, diffuse row itself (|out| ~ 0.05 at 2048
+    keys); held to 2e-2 here, every row answers for its own size."""
+    import torch
+
+    b, l, _ = want.shape
+    diff = (got.float() - want.float()).abs().reshape(b, l, num_heads, -1).amax(-1)
+    scale = want.float().abs().reshape(b, l, num_heads, -1).amax(-1)
+    ratio = torch.where(scale > 0, diff / scale.clamp_min(1e-30),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return ratio.max().item() if ratio.numel() else 0.0
 
 
 def _check_rows(rows: list, what: str) -> None:
@@ -651,7 +789,8 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
     full-row reference's autograd). Ragged masks, a
     fully masked tail tile, an encoder row with no valid key (B >= 3) that
     must get 0 and zero gradients, and a masked key >= 100 above query 0's
-    valid scores. A bf16 row is timed with CUDA events beside the plain
+    valid scores. bf16 is also held row by row (:func:`row_error`) and its
+    LSE to 1e-2. A bf16 row is timed with CUDA events beside the plain
     versions, one ``scaled_dot_product_attention`` call with a dense bias
     mask (its autograd for the backward kernels; none computes the LSE
     alone) and the bounds."""
@@ -686,6 +825,8 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
     out = fn(q, k, v, mask, rel)
     ref = tfa.long_attention_reference(mode, q, k, v, mask, rel, *geo)
     check("out", out, ref)
+    row_err = row_error(out, ref, NUM_HEADS)
+    ok &= not bf16 or row_err <= BF16_REL_TOL
     mask32, rel32, table = tfa._kernel_operands(mode, mask, rel, 32, 128)
     kernel_args = (mode, q, k, v, mask32, rel32, table, NUM_HEADS, 128)
     lse = tfa._forward_cuda(*kernel_args, True, tfa.LONG_LSE)[1]
@@ -693,6 +834,7 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
     rows = torch.isfinite(lse_ref)
     ok &= bool(torch.equal(torch.isinf(lse), ~rows))
     check("lse", lse[rows], lse_ref[rows])
+    ok &= not bf16 or errs["lse"] <= BF16_LSE_TOL
 
     delta = tfa.row_delta(dout, ref, NUM_HEADS)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -728,7 +870,7 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
         ok &= out[-1].abs().max().item() == 0.0 and all(
             g[-1].abs().max().item() == 0.0 for g in got[:3])
     row = dict(mode=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk, block_kv=block_kv,
-               dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok)
+               dtype=str(dtype).replace("torch.", ""), errs=errs, row_err=row_err, ok=ok)
     del got, want, leaves, full
     if not bf16:
         return row
@@ -1974,10 +2116,14 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     the forward (kernel 1s, or 2 on the long route), the LSE (the forward's,
     or kernel 5's), the dQ and dK/dV kernels alone on the plain LSE (3s/4s,
     or 6/7), and the whole autograd backward through the public function;
-    a left-padded row gives 0 and zero gradients. A bf16 row is timed
+    a left-padded row gives 0 and zero gradients. bf16 is also held row by
+    row (:func:`row_error`) and its LSE to 1e-2. A bf16 row is timed
     beside the plain versions, one ``scaled_dot_product_attention`` call
-    with the causal-and-key boolean mask (its autograd for the backward)
-    and the bounds."""
+    with the causal-and-key boolean mask (its autograd for the backward),
+    the bounds, and that call with ``is_causal=True`` and no mask
+    (``library_causal_ms``: its flash path, which gives the same rows as
+    the kernel where a batch is right-padded, the fine-tuning data module's
+    layout, but not on a left-padded row or a padded query)."""
     import torch
     import torch.nn.functional as F
 
@@ -2002,6 +2148,8 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     with torch.no_grad():
         out, ref = fn(q, k, v), tfa.scaled_causal_attention_reference(q, k, v, mask, h, scale)
     check("out", out, ref, relative=False)
+    row_err = row_error(out, ref, h)
+    ok &= not bf16 or row_err <= BF16_REL_TOL
     qs = tfa.scale_queries(q, scale)
     mask32 = mask.contiguous()
     kernel_args = (mode, qs, k, v, mask32, None, None, h, 128)
@@ -2010,6 +2158,7 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     rows = torch.isfinite(lse_ref)
     ok &= bool(torch.equal(torch.isinf(lse), ~rows))
     check("lse", lse[rows], lse_ref[rows], relative=False)
+    ok &= not bf16 or errs["lse"] <= BF16_LSE_TOL
     delta = tfa.row_delta(dout, ref, h)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     common = (qs, k, v, dout, mask32, None, None, lse_ref, delta)
@@ -2030,7 +2179,7 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
         ok &= out[-1, :37].abs().max().item() == 0.0 and all(
             g[-1, :37].abs().max().item() == 0.0 for g in got)
     row = dict(B=b, T=t, H=h, d=d, block_kv=block_kv, route="long" if long else "full_row",
-               dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok)
+               dtype=str(dtype).replace("torch.", ""), errs=errs, row_err=row_err, ok=ok)
     del got, want, leaves, plain
     if not bf16:
         return row
@@ -2045,7 +2194,9 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
             plain_ms=_time_ms(lambda: tfa.scaled_causal_attention_reference(q, k, v, mask, h,
                                                                             scale), iters),
             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                *heads, attn_mask=valid, scale=scale), iters))
+                *heads, attn_mask=valid, scale=scale), iters),
+            library_causal_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                *heads, is_causal=True, scale=scale), iters))
     if long:
         row["lse_ms"] = _time_ms(lambda: tfa._forward_cuda(*kernel_args, True, tfa.LONG_LSE),
                                  iters)
@@ -2486,6 +2637,7 @@ def main() -> int:
 
     info = phase("device", phase_device)
     phase("build", phase_build)
+    phase("sass", phase_sass)
     rows = phase("kernel", phase_kernel, device)
     dec_fwd, dec_bwd = phase("decoder_kernels", phase_decoder_kernels, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:

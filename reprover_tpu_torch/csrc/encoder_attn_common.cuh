@@ -1,17 +1,27 @@
 // Tile geometry and helpers shared by the T5 attention kernels
 // (encoder_attn.cu: forward; encoder_attn_bwd.cu: backward).
 //
-// Every kernel runs 256 threads as a 16 x 16 grid over a 64 x 64 tile; the
-// thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32,
-// tx+48 of a score tile, and columns tx + 16*j (j < D/16) of a [64][D]
-// output tile, so the 16 threads of one row are one half-warp and row
-// reductions are four xor-shuffles. Tiles sit in shared memory as fp32 with
-// a padded row stride, so column reads hit 32 different banks.
+// The backward kernels, and the forward on fp32 inputs, run 256 threads as a
+// 16 x 16 grid over a 64 x 64 tile; the thread (ty, tx) owns rows ty*4 ..
+// ty*4+3 and columns tx, tx+16, tx+32, tx+48 of a score tile, and columns
+// tx + 16*j (j < D/16) of a [64][D] output tile, so the 16 threads of one
+// row are one half-warp and row reductions are four xor-shuffles. Their
+// tiles sit in shared memory as fp32 with a padded row stride, so column
+// reads hit 32 different banks, and both products are FMA loops.
+//
+// The forward on bf16 inputs (every main path: serving and training run
+// bf16 products) is the Hopper design of encoder_attn.cu instead: a
+// warpgroup of 128 threads per 64-query tile (two, splitting the keys, for
+// the long route's cross-attention), bf16 tiles brought by TMA into
+// 128-byte-swizzled shared memory, both products on the tensor cores
+// (wgmma, hopper_mma.cuh), and the epilogue in the accumulator's layout,
+// where the four threads of a quad share a row.
 //
 // The head width D is a template parameter: 64 (T5, and every mode), or 128
-// (SCALED_CAUSAL only: LLaMA-7B's 4096 / 32 heads). At D = 128 a tile is
-// twice the shared memory (the forward's block 113 KiB, dQ's 146 KiB, dK/dV's
-// 162 KiB, one block per SM) and a thread owns twice the output columns.
+// (SCALED_CAUSAL only: LLaMA-7B's 4096 / 32 heads). At D = 128 an fp32 tile
+// is twice the shared memory (the fp32 forward's block 113 KiB, dQ's 146
+// KiB, dK/dV's 162 KiB, one block per SM) and a thread owns twice the
+// output columns; the bf16 forward's block takes 82 KiB.
 //
 // One source serves the three attentions of T5 and the LLaMA-family causal
 // attention, chosen at compile time by a mode (a template parameter; the C
@@ -54,7 +64,9 @@
 //
 // Both routes walk the keys in the same 64-wide tiles; on this card the
 // full-row kernels were already KV-blocked, so the long route differs in
-// what it saves and in the far-tile scalar, not in its memory.
+// what it saves and in the far-tile scalar, not in its memory. (The bf16
+// forward takes a far pair's scalar on the full-row route too: it is the
+// value the table holds at every clamped position of such a pair.)
 
 #pragma once
 
@@ -66,6 +78,7 @@ namespace encoder_attn {
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
 constexpr int THREADS = 256;   // a 16 x 16 grid of threads, 4 x 4 scores each
+constexpr int WG_THREADS = 128;  // a warpgroup (the bf16 forward runs one or two)
 constexpr int PPAD = BK + 1;   // shared row stride of a [rows][BK] tile
 
 // Shared row stride of a [rows][D] tile.
@@ -160,11 +173,12 @@ __device__ __forceinline__ void load_tile_pair(float* tile_a, float* tile_b,
 }
 
 // The per-head bias of every clamped relative position k - q:
-// bias[r] = rel_bias[bucket_table[r], h] for r = rel + max_distance.
+// bias[r] = rel_bias[bucket_table[r], h] for r = rel + max_distance, by the
+// block's `nthreads` threads.
 __device__ __forceinline__ void load_bias(float* bias, const float* __restrict__ rel_bias,
                                           const int* __restrict__ bucket_table, int nrel, int H,
-                                          int h, int tid) {
-  for (int r = tid; r < nrel; r += THREADS) bias[r] = rel_bias[bucket_table[r] * H + h];
+                                          int h, int tid, int nthreads = THREADS) {
+  for (int r = tid; r < nrel; r += nthreads) bias[r] = rel_bias[bucket_table[r] * H + h];
 }
 
 __device__ __forceinline__ int clamp_rel(int rel, int max_distance) {

@@ -46,9 +46,14 @@ batch row and head forward, about 2.5x that backward) against
 ``O((Lq + Lk) d)`` elements moved makes them compute-bound from a few
 hundred keys on; the plain version's cost is the ``[B, H, Lq, Lk]`` fp32
 tensors it writes and reads back (and, under autograd, keeps). The kernels
-never form them: each block owns a 64-row tile, walks the other side in
-64-wide tiles in shared memory, and runs fp32 FMA loops (tensor cores are
-left for a later change); a causal block stops at its diagonal tile.
+never form them: each block owns a 64-row tile and walks the other side in
+64-wide tiles in shared memory; a causal block stops at its diagonal tile.
+The forward on bf16 inputs runs both products on Hopper's tensor cores
+(``wgmma``, tiles copied by TMA, one or two warpgroups per tile), rounding
+P to bf16 before PV as the Pallas kernels do; the forward on fp32 inputs,
+and the backward kernels on both, run fp32 FMA loops (tensor cores for the
+backward are left for a later change). The bf16 forward reads q, k and v through TMA tensor
+maps, so their bases must be 16-byte aligned (:data:`TMA_ALIGN`).
 
 Choices that differ from the Pallas kernels on purpose:
 
@@ -129,6 +134,7 @@ KERNEL_LAUNCHES: Dict[str, int] = {
 # switch, flash_attention.py:527, :1305, :1675, :1809).
 LONG_CONTEXT = 4096
 TILE = 64  # the kernels' query and key tile
+TMA_ALIGN = 16  # bytes: the bf16 forward's tensor maps need aligned bases
 
 # The head widths each mode's kernels are compiled for.
 HEAD_DIMS = {ENCODER: (64,), CAUSAL: (64,), CROSS: (64,), SCALED_CAUSAL: (64, 128)}
@@ -146,20 +152,38 @@ def reset_launch_counts() -> None:
         KERNEL_LAUNCHES[name] = 0
 
 
-# A profiled kernel name: attn_<part>_kernel<T, mode, route, D[, variant]>.
-_PROFILED = re.compile(
-    r"attn_(fwd|bwd_dq|bwd_dkv)_kernel<[^,>]+,\s*(\d),\s*(\d),\s*\d+(?:,\s*(\d))?>")
+# An attention kernel's name, attn_<part>_kernel<T, mode, route, D[, variant]>,
+# as a profile prints it or mangled, as ptxas and cuobjdump print it
+# (attn_fwd_kernelI13__nv_bfloat16Li3ELi0ELi128ELi0EE): each template
+# argument follows ", " in the first form and "Li" in the second.
+_ARG = r"(?:,\s*|Li)(\d+)E?"
+_KERNEL_NAME = re.compile(
+    rf"attn_(fwd|bwd_dq|bwd_dkv)_kernel(?:<|I\d*)(__nv_bfloat16|float|f){_ARG * 3}(?:{_ARG})?")
+
+
+def kernel_instance(kernel_name: str) -> Optional[Tuple[str, str, int, int, int, int]]:
+    """``(part, dtype, mode, route, head width, variant)`` of an attention
+    kernel's profiled or mangled name (part ``fwd``, ``bwd_dq`` or
+    ``bwd_dkv``; dtype ``bf16`` or ``fp32``; variant 0 for the backward), or
+    None for any other kernel."""
+    m = _KERNEL_NAME.search(kernel_name)
+    if m is None:
+        return None
+    part, t, mode, route, d, variant = m.groups()
+    return (part, "bf16" if t == "__nv_bfloat16" else "fp32", int(mode), int(route), int(d),
+            int(variant or 0))
 
 
 def launch_key(kernel_name: str) -> Optional[str]:
     """The launch-count name of a profiled attention kernel (``causal_attn``,
     ``encoder_attn_long_bwd_dq``, ...), or None for any other kernel,
     including the forward's ablation variants (a nonzero fifth parameter)."""
-    m = _PROFILED.search(kernel_name)
-    if m is None or m.group(4) not in (None, "0"):
+    inst = kernel_instance(kernel_name)
+    if inst is None or inst[5]:
         return None
-    base = KERNEL_NAMES[int(m.group(2))] + ROUTE_SUFFIX[int(m.group(3))]
-    return base if m.group(1) == "fwd" else f"{base}_{m.group(1)}"
+    part, _, mode, route = inst[:4]
+    base = KERNEL_NAMES[mode] + ROUTE_SUFFIX[route]
+    return base if part == "fwd" else f"{base}_{part}"
 
 
 def has_bias(mode: int) -> bool:
@@ -583,6 +607,11 @@ def _check_kernel_inputs(
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+        # The bf16 forward copies its tiles by TMA, which reads from 16-byte
+        # aligned bases only (a view at an odd offset of a larger tensor).
+        if t.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: bf16 {arg} must start on a {TMA_ALIGN}-byte boundary, "
+                             f"got address {t.data_ptr():#x}")
     if b > 65535 or num_heads > 65535:
         raise ValueError(f"{name}: batch and heads must be <= 65535")
 

@@ -43,17 +43,19 @@ class BuildInfo:
     log: str = ""
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH, else
+    in ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``); raises if absent."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    candidate = os.path.join(cuda_home, "bin", name)
     if os.path.exists(candidate):
         return candidate
     raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        "kernels of reprover_tpu_torch cannot be built"
+        f"{name} not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of reprover_tpu_torch cannot be built or inspected"
     )
 
 
@@ -101,7 +103,7 @@ def load_library() -> ctypes.CDLL:
             # Build under private names, then rename: processes that build
             # at the same time never load a half-written library.
             tag = f"{os.getpid()}.tmp"
-            nvcc = _nvcc()
+            nvcc = cuda_tool("nvcc")
             objects = [out_dir / f".{src.stem}.{tag}.o" for src in sources]
             cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                     for src, obj in zip(sources, objects)]

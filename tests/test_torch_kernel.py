@@ -3,9 +3,11 @@ decoder and cross-attention, the LLaMA family's scaled causal attention at
 head width 64 and 128, and kernel 1's ablation variants; forward and
 backward; the full-row and the long route) against their plain versions,
 and the encoder, the teacher-forced decoder and the decoder-only loss
-through the kernels against the CPU, forward and gradients. These tests need a CUDA
-card and skip elsewhere. The file imports no JAX, so it also runs on a
-machine without it:
+through the kernels against the CPU, forward and gradients; the forward's
+edges (lengths around the 64-row tile, ragged key lengths, rows with no
+valid key, every mode on every route, a misaligned bf16 operand). These
+tests need a CUDA card and skip elsewhere. The file imports no JAX, so it
+also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest
 """
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.ops import flash_attention as tfa
 
@@ -573,3 +576,102 @@ def test_bisect_variants_match_plain(cuda_device, dtype):
     assert fkb.variant_error(fkb.bisect_attention("nosoftmax", *row0, HEADS), want)["ok"]
     assert torch.equal(fkb.bisect_attention("full", q, k, v, mask, rel, HEADS),
                        tfa.encoder_flash_attention(q, k, v, mask, rel, HEADS))
+
+
+# ------------------------------------------------------------------ #
+# The forward's edges: the bf16 body (tensor cores, TMA tiles) and the fp32
+# body, every mode on every route
+# ------------------------------------------------------------------ #
+
+# (mode, batch, query length, key length, head width, max_distance): the
+# self-attentions at lengths around the 64-row tile, cross-attention with
+# key lengths that are not multiples of 64, head width 128 at T = 1000, and
+# max_distance 32 so that far tile pairs (one bias scalar) and clamped near
+# pairs both occur.
+FORWARD_EDGES = (
+    [(tfa.ENCODER, 2, n, n, 64, 128) for n in (1, 63, 64, 65, 129)]
+    + [(tfa.CAUSAL, 2, n, n, 64, 128) for n in (1, 63, 64, 65, 129)]
+    + [(tfa.SCALED_CAUSAL, 2, n, n, 64, 0) for n in (1, 63, 64, 65, 129)]
+    + [(tfa.SCALED_CAUSAL, 2, n, n, 128, 0) for n in (65, 129, 1000)]
+    + [(tfa.CROSS, 3, t, s, 64, 0) for t, s in ((1, 1), (63, 65), (65, 129), (7, 1000),
+                                                (130, 200))]
+    + [(tfa.ENCODER, 2, 333, 333, 64, 32), (tfa.CAUSAL, 1, 300, 300, 64, 32)]
+)
+
+
+def _edge_case(device, dtype, mode, b, t, s, d, seed):
+    """q [b, t, H*d], k/v [b, s, H*d] (2 heads at d 128, else 6); a ragged key
+    mask whose last batch row has no valid key (all ones for CAUSAL); the
+    bias table for the modes that have one."""
+    heads = 2 if d == 128 else HEADS
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, t, heads * d)) * (d ** -0.5 if mode == tfa.SCALED_CAUSAL else 1.0)
+    k, v = (rng.normal(size=(b, s, heads * d)) for _ in range(2))
+    mask = (rng.random((b, s)) > 0.2).astype(np.int32)
+    mask[:, 0] = 1
+    if mode == tfa.CAUSAL:
+        mask[:] = 1
+    elif b > 1:
+        mask[-1] = 0
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(device, dtype) for x in (q, k, v))
+    rel = None
+    if tfa.has_bias(mode):
+        rel = torch.from_numpy(rng.normal(size=(32, heads)).astype(np.float32)).to(device)
+    return q, k, v, torch.from_numpy(mask).to(device), rel, heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", [tfa.FULL_ROW, tfa.LONG, tfa.LONG_LSE])
+@pytest.mark.parametrize("mode, b, t, s, d, max_distance", FORWARD_EDGES)
+def test_forward_edges_match_plain(cuda_device, dtype, route, mode, b, t, s, d, max_distance):
+    """One forward launch (kernel 1, 1c, 1s, 8 on the full-row route, 2 on
+    the long one, 5 the LSE sweep) against the plain online-softmax sweep:
+    out within 1e-4 (fp32) or 2e-2 of max(1, max|ref|) (bf16), bf16 also
+    each (row, head) within 2e-2 of its own max|ref| (``chip_smoke.row_error``),
+    the LSE within 1e-3 where finite; a row with no valid key gives 0 and
+    LSE +inf; the launch counted under its own name."""
+    q, k, v, mask, rel, heads = _edge_case(cuda_device, dtype, mode, b, t, s, d, t * 7 + s)
+    mask32, rel32, table = tfa._kernel_operands(mode, mask, rel, 32, max_distance)
+    name = tfa.KERNEL_NAMES[mode] + tfa.ROUTE_SUFFIX[route]
+    before = tfa.KERNEL_LAUNCHES[name]
+    out, lse = tfa._forward_cuda(mode, q, k, v, mask32, rel32, table, heads, max_distance,
+                                 route != tfa.LONG, route)
+    torch.cuda.synchronize()
+    assert tfa.KERNEL_LAUNCHES[name] == before + 1
+    md = max_distance or 128
+    lse_ref = tfa.long_lse_reference(mode, q, k, mask, rel, heads, max_distance=md)
+    empty = torch.isinf(lse_ref)  # [B, H, Lq]: rows with no valid key
+    if route != tfa.LONG_LSE:
+        ref = tfa.long_attention_reference(mode, q, k, v, mask, rel, heads, max_distance=md)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, ref.float().abs().max().item())
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        if dtype == torch.bfloat16:
+            assert chip_smoke.row_error(out, ref, heads) <= 2e-2
+        rows = empty.all(dim=1)  # [B, Lq]: no valid key in any head
+        if rows.any():
+            assert out[rows].abs().max().item() == 0.0
+    if route != tfa.LONG:
+        assert torch.equal(torch.isinf(lse), empty)
+        assert (lse[~empty] - lse_ref[~empty]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_misaligned_bf16_operand_raises(cuda_device):
+    """The bf16 forward reads q, k and v through TMA tensor maps, which need
+    16-byte aligned bases: a view at an odd offset raises in the wrapper's
+    checks, and the C entry refuses it too when called past them."""
+    q, k, v, mask, rel = _case(cuda_device, torch.bfloat16, 2, 64, 0)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.encoder_flash_attention(shifted, k, v, mask, rel, num_heads=HEADS)
+    mask32, rel32, table = tfa._kernel_operands(tfa.ENCODER, mask, rel, 32, 128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfa._forward_cuda(tfa.ENCODER, shifted, k, v, mask32, rel32, table, HEADS, 128, False)
+    out = tfa.encoder_flash_attention(q, k, v, mask, rel, num_heads=HEADS)  # aligned: runs
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
