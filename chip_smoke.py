@@ -7,11 +7,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: compiles the port's CUDA kernels from ``reprover_tpu_torch/csrc``
-   (each attention forward instantiation's registers, stack and spills
-   from ``-Xptxas -v`` on a ``[build]`` line), then reads the library's
-   machine code (``cuobjdump -sass``, ``[sass]``): every bf16 forward
-   instantiation must hold HGMMA (tensor-core) instructions with fewer
-   waits than HGMMAs (not serialized) and every fp32 one none;
+   (each attention forward, dQ and dK/dV instantiation's registers, stack
+   and spills from ``-Xptxas -v`` on ``[build]`` lines; a bf16 backward
+   instantiation that spills fails), then reads the library's machine
+   code (``cuobjdump -sass``, ``[sass]``): every bf16 forward, dQ and
+   dK/dV instantiation must hold HGMMA (tensor-core) instructions with
+   fewer waits than HGMMAs (not serialized) and every fp32 one none;
 3. kernel vs plain: ``encoder_flash_attention`` against
    ``encoder_attention_reference`` on the card at byt5-small attention
    shapes (H=6, d=64), ragged masks, a masked key >= 100 above its row's
@@ -34,7 +35,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    data module's batches at ``max_seq_len`` 1024, printed, and contexts at
    the 1024 cap), ragged masks, an empty row, a masked key >= 100 above its
    row and a length that is not a multiple of 64; fp32 within 1e-4 (d_rel
-   1e-3) and bf16 within 2e-2 of max(1, max|ref|); times from CUDA events;
+   1e-3) and bf16 within 2e-2 of max(1, max|ref|), bf16 dq, dk, dv also
+   row by row (``grad_row_error``: each (row, position, head) within 2e-2
+   of its own max|ref| plus 2e-3 of max(1, max|ref|), against the
+   backward's algorithm in plain torch, ``plain_grad_chain``); times from
+   CUDA events;
 7. training: ``reprover_tpu_torch.retrieval.main.main(["fit", ...])`` at full
    byt5-small encoder width (bf16 over fp32 masters, seeded random init,
    InfoNCE, batch 8, 3 negatives with 1 in-file, ``max_seq_len`` 1024, remat
@@ -52,8 +57,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    [3, 200]; cross T=512 against S=2304 at B=8 and a ragged [3, 200] x
    [3, 1000]), ragged encoder masks, a masked key >= 100 above its row's
    valid scores; fp32 within 1e-4 (d_rel 1e-3), bf16 within 2e-2 of
-   max(1, max|ref|) (the forward also row by row, ``row_error``); times
-   from CUDA events, beside one
+   max(1, max|ref|) (the forward also row by row, ``row_error``, the
+   gradients by ``grad_row_error``); times from CUDA events, beside one
    ``scaled_dot_product_attention`` call (and its autograd) on the same
    inputs as the library's yardstick;
 10. generator training: ``retrieval.main predict`` from the retriever
@@ -98,9 +103,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     4608] fp32 also against the full-row reference's per-pair bias and its
     autograd), fp32 within 1e-4
     (d_rel 1e-3), bf16 within 2e-2 of max(1, max|ref|), its output also
-    row by row (``row_error``) and its LSE within 1e-2; bf16 times beside
-    the plain versions, ``scaled_dot_product_attention`` with a dense bias
-    mask and the bounds;
+    row by row (``row_error``), its gradients by ``grad_row_error`` and its
+    LSE within 1e-2; bf16 times beside the plain versions,
+    ``scaled_dot_product_attention`` with a dense bias mask and the bounds;
 16. long serving: the phase-4 models behind ``InferenceService`` at
     ``max_inp_seq_len`` 8192, 8 theorems x 2 expansions; every served
     source packs its 100 retrieved premises past 4096 bytes, at least two
@@ -124,10 +129,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     left-padded row (whose query has no valid key: 0 and zero gradients),
     the JAX benchmark's [8, 2048] x 16 x 64, and the long route at [2, 4608] x
     4 x 128; fp32 within 1e-4, bf16 within 2e-2 of max(1, max|ref|), its
-    output also row by row (``row_error``) and its LSE within 1e-2; bf16
-    times beside the plain versions, ``scaled_dot_product_attention`` with
-    the causal-and-key boolean mask (and, as a reading, with
-    ``is_causal=True`` alone) and the bounds;
+    output also row by row (``row_error``), its gradients by
+    ``grad_row_error`` and its LSE within 1e-2; bf16 times beside the plain
+    versions, ``scaled_dot_product_attention`` with the causal-and-key
+    boolean mask (and, as readings, with ``is_causal=True`` alone, forward
+    and autograd backward) and the bounds;
 20. decoder-only fine-tuning at LLaMA-7B width cut to depth 4 of 32
     (seeded float32 masters made on the card, bf16 products,
     ``flash_attention`` on): ``CausalGeneratorDataModule`` batches of the
@@ -253,8 +259,11 @@ LONG_GEN_KERNELS = [a + p for a in ("encoder_attn", "cross_attn") for p in LONG_
 
 # Instantiations of the attention forward per input type: 3 routes x (3
 # modes at D 64 + the scaled causal mode at D 64 and 128), and kernel 14's
-# 4 variants beside FULL.
+# 4 variants beside FULL; of each backward kernel (dQ, dK/dV): 2 routes x
+# the same 5 (mode, D).
 FWD_INSTANCES = 3 * 5 + 4
+BWD_INSTANCES = 2 * 5
+ATTN_PARTS = {"fwd": FWD_INSTANCES, "bwd_dq": BWD_INSTANCES, "bwd_dkv": BWD_INSTANCES}
 
 # The card's published peaks (H100 SXM): the bound of a kernel is the larger
 # of its operations over the bf16 tensor-core rate and its bytes over the
@@ -321,50 +330,64 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
-def _fwd_instance(name: str):
-    """("bf16" or "fp32", "mode/route/D/variant") of an attention forward
-    instantiation's name, or None for another kernel."""
+def _attn_instance(name: str, part: str):
+    """("bf16" or "fp32", "mode/route/D/variant") of an instantiation of one
+    attention kernel (``part`` "fwd", "bwd_dq" or "bwd_dkv"; variant 0 for
+    the backward) from its name, or None for another kernel."""
     from reprover_tpu_torch.ops.flash_attention import kernel_instance
 
     inst = kernel_instance(name)
-    if inst is None or inst[0] != "fwd":
+    if inst is None or inst[0] != part:
         return None
     return inst[1], "/".join(str(x) for x in inst[2:])
 
 
+def _fwd_instance(name: str):
+    """:func:`_attn_instance` of the forward."""
+    return _attn_instance(name, "fwd")
+
+
 def phase_build() -> None:
-    """Builds the kernels; logs each forward instantiation's registers,
-    stack and spills from ``-Xptxas -v``, and the assembler's warnings and
-    serialization notes."""
+    """Builds the kernels; logs each attention instantiation's registers,
+    stack and spills from ``-Xptxas -v`` (forward, dQ, dK/dV), and the
+    assembler's warnings and serialization notes; raises if a bf16 backward
+    instantiation spills."""
     from reprover_tpu_torch.ops.native import BuildInfo, load_library
 
     load_library()
     log(f"[build] {'built' if BuildInfo.built else 'reused'} {BuildInfo.path} "
         f"in {BuildInfo.seconds:.2f}s")
-    fwd = {}
+    by_part: dict = {part: {} for part in ATTN_PARTS}
     for name, props in ptxas_report(BuildInfo.log).items():
-        inst = _fwd_instance(name)
+        inst = next(((part, i) for part in ATTN_PARTS
+                     if (i := _attn_instance(name, part)) is not None), None)
         if inst is not None:
-            fwd[f"{inst[0]} {inst[1]}"] = props
+            by_part[inst[0]][f"{inst[1][0]} {inst[1][1]}"] = props
         elif props:
             log(f"[build] {name} {json.dumps(props)}")
-    log(f"[build] attn_fwd_kernel (T mode/route/D/variant) {json.dumps(fwd)}")
+    for part, props in by_part.items():
+        log(f"[build] attn_{part}_kernel (T mode/route/D/variant) {json.dumps(props)}")
     for line in BuildInfo.log.splitlines():
         if "warning" in line.lower() or "Performance Loss" in line:
             log(f"[build] {line.strip()}")
+    spilled = [f"{part} {key}" for part in ("bwd_dq", "bwd_dkv")
+               for key, p in by_part[part].items()
+               if key.startswith("bf16") and p.get("spill_stores", 0) + p.get("spill_loads", 0)]
+    if spilled:
+        raise AssertionError(f"bf16 backward instantiations spill registers: {spilled}")
 
 
-def sass_mma_counts(sass: str) -> dict:
+def sass_mma_counts(sass: str, part: str = "fwd") -> dict:
     """``{(T, "mode/route/D/variant"): {"HGMMA": n, "HMMA": n, "DEPBAR": n}}``
-    for every attention forward instantiation in ``cuobjdump -sass``
-    output: its tensor-core instructions and its waits on them (one per
-    product when the products are pipelined, one per HGMMA when the
-    assembler serialized them)."""
+    for every instantiation of one attention kernel (``part`` "fwd",
+    "bwd_dq" or "bwd_dkv") in ``cuobjdump -sass`` output: its tensor-core
+    instructions and its waits on them (one per product when the products
+    are pipelined, one per HGMMA when the assembler serialized them)."""
     counts: dict = {}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = _fwd_instance(line.split("Function :", 1)[1].strip())
+            current = _attn_instance(line.split("Function :", 1)[1].strip(), part)
             if current is not None:
                 counts[current] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}
         elif current is not None:
@@ -379,28 +402,33 @@ def sass_mma_counts(sass: str) -> dict:
 def phase_sass() -> dict:
     """Phase 2's second half: the built library's machine code
     (``cuobjdump -sass``) shows that every bf16 instantiation of the
-    attention forward runs its products on the tensor cores (HGMMA, Hopper's
-    warpgroup MMA), unserialized (fewer waits than HGMMAs), and every fp32
-    one keeps the FMA body (no HGMMA, no HMMA); raises otherwise, or if an
-    instantiation is missing."""
+    attention forward, dQ and dK/dV kernels runs its products on the tensor
+    cores (HGMMA, Hopper's warpgroup MMA), unserialized (fewer waits than
+    HGMMAs), and every fp32 one keeps the FMA body (no HGMMA, no HMMA);
+    raises otherwise, or if an instantiation is missing."""
     from reprover_tpu_torch.ops.native import BuildInfo, cuda_tool
 
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", BuildInfo.path],
                           capture_output=True, text=True, check=True, timeout=600).stdout
-    counts = sass_mma_counts(sass)
-    by_type = {t: {k: c for (tt, k), c in counts.items() if tt == t} for t in ("bf16", "fp32")}
-    log(f"[sass] {json.dumps(by_type)}")
-    # A bf16 body with as many waits as HGMMAs had its products serialized
-    # by the assembler (ptxas C7515, C7520).
-    bad = [f"{t} {k}" for (t, k), c in counts.items()
-           if (t == "bf16" and not 0 < c["DEPBAR"] < c["HGMMA"])
-           or (t == "fp32" and c["HGMMA"] + c["HMMA"])]
-    if len(by_type["bf16"]) != FWD_INSTANCES or len(by_type["fp32"]) != FWD_INSTANCES or bad:
-        raise AssertionError(
-            f"attention forward machine code: {len(by_type['bf16'])} bf16 and "
-            f"{len(by_type['fp32'])} fp32 instantiations (want {FWD_INSTANCES} each); "
-            f"wrong units or serialized products in {bad}")
-    return by_type
+    report, faults = {}, []
+    for part, want in ATTN_PARTS.items():
+        counts = sass_mma_counts(sass, part)
+        by_type = {t: {k: c for (tt, k), c in counts.items() if tt == t}
+                   for t in ("bf16", "fp32")}
+        log(f"[sass] attn_{part}_kernel {json.dumps(by_type)}")
+        # A bf16 body with as many waits as HGMMAs had its products
+        # serialized by the assembler (ptxas C7515, C7520).
+        bad = [f"{t} {k}" for (t, k), c in counts.items()
+               if (t == "bf16" and not 0 < c["DEPBAR"] < c["HGMMA"])
+               or (t == "fp32" and c["HGMMA"] + c["HMMA"])]
+        if len(by_type["bf16"]) != want or len(by_type["fp32"]) != want or bad:
+            faults.append(f"attn_{part}_kernel: {len(by_type['bf16'])} bf16 and "
+                          f"{len(by_type['fp32'])} fp32 instantiations (want {want} each); "
+                          f"wrong units or serialized products in {bad}")
+        report[part] = by_type
+    if faults:
+        raise AssertionError(f"attention machine code: {faults}")
+    return report
 
 
 def _sync(device) -> None:
@@ -549,10 +577,12 @@ def _forward_row(tfa, mode, b, lq, lk, dtype, gen, device) -> dict:
 
 def _backward_row(tfa, mode, b, lq, lk, dtype, gen, device, empty_row: bool) -> dict:
     """Autograd through the kernels against autograd of the plain version
-    (errors), the whole backward, each backward kernel alone on the forward's
-    LSE, the plain backward and the library call's autograd, and the two
-    kernels' bounds. ``empty_row``: the last batch row has no valid key and
-    must get zero gradients."""
+    (errors; bf16 dq, dk, dv also row by row against the plain chain,
+    :func:`grad_row_error`, :func:`plain_grad_chain`), the
+    whole backward, each backward kernel alone on the forward's LSE, the
+    plain backward and the library call's autograd, and the two kernels'
+    bounds. ``empty_row``: the last batch row has no valid key and must get
+    zero gradients."""
     import torch
     import torch.nn.functional as F
 
@@ -579,6 +609,17 @@ def _backward_row(tfa, mode, b, lq, lk, dtype, gen, device, empty_row: bool) -> 
         tol *= max(1.0, w.float().abs().max().item())
         errs[name] = (g.float() - w.float()).abs().max().item()
         ok &= bool(torch.isfinite(g).all()) and errs[name] <= tol
+    grad_rows = {}
+    if dtype == torch.bfloat16:
+        # Each (batch row, position, head) of dq, dk, dv also to its own
+        # size, against the backward's algorithm in plain torch.
+        zero_q, zero_k = zero_grad_rows(tfa, mode, mask, q)
+        chain = plain_grad_chain(tfa, mode, q, k, v, mask, None if mode == tfa.CROSS else rel,
+                                 dout, out=out_k.detach())
+        grad_rows = {name: grad_row_error(g, w, NUM_HEADS, zero_q if name == "dq" else zero_k)
+                     for name, g, w in zip(("dq", "dk", "dv"), got, chain)}
+        ok &= max(grad_rows.values()) <= BF16_REL_TOL
+        del chain
     if empty_row:
         ok &= all(g[-1].abs().max().item() == 0.0 for g in got[:3])
     iters = 10 if b * max(lq, lk) <= 32 * 1024 else 5
@@ -605,29 +646,96 @@ def _backward_row(tfa, mode, b, lq, lk, dtype, gen, device, empty_row: bool) -> 
                       iters)
     pairs = _valid_pairs(tfa, mode, mask, lq)
     row = dict(kernel=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk,
-               dtype=str(dtype).replace("torch.", ""), errs=errs, ok=ok, bwd_ms=ms,
+               dtype=str(dtype).replace("torch.", ""), errs=errs, grad_row_err=grad_rows,
+               ok=ok, bwd_ms=ms,
                plain_bwd_ms=plain_ms, library_bwd_ms=library_ms, dq_ms=dq_ms, dkv_ms=dkv_ms)
     row["dq_bound_ms"], row["dq_bound_by"] = _bound("dq", b, lq, lk, pairs, q.element_size())
     row["dkv_bound_ms"], row["dkv_bound_by"] = _bound("dkv", b, lq, lk, pairs, q.element_size())
     return row
 
 
-def row_error(got, want, num_heads: int) -> float:
-    """The largest, over the (batch row, query, head) rows of an attention
-    output ``[B, L, H*d]``, of the row's largest error over the row's own
-    max|ref|; inf if a row whose reference is all zero (no valid key) is
-    not. The bf16 limit 2e-2 * max(1, max|ref|) follows the largest rows
-    (a query that sees a few keys gets their v, |out| ~ 4), so it passes
-    errors as large as a late, diffuse row itself (|out| ~ 0.05 at 2048
-    keys); held to 2e-2 here, every row answers for its own size."""
+def row_error(got, want, num_heads: int, floor: float = 0.0) -> float:
+    """The largest, over the (batch row, position, head) rows of an
+    attention output or gradient ``[B, L, H*d]``, of the row's largest
+    error over the row's own max|ref| plus ``floor``; with no floor, inf if
+    a row whose reference is all zero (no valid key) is not. The bf16 limit 2e-2 *
+    max(1, max|ref|) follows the largest rows (a query that sees a few keys
+    gets their v, |out| ~ 4), so it passes errors as large as a late,
+    diffuse row itself (|out| ~ 0.05 at 2048 keys); held to 2e-2 here,
+    every row answers for its own size."""
     import torch
 
     b, l, _ = want.shape
     diff = (got.float() - want.float()).abs().reshape(b, l, num_heads, -1).amax(-1)
     scale = want.float().abs().reshape(b, l, num_heads, -1).amax(-1)
+    scale = scale + floor
     ratio = torch.where(scale > 0, diff / scale.clamp_min(1e-30),
                         torch.where(diff > 0, math.inf, 0.0))
     return ratio.max().item() if ratio.numel() else 0.0
+
+
+# The floor of the per-row gradient limit, over max(1, max|ref|) of the
+# whole tensor: a row within 2e-2 of (its own max|ref| + 0.1 max(1,
+# max|ref|)), i.e. 2e-2 of itself plus 2e-3 of the tensor.
+GRAD_ROW_FLOOR = 0.1
+
+
+def grad_row_error(got, want, num_heads: int, zero=None) -> float:
+    """:func:`row_error` of a bf16 gradient (dq, dk or dv ``[B, L, H*d]``),
+    held to 2e-2 like an output row, with a floor of 2e-3 x max(1,
+    max|ref|) of the whole tensor: dS sums to zero over a query's keys, so a
+    dQ row can cancel to far below the terms whose bf16 rounding it carries.
+    ``zero`` (bool, broadcastable to ``[B, L, H]``, :func:`zero_grad_rows`)
+    marks the rows that must be exactly zero: a query with no valid key, a
+    masked key. (A reference row can also cancel to exactly zero, e.g. a
+    query that sees one key, where delta and dP are the same sum taken in
+    two orders; such a row is held to the floor.)"""
+    if not want.numel():
+        return 0.0
+    floor = GRAD_ROW_FLOOR * max(1.0, want.float().abs().max().item())
+    worst = row_error(got, want, num_heads, floor)
+    if zero is not None:
+        b, l, _ = got.shape
+        rows = got.float().abs().reshape(b, l, num_heads, -1).amax(-1)
+        if bool((rows[zero.expand(b, l, num_heads)] > 0).any()):
+            return math.inf
+    return worst
+
+
+def plain_grad_chain(tfa, mode: int, q, k, v, mask, rel, dout, num_heads: int = NUM_HEADS,
+                     max_distance: int = 128, out=None):
+    """``(dq, dk, dv)`` by the backward's own algorithm in plain torch, the
+    reference of :func:`grad_row_error` for a gradient taken through the
+    kernels' autograd: P from the plain LSE and delta = rowsum(dO * O) from
+    ``out``, the forward's output that the backward is given (the forward
+    kernel's, in the inputs' dtype; the plain forward's if None), then step
+    by step, key tile by key tile (the long route's plain versions, O(L *
+    64) a head). Autograd of the fp32 plain forward takes delta from the
+    unrounded fp32 output instead, and the forward kernel rounds P to bf16
+    before P V: either moves delta by a fraction of a bf16 step, which moves
+    a dq row that cancels (dS sums to zero over its keys) by 2-5% of itself,
+    in the plain chain as much as in the kernels."""
+    geo = (num_heads, 32, max_distance)
+    if out is None:
+        out = tfa.long_attention_reference(mode, q, k, v, mask, rel, *geo)
+    lse = tfa.long_lse_reference(mode, q, k, mask, rel, *geo)
+    common = (mode, q, k, v, dout, mask, rel, lse, tfa.row_delta(dout, out, num_heads), *geo)
+    dq, _ = tfa.long_backward_dq_reference(*common)
+    dk, dv = tfa.long_backward_dkv_reference(*common)
+    return dq, dk, dv
+
+
+def zero_grad_rows(tfa, mode: int, mask, q):
+    """(dq rows, dk and dv rows) of one attention's gradient that must be
+    exactly zero, bool and broadcastable to ``[B, L, H]``: the queries with
+    no valid key (an encoder row with none, a left-padded scaled causal
+    query) and the masked keys."""
+    import torch
+
+    no_key = ~tfa._valid(mode, mask, q).any(-1)  # [B or 1, 1, Lq]
+    masked = torch.zeros((1, 1, 1), dtype=torch.bool, device=q.device) if mode == tfa.CAUSAL \
+        else (mask == 0)[:, :, None]
+    return no_key.transpose(1, 2), masked
 
 
 def _check_rows(rows: list, what: str) -> None:
@@ -789,8 +897,9 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
     full-row reference's autograd). Ragged masks, a
     fully masked tail tile, an encoder row with no valid key (B >= 3) that
     must get 0 and zero gradients, and a masked key >= 100 above query 0's
-    valid scores. bf16 is also held row by row (:func:`row_error`) and its
-    LSE to 1e-2. A bf16 row is timed with CUDA events beside the plain
+    valid scores. bf16 is also held row by row (:func:`row_error`, and
+    :func:`grad_row_error` for dq, dk, dv) and its LSE to 1e-2. A bf16 row
+    is timed with CUDA events beside the plain
     versions, one ``scaled_dot_product_attention`` call with a dense bias
     mask (its autograd for the backward kernels; none computes the LSE
     alone) and the bounds."""
@@ -815,12 +924,18 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
         base = BF16_REL_TOL if bf16 else (DREL_FP32_TOL if name.startswith("d_rel") else FP32_TOL)
         return base * max(1.0, want.float().abs().max().item()) if bf16 or name != "out" else base
 
-    errs, ok = {}, True
+    errs, grad_rows, ok = {}, {}, True
+    zero_q, zero_k = zero_grad_rows(tfa, mode, mask, q)
 
-    def check(name, got, want):
+    def check(name, got, want, rows_want=None):
         nonlocal ok
         errs[name] = (got.float() - want.float()).abs().max().item()
         ok &= bool(torch.isfinite(got).all()) and errs[name] <= tol(name, want)
+        part = name.split("_")[0]
+        if bf16 and part in ("dq", "dk", "dv"):
+            grad_rows[name] = grad_row_error(got, want if rows_want is None else rows_want,
+                                             NUM_HEADS, zero_q if part == "dq" else zero_k)
+            ok &= grad_rows[name] <= BF16_REL_TOL
 
     out = fn(q, k, v, mask, rel)
     ref = tfa.long_attention_reference(mode, q, k, v, mask, rel, *geo)
@@ -854,8 +969,10 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
     full = leaves + [None] * (4 - len(leaves))
     got = torch.autograd.grad(fn(full[0], full[1], full[2], mask, full[3]), leaves, dout)
     want = _long_backward_plain(tfa, mode, q, k, v, mask, rel, ref, dout)
-    for name, g, w in zip(("dq", "dk", "dv", "d_rel"), got, want):
-        check(f"{name}_e2e", g, w)
+    # The row check's reference takes delta from the kernel's own output.
+    chain = _long_backward_plain(tfa, mode, q, k, v, mask, rel, out, dout) if bf16 else want
+    for name, g, w, c in zip(("dq", "dk", "dv", "d_rel"), got, want, chain):
+        check(f"{name}_e2e", g, w, rows_want=c)
     if mode == tfa.ENCODER and not bf16 and (b, lq) == LONG_PAIR_CHECK:
         # The bias per pair, not per tile: a near/far rule that the plain
         # versions share with the kernels cannot hide here.
@@ -866,11 +983,13 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
                               torch.autograd.grad(pair_out, pair, dout)):
             check(f"{name}_pair", g, w)
         del pair, pair_out
+    del chain
     if empty:
         ok &= out[-1].abs().max().item() == 0.0 and all(
             g[-1].abs().max().item() == 0.0 for g in got[:3])
     row = dict(mode=tfa.KERNEL_NAMES[mode], B=b, Lq=lq, Lk=lk, block_kv=block_kv,
-               dtype=str(dtype).replace("torch.", ""), errs=errs, row_err=row_err, ok=ok)
+               dtype=str(dtype).replace("torch.", ""), errs=errs, row_err=row_err,
+               grad_row_err=grad_rows, ok=ok)
     del got, want, leaves, full
     if not bf16:
         return row
@@ -2117,13 +2236,14 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     or kernel 5's), the dQ and dK/dV kernels alone on the plain LSE (3s/4s,
     or 6/7), and the whole autograd backward through the public function;
     a left-padded row gives 0 and zero gradients. bf16 is also held row by
-    row (:func:`row_error`) and its LSE to 1e-2. A bf16 row is timed
-    beside the plain versions, one ``scaled_dot_product_attention`` call
-    with the causal-and-key boolean mask (its autograd for the backward),
-    the bounds, and that call with ``is_causal=True`` and no mask
-    (``library_causal_ms``: its flash path, which gives the same rows as
-    the kernel where a batch is right-padded, the fine-tuning data module's
-    layout, but not on a left-padded row or a padded query)."""
+    row (:func:`row_error`, and :func:`grad_row_error` for dq, dk, dv) and
+    its LSE to 1e-2. A bf16 row is timed beside the plain versions, one
+    ``scaled_dot_product_attention`` call with the causal-and-key boolean
+    mask (its autograd for the backward), the bounds, and that call with
+    ``is_causal=True`` and no mask (``library_causal_ms``, and its autograd
+    ``library_causal_bwd_ms``: its flash path, which gives the same rows as
+    the kernels where a batch is right-padded, the fine-tuning data
+    module's layout, but not on a left-padded row or a padded query)."""
     import torch
     import torch.nn.functional as F
 
@@ -2133,14 +2253,20 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     route = tfa.LONG if long else tfa.FULL_ROW
     mode = tfa.SCALED_CAUSAL
     bf16 = dtype == torch.bfloat16
-    errs, ok = {}, True
+    errs, grad_rows, ok = {}, {}, True
+    zero_q, zero_k = zero_grad_rows(tfa, mode, mask, q)
 
-    def check(name, got, want, relative=True):
+    def check(name, got, want, relative=True, rows_want=None):
         nonlocal ok
         errs[name] = (got.float() - want.float()).abs().max().item()
         tol = (BF16_REL_TOL if bf16 else FP32_TOL) * (
             max(1.0, want.float().abs().max().item()) if bf16 or relative else 1.0)
         ok &= bool(torch.isfinite(got).all()) and errs[name] <= tol
+        part = name.split("_")[0]
+        if bf16 and part in ("dq", "dk", "dv"):
+            grad_rows[name] = grad_row_error(got, want if rows_want is None else rows_want, h,
+                                             zero_q if part == "dq" else zero_k)
+            ok &= grad_rows[name] <= BF16_REL_TOL
 
     def fn(q_, k_, v_):
         return tfa.scaled_causal_flash_attention(q_, k_, v_, mask, h, scale, block_kv=block_kv)
@@ -2172,15 +2298,20 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(tfa.scaled_causal_attention_reference(*plain, mask, h, scale),
                                plain, dout)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(f"{name}_e2e", g, w)
+    chain = plain_grad_chain(tfa, mode, qs, k, v, mask, None, dout, h,
+                             out=out) if bf16 else (None,) * 3
+    if bf16:  # dq with respect to q, as autograd through scale_queries gives it
+        chain = ((chain[0].float() * scale).to(dtype),) + chain[1:]
+    for name, g, w, c in zip(("dq", "dk", "dv"), got, want, chain):
+        check(f"{name}_e2e", g, w, rows_want=c)
     if left_pad:
         # The padded query rows get 0 and no gradient; the padded keys none.
         ok &= out[-1, :37].abs().max().item() == 0.0 and all(
             g[-1, :37].abs().max().item() == 0.0 for g in got)
     row = dict(B=b, T=t, H=h, d=d, block_kv=block_kv, route="long" if long else "full_row",
-               dtype=str(dtype).replace("torch.", ""), errs=errs, row_err=row_err, ok=ok)
-    del got, want, leaves, plain
+               dtype=str(dtype).replace("torch.", ""), errs=errs, row_err=row_err,
+               grad_row_err=grad_rows, ok=ok)
+    del got, want, leaves, plain, chain
     if not bf16:
         return row
 
@@ -2214,6 +2345,9 @@ def _scaled_row(tfa, b, t, h, d, block_kv, left_pad, dtype, gen, device) -> dict
     dout_l = dout.view(b, t, h, d).transpose(1, 2)
     row["library_bwd_ms"] = _time_ms(
         lambda: torch.autograd.grad(out_l, lib_leaves, dout_l, retain_graph=True), iters)
+    out_c = F.scaled_dot_product_attention(*heads, is_causal=True, scale=scale)
+    row["library_causal_bwd_ms"] = _time_ms(
+        lambda: torch.autograd.grad(out_c, lib_leaves, dout_l, retain_graph=True), iters)
     pairs = int(torch.cumsum(mask.long(), dim=1).sum().item())  # (q, k <= q) with k valid
     for part in ("fwd", "lse", "dq", "dkv"):
         key = "" if part == "fwd" else f"{part}_"

@@ -118,8 +118,6 @@
 
 #include <math.h>
 
-#include <type_traits>
-
 #include "encoder_attn_common.cuh"
 #include "hopper_mma.cuh"
 
@@ -132,12 +130,6 @@ enum Variant : int { FULL = 0, NOBIAS = 1, SHAREDCMP = 2, NOSOFTMAX = 3, MATMULO
 
 constexpr float NEG_INF_BIAS = -1e10f;  // the TPU harness's additive mask
 constexpr float NO_SOFTMAX_SCALE = 1e-4f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <typename T>
-__host__ __device__ constexpr bool on_tensor_cores() {
-  return std::is_same<T, __nv_bfloat16>::value;
-}
 
 // Shared memory of the fp32 body.
 size_t shared_bytes(int nrel, int route, int d) {
@@ -362,40 +354,15 @@ __device__ __forceinline__ void fwd_fma(float* smem, const float* __restrict__ q
 // ----------------------------------------------------------------- bf16 body
 
 // The bias of one (query tile, key tile) pair on the 32 scores a thread
-// holds (rows r0 and r0 + 8 of the tile, columns c0 + 8 j + {0, 1}): a near
-// pair's per-element table entries are added to x here; a far pair (and
-// every SHAREDCMP pair) has one value for all of them, which is returned
-// for the caller to fold into the row max and the exponent (else 0).
+// holds (add_tile_bias); every SHAREDCMP pair adds one value, which is
+// returned for the caller to fold into the row max and the exponent.
 template <int VARIANT>
 __device__ __forceinline__ float add_near_bias(float (&x)[32], const float* bias, int q0, int k0,
                                                int Lq, int Lk, int r0, int c0,
                                                int max_distance) {
   if constexpr (VARIANT == SHAREDCMP) return bias[clamp_rel(k0 - q0, max_distance) + max_distance];
   const int side = tile_side(q0, min(q0 + BQ, Lq) - 1, k0, min(k0 + BK, Lk) - 1, max_distance);
-  // Every k - q of a far pair is at or past max_distance on one side: the
-  // table's saturated end.
-  if (side != NEAR) return bias[side == RIGHT_FAR ? 2 * max_distance : 0];
-  if (k0 - q0 + (BK - 1) <= max_distance && q0 - k0 + (BQ - 1) <= max_distance) {
-    // Every k - q of the pair is inside the table: one base, offsets fixed
-    // at compile time.
-    const float* row = bias + max_distance + (k0 - q0) + c0 - r0;
-#pragma unroll
-    for (int r = 0; r < 32; ++r) x[r] += row[8 * (r / 4) + (r % 2) - 8 * ((r / 2) % 2)];
-  } else {
-#pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      const int rel = k0 + 8 * (r / 4) + c0 + (r % 2) - (q0 + r0 + 8 * ((r / 2) % 2));
-      x[r] += bias[clamp_rel(rel, max_distance) + max_distance];
-    }
-  }
-  return 0.f;
-}
-
-// 2^x on the special-function unit (-inf gives 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+  return add_tile_bias<false>(x, bias, side, q0, k0, r0, c0, max_distance);
 }
 
 template <int MODE, int ROUTE, int D, int VARIANT>
@@ -426,8 +393,7 @@ __device__ __forceinline__ void fwd_wgmma(unsigned char* smem_raw, const CUtenso
   // a path it thinks divergent is serialized (ptxas C7520).
   const int wg = WGS == 1 ? 0 : __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
   const int tid = threadIdx.x % WG_THREADS;
-  unsigned char* qs = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = align_1024(smem_raw);
   unsigned char* k_ring = qs + (1 + wg * RING_TILES) * TILE_BYTES;
   unsigned char* v_ring = k_ring + STAGES * TILE_BYTES;  // not on the LSE sweep
   // Q's barrier, then per warpgroup its K stages' and its V stages'.
@@ -602,14 +568,6 @@ __device__ __forceinline__ void fwd_wgmma(unsigned char* smem_raw, const CUtenso
 #pragma unroll
     for (int row = 0; row < 2; ++row) l[row] = l[row] * scale[row] + psum[row];
   };
-  // P as the A operand of P V: the accumulator layout of a 16-key slice is
-  // the A-register layout, rows r0 and r0 + 8.
-  auto pack_p = [&](const float (&x)[32]) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) pa[kk][t] = pack_bf16(x[8 * kk + 2 * t], x[8 * kk + 2 * t + 1]);
-  };
 
   mbar_wait(q_bar, 0);
   __syncwarp();
@@ -632,7 +590,7 @@ __device__ __forceinline__ void fwd_wgmma(unsigned char* smem_raw, const CUtenso
 #pragma unroll
           for (int r = 0; r < 32; ++r) o[c][r] *= scale[(r / 2) % 2];
       }
-      pack_p(x);
+      pack_a(pa, x);  // P as the A operand of P V
       // The accumulators and P are final before the fence: a register
       // defined inside a product's window serializes every product.
 #pragma unroll

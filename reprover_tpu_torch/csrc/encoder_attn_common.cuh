@@ -1,27 +1,29 @@
 // Tile geometry and helpers shared by the T5 attention kernels
 // (encoder_attn.cu: forward; encoder_attn_bwd.cu: backward).
 //
-// The backward kernels, and the forward on fp32 inputs, run 256 threads as a
-// 16 x 16 grid over a 64 x 64 tile; the thread (ty, tx) owns rows ty*4 ..
-// ty*4+3 and columns tx, tx+16, tx+32, tx+48 of a score tile, and columns
-// tx + 16*j (j < D/16) of a [64][D] output tile, so the 16 threads of one
-// row are one half-warp and row reductions are four xor-shuffles. Their
-// tiles sit in shared memory as fp32 with a padded row stride, so column
-// reads hit 32 different banks, and both products are FMA loops.
+// On fp32 inputs the kernels run 256 threads as a 16 x 16 grid over a
+// 64 x 64 tile; the thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns
+// tx, tx+16, tx+32, tx+48 of a score tile, and columns tx + 16*j (j < D/16)
+// of a [64][D] output tile, so the 16 threads of one row are one half-warp
+// and row reductions are four xor-shuffles. Their tiles sit in shared
+// memory as fp32 with a padded row stride, so column reads hit 32 different
+// banks, and the products are FMA loops.
 //
-// The forward on bf16 inputs (every main path: serving and training run
-// bf16 products) is the Hopper design of encoder_attn.cu instead: a
-// warpgroup of 128 threads per 64-query tile (two, splitting the keys, for
-// the long route's cross-attention), bf16 tiles brought by TMA into
-// 128-byte-swizzled shared memory, both products on the tensor cores
+// On bf16 inputs (every main path: serving and training run bf16
+// products) the forward (encoder_attn.cu) and the backward
+// (encoder_attn_bwd.cu) are Hopper designs instead: a warpgroup of 128
+// threads per 64-row tile (the forward: two, splitting the keys, for the
+// long route's cross-attention), bf16 tiles brought by TMA into
+// 128-byte-swizzled shared memory, every product on the tensor cores
 // (wgmma, hopper_mma.cuh), and the epilogue in the accumulator's layout,
-// where the four threads of a quad share a row.
+// where the four threads of a quad share a row (add_tile_bias below).
 //
 // The head width D is a template parameter: 64 (T5, and every mode), or 128
 // (SCALED_CAUSAL only: LLaMA-7B's 4096 / 32 heads). At D = 128 an fp32 tile
 // is twice the shared memory (the fp32 forward's block 113 KiB, dQ's 146
 // KiB, dK/dV's 162 KiB, one block per SM) and a thread owns twice the
-// output columns; the bf16 forward's block takes 82 KiB.
+// output columns; the bf16 forward's block takes 82 KiB, the bf16
+// backward's 97 KiB.
 //
 // One source serves the three attentions of T5 and the LLaMA-family causal
 // attention, chosen at compile time by a mode (a template parameter; the C
@@ -65,13 +67,16 @@
 // Both routes walk the keys in the same 64-wide tiles; on this card the
 // full-row kernels were already KV-blocked, so the long route differs in
 // what it saves and in the far-tile scalar, not in its memory. (The bf16
-// forward takes a far pair's scalar on the full-row route too: it is the
-// value the table holds at every clamped position of such a pair.)
+// kernels take a far pair's scalar, and bin its dS, on the full-row route
+// too: it is the value the table holds at every clamped position of such a
+// pair.)
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace encoder_attn {
 
@@ -113,6 +118,61 @@ __device__ __forceinline__ int tile_side(int q0, int q_last, int k0, int k_last,
   if (k0 - q_last >= max_distance) return RIGHT_FAR;
   if (q0 - k_last >= max_distance) return LEFT_FAR;
   return NEAR;
+}
+
+__device__ __forceinline__ int clamp_rel(int rel, int max_distance) {
+  return min(max(rel, -max_distance), max_distance);
+}
+
+// The bf16 bodies (forward and backward) run on the tensor cores; fp32 keeps
+// the FMA loops.
+template <typename T>
+__host__ __device__ constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (-inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// k - q of register r of a thread's wgmma accumulator tile (hopper_mma.cuh:
+// rows r0 + 8 ((r / 2) % 2), columns c0 + 8 (r / 4) + r % 2) less its base
+// (below). kKeyRows: the rows are keys and the columns queries (the dK/dV
+// kernel's S^T), else the rows are queries.
+template <bool kKeyRows>
+__host__ __device__ constexpr int rel_offset(int r) {
+  return kKeyRows ? 8 * ((r / 2) % 2) - 8 * (r / 4) - r % 2
+                  : 8 * (r / 4) + r % 2 - 8 * ((r / 2) % 2);
+}
+
+// The bias of one (query tile, key tile) pair, whose tile_side is `side`,
+// on the 32 scores a thread holds in the accumulator layout: a near pair's
+// per-element table entries are added to x here; a far pair has one value
+// for all of them (the table's saturated end), which is returned for the
+// caller to fold in (else 0).
+template <bool kKeyRows>
+__device__ __forceinline__ float add_tile_bias(float (&x)[32], const float* bias, int side,
+                                               int q0, int k0, int r0, int c0,
+                                               int max_distance) {
+  if (side != NEAR) return bias[side == RIGHT_FAR ? 2 * max_distance : 0];
+  const int base = kKeyRows ? k0 + r0 - q0 - c0 : k0 + c0 - q0 - r0;
+  if (k0 - q0 + (BK - 1) <= max_distance && q0 - k0 + (BQ - 1) <= max_distance) {
+    // Every k - q of the pair is inside the table: one base, offsets fixed
+    // at compile time.
+    const float* row = bias + max_distance + base;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) x[r] += row[rel_offset<kKeyRows>(r)];
+  } else {
+#pragma unroll
+    for (int r = 0; r < 32; ++r)
+      x[r] += bias[clamp_rel(base + rel_offset<kKeyRows>(r), max_distance) + max_distance];
+  }
+  return 0.f;
 }
 
 // Entries of the per-head bias table a block keeps in shared memory.
@@ -179,10 +239,6 @@ __device__ __forceinline__ void load_bias(float* bias, const float* __restrict__
                                           const int* __restrict__ bucket_table, int nrel, int H,
                                           int h, int tid, int nthreads = THREADS) {
   for (int r = tid; r < nrel; r += nthreads) bias[r] = rel_bias[bucket_table[r] * H + h];
-}
-
-__device__ __forceinline__ int clamp_rel(int rel, int max_distance) {
-  return min(max(rel, -max_distance), max_distance);
 }
 
 }  // namespace encoder_attn

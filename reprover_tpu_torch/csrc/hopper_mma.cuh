@@ -264,4 +264,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A 64-column tile in the accumulator layout as the A operand of a product
+// over those columns: the accumulator layout of a 16-column slice is the
+// A-register layout, so slice kk is four bf16 pairs (rows r0 and r0 + 8).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) a[kk][t] = pack_bf16(x[8 * kk + 2 * t], x[8 * kk + 2 * t + 1]);
+}
+
+// The first 1024-byte boundary at or after p, where a swizzled tile starts.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
 }  // namespace hopper

@@ -48,12 +48,13 @@ hundred keys on; the plain version's cost is the ``[B, H, Lq, Lk]`` fp32
 tensors it writes and reads back (and, under autograd, keeps). The kernels
 never form them: each block owns a 64-row tile and walks the other side in
 64-wide tiles in shared memory; a causal block stops at its diagonal tile.
-The forward on bf16 inputs runs both products on Hopper's tensor cores
+On bf16 inputs every kernel runs its products on Hopper's tensor cores
 (``wgmma``, tiles copied by TMA, one or two warpgroups per tile), rounding
-P to bf16 before PV as the Pallas kernels do; the forward on fp32 inputs,
-and the backward kernels on both, run fp32 FMA loops (tensor cores for the
-backward are left for a later change). The bf16 forward reads q, k and v through TMA tensor
-maps, so their bases must be 16-byte aligned (:data:`TMA_ALIGN`).
+P (and in the backward dS) to bf16 before the product that takes it, as the
+Pallas kernels do; on fp32 inputs they run fp32 FMA loops. The bf16
+kernels read q, k, v (and the backward dout) through TMA tensor maps, so
+their bases must be 16-byte aligned (:data:`TMA_ALIGN`): the wrappers
+refuse a misaligned q, k or v and copy a misaligned dout.
 
 Choices that differ from the Pallas kernels on purpose:
 
@@ -134,7 +135,7 @@ KERNEL_LAUNCHES: Dict[str, int] = {
 # switch, flash_attention.py:527, :1305, :1675, :1809).
 LONG_CONTEXT = 4096
 TILE = 64  # the kernels' query and key tile
-TMA_ALIGN = 16  # bytes: the bf16 forward's tensor maps need aligned bases
+TMA_ALIGN = 16  # bytes: the bf16 kernels' tensor maps need aligned bases
 
 # The head widths each mode's kernels are compiled for.
 HEAD_DIMS = {ENCODER: (64,), CAUSAL: (64,), CROSS: (64,), SCALED_CAUSAL: (64, 128)}
@@ -607,7 +608,7 @@ def _check_kernel_inputs(
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        # The bf16 forward copies its tiles by TMA, which reads from 16-byte
+        # The bf16 kernels copy their tiles by TMA, which reads from 16-byte
         # aligned bases only (a view at an odd offset of a larger tensor).
         if t.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
             raise ValueError(f"{name}: bf16 {arg} must start on a {TMA_ALIGN}-byte boundary, "
@@ -618,6 +619,16 @@ def _check_kernel_inputs(
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _kernel_dout(dout: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``dout`` as the backward kernels take it: contiguous, in the inputs'
+    dtype, and at a 16-byte aligned base. The caller's gradient may be a
+    view at any offset (a slice of a larger gradient); the bf16 kernels read
+    it through a TMA tensor map, which needs an aligned base, so a
+    misaligned one is copied."""
+    dout = dout.to(dtype).contiguous()
+    return dout.clone() if dout.data_ptr() % TMA_ALIGN else dout
 
 
 def _raise_on_error(lib: Any, err: int, name: str) -> None:
@@ -745,7 +756,7 @@ def _backward_kernels(
         raise ValueError(f"{name} backward: out and dout must be shaped like q")
     if tuple(lse.shape) != (b, num_heads, lq) or lse.dtype != torch.float32:
         raise ValueError(f"{name} backward: lse must be fp32 [{b}, {num_heads}, {lq}]")
-    dout = dout.to(q.dtype).contiguous()
+    dout = _kernel_dout(dout, q.dtype)
     lse = lse.contiguous()
     mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
     delta = row_delta(dout, out, num_heads)
@@ -1103,7 +1114,7 @@ def long_attention_backward(
     forward saves none), ``delta = rowsum(dO * O)`` in plain torch, kernel 6
     gives dq and the bias-gradient bins, kernel 7 dk and dv. CPU tensors run
     each kernel's plain version; CUDA tensors the kernels, or an error."""
-    dout = dout.to(q.dtype).contiguous()
+    dout = _kernel_dout(dout, q.dtype)
     if _on_cpu(q, k, v, mask, rel_bias, out, dout):
         table = bucket_table(num_buckets, max_distance, q.device,
                              mode == ENCODER) if has_bias(mode) else None

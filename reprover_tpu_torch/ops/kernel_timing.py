@@ -18,7 +18,10 @@ of ``[B, T]`` queries over ``[B, S]`` keys), forward and autograd backward
 through ``causal_flash_attention`` and ``cross_flash_attention``. ``--long BxL`` adds the long route's kernels 2, 5, 6 and 7
 (a checkout that has ``long_attention_backward``): the encoder at
 ``[B, L]`` and the cross-attention of ``[B, 512]`` queries (the
-generator's target cap) over it. Run the checkouts in turns (parent, change, change, parent), each
+generator's target cap) over it. ``--scaled BxTxHxD`` adds the LLaMA family's scaled
+causal kernels 1s/3s/4s (a checkout that has ``scaled_causal_flash_attention``),
+forward and autograd backward at ``[B, T]`` with H heads of width D and
+right-padded key masks, the fine-tuning data module's layout. Run the checkouts in turns (parent, change, change, parent), each
 in its own process, on one card: times from two cards do not compare.
 """
 
@@ -152,7 +155,8 @@ def time_long(tfa: object, b: int, length: int, queries: int, iters: int,
               seed: int) -> List[Dict[str, float]]:
     """Per-launch ms of the long route's kernels at ``[b, length]`` bf16:
     the encoder's (kernels 2, 5, 6, 7 with the relative-position bias), and
-    the cross-attention's of ``[b, queries]`` over ``[b, length]``."""
+    the cross-attention's of ``[b, queries]`` over ``[b, length]``; and the
+    forward alone by CUDA events (``fwd_event_ms``)."""
     import torch
 
     heads, inner = 6, 384
@@ -175,10 +179,44 @@ def time_long(tfa: object, b: int, length: int, queries: int, iters: int,
             tfa.long_attention_backward(mode, q, k, v, mask, bias, out, dout, heads)
 
         step()
-        row = {"mode": tfa.KERNEL_NAMES[mode], "B": b, "Lq": lq, "Lk": length}
+        torch.cuda.synchronize()
+        # The forward alone, by CUDA events (in the profiled steps it starts
+        # from the cache state the backward leaves).
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            tfa.long_attention_forward(mode, q, k, v, mask, bias, heads)
+        end.record()
+        torch.cuda.synchronize()
+        row = {"mode": tfa.KERNEL_NAMES[mode], "B": b, "Lq": lq, "Lk": length,
+               "fwd_event_ms": start.elapsed_time(end) / iters}
         row.update(_device_ms(step, iters))
         rows.append(row)
     return rows
+
+
+def time_scaled(tfa: object, b: int, t: int, heads: int, d: int, iters: int,
+                seed: int) -> Dict[str, float]:
+    """Per-launch ms of the scaled causal kernels at ``[b, t]``, ``heads`` x
+    ``d``, bf16: forward and autograd backward through
+    ``scaled_causal_flash_attention`` with right-padded key masks."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout = (torch.randn((b, t, heads * d), generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device="cuda")
+    lengths[0] = t
+    mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+
+    def step() -> None:
+        out = tfa.scaled_causal_flash_attention(*leaves, mask, heads, d ** -0.5)
+        torch.autograd.grad(out, leaves, dout)
+
+    step()
+    torch.cuda.synchronize()
+    return _device_ms(step, iters)
 
 
 def main(argv: List[str] | None = None) -> None:
@@ -189,6 +227,8 @@ def main(argv: List[str] | None = None) -> None:
                         help="comma-separated BxL")
     parser.add_argument("--decoder", default="", help="BxTxS of the decoder rows, e.g. 8x512x2304")
     parser.add_argument("--long", default="", help="BxL of the long-route rows, e.g. 4x8192")
+    parser.add_argument("--scaled", default="",
+                        help="comma-separated BxTxHxD of the scaled causal rows, e.g. 4x2048x32x128")
     parser.add_argument("--iters", type=int, default=20)
     args = parser.parse_args(argv)
 
@@ -213,6 +253,12 @@ def main(argv: List[str] | None = None) -> None:
         b, t, s = (int(x) for x in args.decoder.split("x"))
         row = {"label": args.label, "card": card, "B": b, "T": t, "S": s, "dtype": "bfloat16"}
         row.update(time_decoder(tfa, b, t, s, args.iters, seed=len(shapes)))
+        print(json.dumps(row), flush=True)
+    for spec in filter(None, args.scaled.split(",")):
+        b, t, heads, d = (int(x) for x in spec.split("x"))
+        row = {"label": args.label, "card": card, "B": b, "T": t, "H": heads, "d": d,
+               "dtype": "bfloat16"}
+        row.update(time_scaled(tfa, b, t, heads, d, args.iters, seed=len(shapes)))
         print(json.dumps(row), flush=True)
     if args.long:
         b, length = (int(x) for x in args.long.split("x"))

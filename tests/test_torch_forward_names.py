@@ -1,9 +1,10 @@
-"""The attention forward's names, build records and checks on the CPU.
+"""The attention kernels' names, build records and checks on the CPU.
 
-The forward kernel has two bodies (bf16 on the tensor cores, fp32 FMA loops)
-under one name, ``attn_fwd_kernel<T, mode, route, D, variant>``, so that a
-profile of this version and of the versions before it map to the same
-launch counts (``flash_attention.launch_key``) and timing kinds
+Each attention kernel has two bodies (bf16 on the tensor cores, fp32 FMA
+loops) under one name, ``attn_fwd_kernel<T, mode, route, D, variant>``,
+``attn_bwd_dq_kernel<T, mode, route, D>`` and ``attn_bwd_dkv_kernel<...>``,
+so that a profile of this version and of the versions before it map to the
+same launch counts (``flash_attention.launch_key``) and timing kinds
 (``kernel_timing._kernel_kind``). ``chip_smoke.py`` reads the build's
 ``-Xptxas -v`` log and the library's ``cuobjdump -sass`` listing to show
 which units each instantiation runs on; the parsers are checked here on
@@ -211,3 +212,94 @@ def test_row_error_of_rows_with_no_valid_key():
     assert chip_smoke.row_error(got, want, 2) == 0.0
     got[1, 2, 3] = 1e-6
     assert chip_smoke.row_error(got, want, 2) == float("inf")
+
+
+# The backward kernels: attn_bwd_dq_kernel<T, mode, route, D> and
+# attn_bwd_dkv_kernel<...>, each with both bodies under one name, on the
+# full-row and the long route.
+BWD_INSTANCES = [(mode, route, d) for mode in tfa.KERNEL_NAMES
+                 for route in (tfa.FULL_ROW, tfa.LONG) for d in tfa.HEAD_DIMS[mode]]
+BWD_ARGS = ("const*, {t} const*, {t} const*, {t} const*, int const*, float const*, int const*, "
+            "float const*, float const*, {t}*, {out}, int, int, int, int)")
+
+
+def _bwd_names(part: str, mode: int, route: int, d: int) -> dict:
+    """Profiled names of one backward instantiation: the parent version's
+    (no tensor maps), this version's bf16 and fp32, and the mangled form."""
+    args = f"{mode}, {route}, {d}"
+    out = "float*" if part == "dq" else "{t}*"
+
+    def full(t: str, maps: bool) -> str:
+        return (f"void (anonymous namespace)::attn_bwd_{part}_kernel<{t}, {args}>("
+                + (MAPS + "CUtensorMap_st, " if maps else "") + t + " "
+                + BWD_ARGS.format(t=t, out=out.format(t=t)))
+
+    n = len(f"attn_bwd_{part}_kernel")
+    return {
+        "parent_bf16": full("__nv_bfloat16", False),
+        "bf16": full("__nv_bfloat16", True),
+        "fp32": full("float", True),
+        "mangled": f"_ZN12_GLOBAL__N_1{n}attn_bwd_{part}_kernelI13__nv_bfloat16Li{mode}ELi{route}"
+                   f"ELi{d}EEEv14CUtensorMap_stS1_S1_S1_PKT_",
+    }
+
+
+@pytest.mark.parametrize("part", ["dq", "dkv"])
+@pytest.mark.parametrize("mode, route, d", BWD_INSTANCES)
+def test_backward_names_map_to_one_launch_key_and_kind(part, mode, route, d):
+    """Both bodies of a backward kernel, and the parent version's, count
+    under one launch key and time as one kind."""
+    want_key = f"{tfa.KERNEL_NAMES[mode]}{tfa.ROUTE_SUFFIX[route]}_bwd_{part}"
+    want_kind = MODE_PREFIX[mode] + ("" if route == tfa.FULL_ROW else "long_") + part
+    for form, name in _bwd_names(part, mode, route, d).items():
+        assert tfa.launch_key(name) == want_key, form
+        assert chip_smoke._attn_instance(name, f"bwd_{part}")[1] == f"{mode}/{route}/{d}/0", form
+        if form != "mangled":
+            assert kernel_timing._kernel_kind(name) == want_kind, form
+    assert want_key in tfa.KERNEL_LAUNCHES
+
+
+def test_backward_instances_in_the_build():
+    """The smoke's count of each backward kernel's instantiations: every
+    (mode, head width) on the full-row and the long route."""
+    assert chip_smoke.BWD_INSTANCES == len(BWD_INSTANCES) == 10
+    assert chip_smoke.ATTN_PARTS == {"fwd": 19, "bwd_dq": 10, "bwd_dkv": 10}
+
+
+@pytest.mark.parametrize("mangled, part, want", [
+    ("_ZN12_GLOBAL__N_118attn_bwd_dq_kernelI13__nv_bfloat16Li0ELi1ELi64EEEv14CUtensorMap_st",
+     "bwd_dq", ("bf16", "0/1/64/0")),
+    ("_ZN12_GLOBAL__N_119attn_bwd_dkv_kernelIfLi3ELi0ELi128EEEv14CUtensorMap_stS1_",
+     "bwd_dkv", ("fp32", "3/0/128/0")),
+    ("_ZN12_GLOBAL__N_119attn_bwd_dkv_kernelIfLi3ELi0ELi128EEEv14CUtensorMap_stS1_",
+     "bwd_dq", None),
+    ("_ZN12_GLOBAL__N_115attn_fwd_kernelI13__nv_bfloat16Li3ELi2ELi128ELi0EEEv14CUtensorMap_st",
+     "bwd_dkv", None),
+])
+def test_backward_instance_of_a_mangled_name(mangled, part, want):
+    assert chip_smoke._attn_instance(mangled, part) == want
+
+
+BWD_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_119attn_bwd_dkv_kernelI13__nv_bfloat16Li3ELi0ELi128EEEv14CUtensorMap_stS1_S1_S1_PKT_
+        /*0490*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*04a0*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*04b0*/                   HGMMA.64x64x16.F32.BF16 R88, R8, gdesc[UR12], R88, gsb0 ;
+        /*04c0*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\tFunction : _ZN12_GLOBAL__N_118attn_bwd_dq_kernelIfLi1ELi1ELi64EEEv14CUtensorMap_stS1_S1_S1_PKT_
+        /*0490*/                   FFMA R1, R2, R3, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_115attn_fwd_kernelI13__nv_bfloat16Li2ELi1ELi64ELi0EEEv14CUtensorMap_st
+        /*0490*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+"""
+
+
+def test_sass_counts_tensor_core_ops_per_backward_instance():
+    """Each backward kernel's instantiations are counted on their own; the
+    forward's default reading is unchanged."""
+    assert chip_smoke.sass_mma_counts(BWD_SASS, "bwd_dkv") == {
+        ("bf16", "3/0/128/0"): {"HGMMA": 3, "HMMA": 0, "DEPBAR": 1}}
+    assert chip_smoke.sass_mma_counts(BWD_SASS, "bwd_dq") == {
+        ("fp32", "1/1/64/0"): {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}}
+    assert chip_smoke.sass_mma_counts(BWD_SASS) == {
+        ("bf16", "2/1/64/0"): {"HGMMA": 1, "HMMA": 0, "DEPBAR": 0}}

@@ -4,13 +4,17 @@ head width 64 and 128, and kernel 1's ablation variants; forward and
 backward; the full-row and the long route) against their plain versions,
 and the encoder, the teacher-forced decoder and the decoder-only loss
 through the kernels against the CPU, forward and gradients; the forward's
-edges (lengths around the 64-row tile, ragged key lengths, rows with no
-valid key, every mode on every route, a misaligned bf16 operand). These
-tests need a CUDA card and skip elsewhere. The file imports no JAX, so it
-also runs on a machine without it:
+and the backward's edges (lengths around the 64-row tile, ragged key
+lengths, rows with no valid key, every mode on every route, a misaligned
+bf16 operand, a misaligned output gradient). bf16 gradients are also held
+row by row (``chip_smoke.grad_row_error``). These tests need a CUDA card and
+skip elsewhere. The file imports no JAX, so it also runs on a machine
+without it:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -90,6 +94,8 @@ def test_backward_kernels_match_plain(cuda_device, dtype, b, L, max_distance):
         scale = max(1.0, w.float().abs().max().item())
         err = (g.float() - w.float()).abs().max().item()
         assert err <= tol * scale, (name, err, scale)
+    _check_grad_rows(got, _chain(dtype, tfa.ENCODER, q, k, v, mask, rel, dout, out,
+                                 max_distance=max_distance), dtype, tfa.ENCODER, mask, q)
     if b > 1:
         for g in got[:3]:
             assert g[-1].abs().max().item() == 0.0
@@ -198,6 +204,35 @@ def _check_grads(got, want, dtype):
         assert torch.isfinite(g).all() and err <= tol * scale, (i, err, scale)
 
 
+def _check_grad_rows(got, want, dtype, mode, mask, q, heads=HEADS):
+    """bf16 dq, dk, dv (the first three of ``got``) also row by row against
+    ``want``, the backward's algorithm in plain torch (``_chain``, or the
+    step-by-step plain versions): each (batch row, position, head) within
+    2e-2 of its own max|ref| plus 2e-3 x max(1, max|ref|), the rows of
+    queries with no valid key and of masked keys exactly zero
+    (``chip_smoke.grad_row_error``). Returns the largest reading (0 for
+    fp32, which the limits above already hold to 1e-4)."""
+    if dtype != torch.bfloat16:
+        return 0.0
+    zero_q, zero_k = chip_smoke.zero_grad_rows(tfa, mode, mask, q)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got[:3], want[:3])):
+        ratio = chip_smoke.grad_row_error(g, w, heads, zero_q if i == 0 else zero_k)
+        assert ratio <= chip_smoke.BF16_REL_TOL, (("dq", "dk", "dv")[i], ratio)
+        worst = max(worst, ratio)
+    return worst
+
+
+def _chain(dtype, mode, q, k, v, mask, rel, dout, out, heads=HEADS, max_distance=128):
+    """``chip_smoke.plain_grad_chain`` for bf16 (None for fp32, which has no
+    row check): the reference of a gradient taken through the kernels'
+    autograd, delta from ``out``, the forward kernel's output."""
+    if dtype != torch.bfloat16:
+        return None
+    return chip_smoke.plain_grad_chain(tfa, mode, q, k, v, mask, rel, dout, heads, max_distance,
+                                       out.detach())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b, t, max_distance", [(2, 200, 128), (1, 64, 128), (3, 7, 128),
@@ -220,8 +255,10 @@ def test_causal_kernels_match_plain(cuda_device, dtype, b, t, max_distance):
     tol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol
     _check_grads(got, want, dtype)
-
     ones = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    _check_grad_rows(got, _chain(dtype, tfa.CAUSAL, q, k, v, ones, rel, dout, out,
+                                 max_distance=max_distance), dtype, tfa.CAUSAL, ones, q)
+
     mask32, rel32, table = tfa._kernel_operands(tfa.CAUSAL, ones, rel, 32, max_distance)
     _, lse = tfa._forward_cuda(tfa.CAUSAL, q, k, v, mask32, rel32, table, HEADS, max_distance,
                                True)
@@ -254,6 +291,8 @@ def test_cross_kernels_match_plain(cuda_device, dtype, b, t, s):
     tol = 1e-4 if dtype == torch.float32 else 2e-2 * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol
     _check_grads(got, want, dtype)
+    _check_grad_rows(got, _chain(dtype, tfa.CROSS, q, k, v, mask, None, dout, out), dtype,
+                     tfa.CROSS, mask, q)
     if b > 2:
         assert out[-1].abs().max().item() == 0.0
         for g in got:
@@ -366,6 +405,8 @@ def test_long_kernels_match_plain(cuda_device, dtype, mode, b, t, s, max_distanc
                                             max_distance=max_distance)
     assert (out.float() - long_ref.float()).abs().max().item() <= tol
     _check_grads(got, want, dtype)
+    _check_grad_rows(got, _chain(dtype, mode, q, k, v, mask, rel, dout, out,
+                                 max_distance=max_distance), dtype, mode, mask, q)
     if mode != tfa.CAUSAL and b > 2:
         assert out[-1].abs().max().item() == 0.0
         for g in got[:3]:
@@ -513,6 +554,11 @@ def test_scaled_causal_kernels_match_plain(cuda_device, dtype, b, t, h, d, block
     for g, w in [(out, ref)] + list(zip(got, want)):
         tol = (2e-2 if bf16 else 1e-4) * max(1.0, w.float().abs().max().item())
         assert (g.float() - w.float()).abs().max().item() <= tol
+    chain = _chain(dtype, tfa.SCALED_CAUSAL, tfa.scale_queries(q, d ** -0.5), k, v, mask, None,
+                   dout, out, h)
+    if chain is not None:  # dq with respect to q, as autograd through scale_queries gives it
+        chain = ((chain[0].float() * d ** -0.5).to(dtype),) + chain[1:]
+    _check_grad_rows(got, chain, dtype, tfa.SCALED_CAUSAL, mask, q, h)
     if t // 4:
         assert out[-1, : t // 4].abs().max().item() == 0.0
         assert all(g[-1, : t // 4].abs().max().item() == 0.0 for g in got)
@@ -675,3 +721,85 @@ def test_misaligned_bf16_operand_raises(cuda_device):
     out = tfa.encoder_flash_attention(q, k, v, mask, rel, num_heads=HEADS)  # aligned: runs
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", [tfa.FULL_ROW, tfa.LONG])
+@pytest.mark.parametrize("mode, b, t, s, d, max_distance", FORWARD_EDGES)
+def test_backward_edges_match_plain(cuda_device, dtype, route, mode, b, t, s, d, max_distance):
+    """One dQ and one dK/dV launch (kernels 3, 4 and their causal, cross
+    and scaled forms on the full-row route, 6 and 7 on the long one) on the
+    plain LSE and delta, against the plain step-by-step backward: dq, dk, dv
+    within 1e-4 (fp32) or 2e-2 of max(1, max|ref|) (bf16, and row by row,
+    ``chip_smoke.grad_row_error``), d_rel within 1e-3 (fp32) or 2e-2 of
+    max(1, max|ref|); the rows of queries with no valid key (a batch row
+    with none, three left-padded scaled causal queries) and of masked keys
+    exactly zero; each launch counted under its own name. Prints the row
+    check's reading as a ``[bwd_edge]`` line."""
+    q, k, v, mask, rel, heads = _edge_case(cuda_device, dtype, mode, b, t, s, d, t * 7 + s + 1)
+    if mode == tfa.SCALED_CAUSAL and t > 3:
+        mask[0, :3] = 0
+    rng = np.random.default_rng(t + s)
+    dout = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(cuda_device, dtype)
+    md = max_distance or 128
+    lse = tfa.long_lse_reference(mode, q, k, mask, rel, heads, max_distance=md)
+    out = tfa.long_attention_reference(mode, q, k, v, mask, rel, heads, max_distance=md)
+    delta = tfa.row_delta(dout, out, heads)
+    plain = (mode, q, k, v, dout, mask, rel, lse, delta, heads, 32, md)
+    dq_ref, bins_ref = tfa.long_backward_dq_reference(*plain)
+    dk_ref, dv_ref = tfa.long_backward_dkv_reference(*plain)
+
+    mask32, rel32, table = tfa._kernel_operands(mode, mask, rel, 32, max_distance)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    bins = None
+    if tfa.has_bias(mode):
+        bins = torch.zeros((heads, 2 * max_distance + 1), dtype=torch.float32, device=cuda_device)
+    names = [f"{tfa.KERNEL_NAMES[mode]}{tfa.ROUTE_SUFFIX[route]}_bwd_{part}" for part in
+             ("dq", "dkv")]
+    before = dict(tfa.KERNEL_LAUNCHES)
+    common = (q, k, v, dout, mask32, rel32, table, lse, delta)
+    tfa._backward_cuda(mode, "dq", *common, dq, bins, heads, max_distance, route)
+    tfa._backward_cuda(mode, "dkv", *common, dk, dv, heads, max_distance, route)
+    torch.cuda.synchronize()
+    for name in tfa.KERNEL_LAUNCHES:
+        assert tfa.KERNEL_LAUNCHES[name] == before[name] + (name in names), name
+
+    got, want = [dq, dk, dv], [dq_ref, dk_ref, dv_ref]
+    if bins is not None:
+        got.append(tfa.fold_rel_bins(bins, table, 32))
+        want.append(tfa.fold_rel_bins(bins_ref, table, 32))
+    _check_grads(got, want, dtype)
+    ratio = _check_grad_rows(got, want, dtype, mode, mask, q, heads)
+    zero_q, zero_k = chip_smoke.zero_grad_rows(tfa, mode, mask, q)
+    for g, zero in ((dq, zero_q), (dk, zero_k), (dv, zero_k)):
+        rows = g.float().abs().reshape(g.shape[0], g.shape[1], heads, -1).amax(-1)
+        assert rows[zero.expand(g.shape[0], g.shape[1], heads)].sum().item() == 0.0
+    print("[bwd_edge] " + json.dumps({
+        "mode": tfa.KERNEL_NAMES[mode], "route": route, "B": b, "Lq": t, "Lk": s, "d": d,
+        "dtype": str(dtype).replace("torch.", ""), "grad_row_err": ratio}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_kv", [0, 64])
+def test_misaligned_dout_gives_plain_gradients(cuda_device, block_kv):
+    """An output gradient that is a view one element into a larger tensor
+    (not 16-byte aligned, so no TMA tensor map can read it): the backward
+    copies it and gives the plain version's gradients, on the full-row and
+    the long route."""
+    q, k, v, mask, rel = _case(cuda_device, torch.bfloat16, 2, 200, 5)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    dout = flat[1:].view(q.shape)
+    dout.copy_(torch.randn(q.shape, device=cuda_device).to(q.dtype))
+    assert dout.is_contiguous() and dout.data_ptr() % tfa.TMA_ALIGN
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
+    out = tfa.encoder_flash_attention(*leaves[:3], mask, leaves[3], num_heads=HEADS,
+                                      block_kv=block_kv)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rel)]
+    ref = tfa.encoder_attention_reference(*ref_leaves[:3], mask, ref_leaves[3], num_heads=HEADS)
+    want = torch.autograd.grad(ref, ref_leaves, dout)
+    torch.cuda.synchronize()
+    _check_grads(got, want, torch.bfloat16)
+    _check_grad_rows(got, _chain(torch.bfloat16, tfa.ENCODER, q, k, v, mask, rel, dout, out),
+                     torch.bfloat16, tfa.ENCODER, mask, q)
