@@ -7,12 +7,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: compiles the port's CUDA kernels from ``reprover_tpu_torch/csrc``
-   (each attention forward, dQ and dK/dV instantiation's registers, stack
-   and spills from ``-Xptxas -v`` on ``[build]`` lines; a bf16 backward
-   instantiation that spills fails), then reads the library's machine
+   (each attention forward, dQ and dK/dV instantiation's and each
+   quantized-product body's registers, stack and spills from ``-Xptxas
+   -v`` on ``[build]`` lines; a bf16 backward instantiation or a decode or
+   admission body that spills fails), then reads the library's machine
    code (``cuobjdump -sass``, ``[sass]``): every bf16 forward, dQ and
-   dK/dV instantiation must hold HGMMA (tensor-core) instructions with
-   fewer waits than HGMMAs (not serialized) and every fp32 one none;
+   dK/dV instantiation and every decode and admission body of kernels
+   11/12 must hold HGMMA (tensor-core) instructions with fewer waits than
+   HGMMAs (not serialized) and every fp32 attention one none;
 3. kernel vs plain: ``encoder_flash_attention`` against
    ``encoder_attention_reference`` on the card at byt5-small attention
    shapes (H=6, d=64), ragged masks, a masked key >= 100 above its row's
@@ -78,10 +80,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     and LLaMA-7B engine caches (full and short ``T_live``, a frozen slot),
     bit-equal to its plain version; the w8a16 and w4a16 kernels at every
     routed LLaMA-7B weight shape at decode (M = 32) and admission rows,
-    bf16 within 2e-2 * max(1, max|ref|); times from CUDA events beside the
-    bound, the plain version and a library yardstick (``index_select`` +
-    the column write; dequantize + ``torch.matmul``), and the engine's
-    einsum and scan reorders;
+    bf16 within 2e-2 * max(1, max|ref|), every output row within 2e-2 of
+    its own max|ref|, two launches bit-equal, each on a tensor-core body;
+    times from CUDA events around host-paced calls (and the products'
+    device time, queued behind a device sleep) beside the bound, the plain
+    version and a library
+    yardstick (``index_select`` + the column write; dequantize +
+    ``torch.matmul``), PyTorch's ``_weight_int4pack_mm`` /
+    ``_weight_int8pack_mm`` as readings, and the engine's einsum and scan
+    reorders;
 13. byt5-small streaming: the phase-4 benchmark and settings through
     ``StreamingInferenceService`` (the ``evaluate --streaming`` flags, the
     beam reorder by the kernel) to two prover workers, the engine's ms/step
@@ -91,8 +98,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     on the card one layer at a time and quantized to int4, a BPE tokenizer
     trained on the synthetic corpus, the streaming service (4 slots x 8
     beams, prompts 512, decode 129) answering two client threads, timed and
-    profiled engine chunks, where each weight routes, weight bytes and peak
-    memory; then the same weights in int8 through one admission wave;
+    profiled engine chunks (kernel 12's device ms per step), where each
+    weight routes, weight bytes and peak memory; then the same weights in
+    int8 through one admission wave; every quantized product on a
+    tensor-core body;
 15. long-route kernels vs plain: kernels 2, 5, 6 and 7 (the KV-blocked
     long-context route past 4096, or with ``block_kv``) in the three modes,
     fp32 and bf16, at encoder [4, 8192], [2, 4608] and a ragged [3, 4141],
@@ -159,8 +168,9 @@ generator training and decoder-only fine-tuning (the causal and scaled
 causal long-route kernels run in phases 15 and 19 only: no path's sequence
 passes 4096), kernel 14's in its sweep; and their times, bounds and
 library times at the generator-training shapes, the LLaMA-7B decode shapes
-for the serving kernels, [4, 8192] for the long route, [4, 2048] x 32 x
-128 for the scaled causal kernels and [64, 1024] for kernel 14); the last
+for the serving kernels (kernels 11/12 also at the admission rows,
+``admission_*``), [4, 8192] for the long route, [4, 2048] x 32 x 128 for
+the scaled causal kernels and [64, 1024] for kernel 14); the last
 line is ``{"ok": true, "device": {...}}``. Without a card the script exits
 2 and prints no result.
 
@@ -264,6 +274,10 @@ LONG_GEN_KERNELS = [a + p for a in ("encoder_attn", "cross_attn") for p in LONG_
 FWD_INSTANCES = 3 * 5 + 4
 BWD_INSTANCES = 2 * 5
 ATTN_PARTS = {"fwd": FWD_INSTANCES, "bwd_dq": BWD_INSTANCES, "bwd_dkv": BWD_INSTANCES}
+# Instantiations of the quantized products' tensor-core bodies: decode at
+# bits 8 and 4 x 32 and 64 rows, admission at bits 8 and 4 (the simple
+# body's two keep nvcuda::wmma).
+QUANT_TMA_INSTANCES = 2 * 2 + 2
 
 # The card's published peaks (H100 SXM): the bound of a kernel is the larger
 # of its operations over the bf16 tensor-core rate and its bytes over the
@@ -347,47 +361,73 @@ def _fwd_instance(name: str):
     return _attn_instance(name, "fwd")
 
 
+def _quant_instance(name: str):
+    """("bf16", "body/bits/rows") of an instantiation of the quantized-product
+    kernels (body decode, admission or simple) from its name, or None."""
+    from reprover_tpu_torch.ops.quant_matmul import kernel_instance
+
+    inst = kernel_instance(name)
+    return None if inst is None else ("bf16", "/".join(str(x) for x in inst))
+
+
+def _instance(name: str, part: str):
+    """:func:`_quant_instance` for part "quant", else :func:`_attn_instance`."""
+    return _quant_instance(name) if part == "quant" else _attn_instance(name, part)
+
+
+def _spills(props: dict) -> int:
+    return props.get("spill_stores", 0) + props.get("spill_loads", 0)
+
+
 def phase_build() -> None:
     """Builds the kernels; logs each attention instantiation's registers,
-    stack and spills from ``-Xptxas -v`` (forward, dQ, dK/dV), and the
-    assembler's warnings and serialization notes; raises if a bf16 backward
-    instantiation spills."""
+    stack and spills from ``-Xptxas -v`` (forward, dQ, dK/dV) and each
+    quantized-product body's, and the assembler's warnings and
+    serialization notes; raises if a bf16 backward instantiation or a
+    tensor-core body of the quantized products spills."""
     from reprover_tpu_torch.ops.native import BuildInfo, load_library
 
     load_library()
     log(f"[build] {'built' if BuildInfo.built else 'reused'} {BuildInfo.path} "
         f"in {BuildInfo.seconds:.2f}s")
-    by_part: dict = {part: {} for part in ATTN_PARTS}
+    parts = list(ATTN_PARTS) + ["quant"]
+    by_part: dict = {part: {} for part in parts}
     for name, props in ptxas_report(BuildInfo.log).items():
-        inst = next(((part, i) for part in ATTN_PARTS
-                     if (i := _attn_instance(name, part)) is not None), None)
+        inst = next(((part, i) for part in parts
+                     if (i := _instance(name, part)) is not None), None)
         if inst is not None:
             by_part[inst[0]][f"{inst[1][0]} {inst[1][1]}"] = props
         elif props:
             log(f"[build] {name} {json.dumps(props)}")
     for part, props in by_part.items():
-        log(f"[build] attn_{part}_kernel (T mode/route/D/variant) {json.dumps(props)}")
+        what = "quant kernels (T body/bits/rows)" if part == "quant" else \
+            f"attn_{part}_kernel (T mode/route/D/variant)"
+        log(f"[build] {what} {json.dumps(props)}")
     for line in BuildInfo.log.splitlines():
         if "warning" in line.lower() or "Performance Loss" in line:
             log(f"[build] {line.strip()}")
     spilled = [f"{part} {key}" for part in ("bwd_dq", "bwd_dkv")
-               for key, p in by_part[part].items()
-               if key.startswith("bf16") and p.get("spill_stores", 0) + p.get("spill_loads", 0)]
+               for key, p in by_part[part].items() if key.startswith("bf16") and _spills(p)]
+    spilled += [f"quant {key}" for key, p in by_part["quant"].items()
+                 if "simple" not in key and _spills(p)]
     if spilled:
-        raise AssertionError(f"bf16 backward instantiations spill registers: {spilled}")
+        raise AssertionError(f"bf16 backward or quantized-product instantiations spill "
+                             f"registers: {spilled}")
 
 
 def sass_mma_counts(sass: str, part: str = "fwd") -> dict:
     """``{(T, "mode/route/D/variant"): {"HGMMA": n, "HMMA": n, "DEPBAR": n}}``
     for every instantiation of one attention kernel (``part`` "fwd",
-    "bwd_dq" or "bwd_dkv") in ``cuobjdump -sass`` output: its tensor-core
-    instructions and its waits on them (one per product when the products
-    are pipelined, one per HGMMA when the assembler serialized them)."""
+    "bwd_dq" or "bwd_dkv"; with ``part`` "quant", ``{("bf16",
+    "body/bits/rows"): ...}`` of the quantized products) in ``cuobjdump
+    -sass`` output: its tensor-core instructions and its waits on them (one
+    per batch of products when they are pipelined, one per HGMMA when the
+    assembler serialized them)."""
     counts: dict = {}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = _attn_instance(line.split("Function :", 1)[1].strip(), part)
+            current = _instance(line.split("Function :", 1)[1].strip(), part)
             if current is not None:
                 counts[current] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}
         elif current is not None:
@@ -402,10 +442,11 @@ def sass_mma_counts(sass: str, part: str = "fwd") -> dict:
 def phase_sass() -> dict:
     """Phase 2's second half: the built library's machine code
     (``cuobjdump -sass``) shows that every bf16 instantiation of the
-    attention forward, dQ and dK/dV kernels runs its products on the tensor
-    cores (HGMMA, Hopper's warpgroup MMA), unserialized (fewer waits than
-    HGMMAs), and every fp32 one keeps the FMA body (no HGMMA, no HMMA);
-    raises otherwise, or if an instantiation is missing."""
+    attention forward, dQ and dK/dV kernels and every decode and admission
+    body of the quantized products runs its products on the tensor cores
+    (HGMMA, Hopper's warpgroup MMA), unserialized (fewer waits than
+    HGMMAs), and every fp32 attention instantiation keeps the FMA body (no
+    HGMMA, no HMMA); raises otherwise, or if an instantiation is missing."""
     from reprover_tpu_torch.ops.native import BuildInfo, cuda_tool
 
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", BuildInfo.path],
@@ -426,8 +467,19 @@ def phase_sass() -> dict:
                           f"{len(by_type['fp32'])} fp32 instantiations (want {want} each); "
                           f"wrong units or serialized products in {bad}")
         report[part] = by_type
+    # The quantized products: every decode and admission body on HGMMA,
+    # unserialized; the simple body keeps its wmma (HMMA) products.
+    counts = sass_mma_counts(sass, "quant")
+    by_body = {k: c for (_, k), c in counts.items()}
+    log(f"[sass] quant kernels (body/bits/rows) {json.dumps(by_body)}")
+    tma = {k: c for k, c in by_body.items() if not k.startswith("simple")}
+    bad = [k for k, c in tma.items() if not 0 < c["DEPBAR"] < c["HGMMA"]]
+    if len(tma) != QUANT_TMA_INSTANCES or bad:
+        faults.append(f"quant kernels: {len(tma)} tensor-core instantiations (want "
+                      f"{QUANT_TMA_INSTANCES}); no HGMMA or serialized products in {bad}")
+    report["quant"] = by_body
     if faults:
-        raise AssertionError(f"attention machine code: {faults}")
+        raise AssertionError(f"machine code: {faults}")
     return report
 
 
@@ -1719,7 +1771,9 @@ def all_launch_counts() -> dict:
 def _time_cold_ms(fn, copies: int, iters: int) -> float:
     """Mean ms of ``fn(i)`` cycling over ``copies`` operand sets, chosen so
     they do not fit the 50 MB L2 cache together: each launch reads its
-    weights from device memory, as a decode step does."""
+    weights from device memory, as a decode step does. CUDA events around
+    back-to-back calls paced by the host, so a call shorter than its host
+    enqueue reads the enqueue."""
     import torch
 
     fn(0)
@@ -1793,15 +1847,58 @@ def _reorder_row(device, shape, t_live: int, gen) -> dict:
     return row
 
 
+def _weight_only_reading(bits: int, x, ws: list, copies: int, iters: int, ref) -> dict:
+    """PyTorch's own weight-only products on the same weights, timed as a
+    reading (the port never calls them): ``torch._weight_int4pack_mm`` on
+    copies converted by ``torch._convert_weight_to_int4pack`` (nibble + 8
+    as its unsigned 4-bit value, even k in the high nibble, zero points 0:
+    its (u4 - 8) * scale + zero is our nibble times a bf16-rounded scale),
+    ``torch._weight_int8pack_mm`` on transposed int8 copies. ``{"ms",
+    "max_abs_err"}``, or ``{"error"}`` with the op's own text where the
+    card's torch refuses the shape or the device."""
+    import torch
+
+    from reprover_tpu_torch.ops import quant_matmul as qm
+
+    try:
+        if bits == 4:
+            packs = []
+            for w in ws:
+                u4 = (qm.unpack_int4(w.q) + 8).t().contiguous()  # [N, K] in [0, 15]
+                packed = torch._convert_weight_to_int4pack(
+                    ((u4[:, ::2] << 4) | u4[:, 1::2]).to(torch.uint8), 8)
+                s_bf16 = w.scale.to(torch.bfloat16)
+                packs.append((packed, torch.stack([s_bf16, torch.zeros_like(s_bf16)], -1)))
+                del u4
+
+            def fn(i):
+                return torch._weight_int4pack_mm(x, packs[i][0], ws[i].group, packs[i][1])
+        else:
+            packs = [(w.q.t().contiguous(), w.scale.reshape(-1).to(torch.bfloat16)) for w in ws]
+
+            def fn(i):
+                return torch._weight_int8pack_mm(x, packs[i][0], packs[i][1])
+        err = (fn(0).float() - ref).abs().max().item()
+        return {"ms": _time_cold_ms(fn, copies, iters), "max_abs_err": err}
+    except Exception as ex:  # a reading only: the op's refusal is the result
+        return {"error": f"{type(ex).__name__}: {str(ex).splitlines()[0][:200]}"}
+
+
 def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
     """Kernel 11 (bits 8) or 12 (bits 4) at one LLaMA-7B weight shape in
-    bf16 (fp32 output for the lm_head): error against the plain version,
-    times of the kernel, the plain version and dequantize + ``torch.matmul``
-    over weight copies that exceed the L2 cache, and the bound."""
+    bf16 (fp32 output for the lm_head): the body it launched (by
+    ``BODY_LAUNCHES``); its error against the plain version, globally
+    (2e-2 * max(1, max|ref|)) and row by row (each output row within 2e-2
+    of its own max|ref|), and a second launch bit-equal to the first; times
+    of the kernel, the plain version, dequantize + ``torch.matmul`` and
+    PyTorch's own weight-only kernel over weight copies that exceed the L2
+    cache (``_time_cold_ms``), the kernel's device time and host us per
+    call (``kernel_timing.queued_ms``); and the bound."""
     import torch
 
     from reprover_tpu_torch.models import quantize as qz
     from reprover_tpu_torch.ops import quant_matmul as qm
+    from reprover_tpu_torch.ops.kernel_timing import queued_ms
 
     out_dtype = torch.float32 if n == 32000 else torch.bfloat16
     x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
@@ -1824,18 +1921,30 @@ def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
                                                      out_dtype)
         library = lambda i: torch.matmul(x, qz.dequantize4(ws[i], torch.bfloat16))  # noqa: E731
         wbytes = k * n // 2 + 4 * n * (k // qw.group)
-    got = kernel(0)
+    before = dict(qm.BODY_LAUNCHES)
+    got, again = kernel(0), kernel(0)
+    bodies = [b for b, count in qm.BODY_LAUNCHES.items() if count != before[b]]
     ref = qm.quant_matmul_reference(x, qw.q, qw.scale, torch.float32) if bits == 8 else \
         qm.quant4_matmul_reference(x, qw.q, qw.scale, qw.group, torch.float32)
     torch.cuda.synchronize()
     err = (got.float() - ref).abs().max().item()
     tol = BF16_REL_TOL * max(1.0, ref.abs().max().item())
+    rows = row_error(got[None], ref[None], 1)
+    bit_equal = bool(torch.equal(got, again))
     iters = 30 if m <= 64 else 5
     row = dict(kernel="quant_matmul" if bits == 8 else "quant4_matmul", M=m, K=k, N=n,
                group=getattr(qw, "group", None), out=str(out_dtype).replace("torch.", ""),
-               max_abs_err=err, tol=tol, ok=bool(torch.isfinite(got).all()) and err <= tol,
+               body=bodies[0] if len(bodies) == 1 else bodies, max_abs_err=err, tol=tol,
+               row_err=rows, bit_equal=bit_equal,
+               ok=bool(torch.isfinite(got).all()) and err <= tol and rows <= BF16_REL_TOL
+               and bit_equal,
                ms=_time_cold_ms(kernel, copies, iters), plain_ms=_time_cold_ms(plain, copies, 3),
                library_ms=_time_cold_ms(library, copies, iters))
+    row["device_ms"], row["host_us"] = queued_ms(kernel, copies, iters)
+    reading = _weight_only_reading(bits, x, ws, copies, iters, ref)
+    key = "library_int4pack" if bits == 4 else "library_int8pack"
+    row[f"{key}_ms"] = reading.get("ms", reading.get("error"))
+    row[f"{key}_max_abs_err"] = reading.get("max_abs_err")
     nbytes = 2 * m * k + wbytes + m * n * (4 if out_dtype == torch.float32 else 2)
     t_ops, t_bytes = 2 * m * k * n / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
@@ -1847,7 +1956,10 @@ def phase_serving_kernels(device, byt5_shape) -> list:
     """Phase 12: kernel 13 at the byt5-small and LLaMA-7B engine shapes
     (full and short ``T_live``), bit-equal to its plain version; kernels 11
     and 12 at every routed LLaMA-7B weight shape at decode (M = 32) and
-    admission (``LLAMA_ADMIT_ROWS``) rows, within 2e-2 * max(1, max|ref|)."""
+    admission (``LLAMA_ADMIT_ROWS``) rows, within 2e-2 * max(1, max|ref|),
+    each row within 2e-2 of its own max|ref|, two launches bit-equal, and
+    every one launched on a tensor-core body (``body``: the body whose
+    ``BODY_LAUNCHES`` count its two launches raised, "tma")."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(12)
@@ -1867,6 +1979,10 @@ def phase_serving_kernels(device, byt5_shape) -> list:
                 rows.append(row)
                 torch.cuda.empty_cache()
     _check_rows(rows, "the serving kernels do")
+    off = [(r["kernel"], r["M"], r["K"], r["N"], r["body"]) for r in rows
+           if "body" in r and r["body"] != "tma"]
+    if off:
+        raise AssertionError(f"routed LLaMA-7B products did not launch a tensor-core body: {off}")
     return rows
 
 
@@ -1891,7 +2007,8 @@ def _streaming_service(model, args, retriever=None, reorder_mode: str = "gather"
 def _timed_engine(engine, ids, mask, device, chunk: int, profile_chunk: bool) -> dict:
     """Admit one wave, then time its chunks on the host clock (synchronized):
     admission ms, ms per step, and the device-busy share of one profiled
-    chunk with its device time by kernel."""
+    chunk with its device time by kernel and the quantized products'
+    (kernels 11/12) device ms per step."""
     slots = list(range(ids.shape[0]))
     _sync(device)
     t0 = time.perf_counter()
@@ -1909,6 +2026,8 @@ def _timed_engine(engine, ids, mask, device, chunk: int, profile_chunk: bool) ->
             from torch.autograd import DeviceType
             from torch.profiler import ProfilerActivity, profile
 
+            from reprover_tpu_torch.ops.quant_matmul import kernel_instance as quant_kernel_instance
+
             t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 n = engine.unpack_status(engine.dispatch_run(chunk))[3]
@@ -1919,11 +2038,14 @@ def _timed_engine(engine, ids, mask, device, chunk: int, profile_chunk: bool) ->
                 if e.device_type == DeviceType.CUDA:
                     by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             device_ms = sum(by_name.values()) / 1e3
+            quant_ms = sum(us for name, us in by_name.items()
+                           if quant_kernel_instance(name) is not None) / 1e3
             # Busy share: the profiled chunk's device time over the
             # unprofiled wall time of as many steps (the profiler's own
             # host cost would dilute it).
             row.update(profiled_steps=n, profiled_wall_ms=wall_ms, device_ms=device_ms,
                        device_busy_share=device_ms / (row["ms_per_step"] * n) if n else None,
+                       quant_kernels_ms_per_step=quant_ms / n if n else None,
                        top_kernels_ms={k[:60]: us / 1e3 for k, us in
                                        sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})
         except Exception as ex:  # the share is a report; a profiler failure is not a phase failure
@@ -2062,6 +2184,16 @@ def _llama_cfg(device, tiny: bool):
     return CausalLMConfig(compute_dtype=torch.bfloat16)
 
 
+def _check_bodies(what: str) -> None:
+    """Every quantized product launched since the counts were reset took a
+    tensor-core body."""
+    from reprover_tpu_torch.ops import quant_matmul as qm
+
+    if qm.BODY_LAUNCHES["simple"]:
+        raise AssertionError(f"{what} launched the simple quantized-product body: "
+                             f"{qm.BODY_LAUNCHES}")
+
+
 def phase_llama(device, bench: str, tiny: bool = False) -> dict:
     """Phase 14: LLaMA-7B (seeded random weights at full CausalLMConfig
     width, made on the card one layer at a time) in int4 through the
@@ -2151,6 +2283,7 @@ def phase_llama(device, bench: str, tiny: bool = False) -> dict:
             if device.type == "cuda" and (launches["quant4_matmul"] < 1
                                           or launches["beam_reorder"] < 1):
                 raise AssertionError(f"int4 serving missed kernel 12 or 13: {launches}")
+            _check_bodies("int4 serving")
             head.update(served=served, answers=answers[:1])
             engine = model.make_stepwise_engine(LLAMA["num_slots"], LLAMA["num_beams"],
                                                 reorder_mode="gather")
@@ -2179,6 +2312,7 @@ def phase_llama(device, bench: str, tiny: bool = False) -> dict:
             if len(done) != LLAMA["num_slots"] or (device.type == "cuda"
                                                    and launches[kernel] < 1):
                 raise AssertionError(f"the int8 wave did not finish or missed kernel 11: {head}")
+            _check_bodies("the int8 wave")
             head["launches"] = launches
         if device.type == "cuda":
             head["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2619,19 +2753,27 @@ def serving_entry(name: str, rows: list, launches: int, llama_cache: list) -> di
     """The kernels-line entry of a serving kernel: its largest error over
     every checked shape, and its times at the LLaMA-7B decode design point
     (4096 x 11008 at M = 32 for kernels 11/12, the full [32, 4, 8, 32, 129,
-    128] cache for kernel 13)."""
+    128] cache for kernel 13); kernels 11/12 also at the admission wave's
+    rows (``admission_*``, 4096 x 11008 at M = 2044), and ``device_ms``
+    beside ``ms``: the products queued behind a device sleep, without the
+    host's enqueue."""
     mine = [r for r in rows if r["kernel"] == name]
+    extra = {}
     if name == "beam_reorder":
         at = next(r for r in mine if r["shape"] == llama_cache and r["t_live"] == llama_cache[4])
     else:
         at = next(r for r in mine if (r["M"], r["K"], r["N"]) == (
             LLAMA["num_slots"] * LLAMA["num_beams"], 4096, 11008))
+        adm = next(r for r in mine if (r["M"], r["K"], r["N"]) == (LLAMA_ADMIT_ROWS, 4096, 11008))
+        extra = {"device_ms": at["device_ms"], "admission_ms": adm["ms"],
+                 "admission_device_ms": adm["device_ms"], "admission_bound_ms": adm["bound_ms"],
+                 "admission_bound_by": adm["bound_by"], "admission_library_ms": adm["library_ms"]}
     return {"name": name, "route": "cuda",
             "source": f"reprover_tpu_torch/csrc/{SERVING_SOURCES[name]}",
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": at["ms"],
             "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"]}
+            "library_ms": at["library_ms"], **extra}
 
 
 def kernel_entries(fwd_rows: list, bwd_rows: list, launches: dict) -> list:

@@ -1,8 +1,9 @@
-"""Time the attention kernels (forward, dQ, dK/dV) of one checkout of this
-repository on the card, for comparing two versions in one call.
+"""Time the attention kernels (forward, dQ, dK/dV) and the weight-only
+quantized products of one checkout of this repository on the card, for
+comparing two versions in one call.
 
     python reprover_tpu_torch/ops/kernel_timing.py --checkout DIR --label NAME \
-        [--shapes 8x2304] [--decoder 8x512x2304] [--long 4x8192]
+        [--shapes 8x2304] [--decoder 8x512x2304] [--long 4x8192] [--quant 32x4096x11008]
 
 imports ``reprover_tpu_torch`` from ``DIR`` (which builds its own kernels into
 ``DIR/build/kernels``) and prints one JSON line per shape: bf16 q/k/v of
@@ -21,8 +22,20 @@ through ``causal_flash_attention`` and ``cross_flash_attention``. ``--long BxL``
 generator's target cap) over it. ``--scaled BxTxHxD`` adds the LLaMA family's scaled
 causal kernels 1s/3s/4s (a checkout that has ``scaled_causal_flash_attention``),
 forward and autograd backward at ``[B, T]`` with H heads of width D and
-right-padded key masks, the fine-tuning data module's layout. Run the checkouts in turns (parent, change, change, parent), each
-in its own process, on one card: times from two cards do not compare.
+right-padded key masks, the fine-tuning data module's layout. ``--quant
+MxKxN`` adds the weight-only products, kernels 11 (int8) and 12 (int4, the
+quantizer's group), through ``quant_matmul`` / ``quant4_matmul`` on weights
+made from a seed and cycled over copies that exceed the 50 MB L2 cache, bf16
+output (fp32 at N = 32000, the lm_head): one JSON line per shape and bits
+with ``ms`` (CUDA events around back-to-back calls queued behind a device
+sleep, so the device's time and not the host's enqueue: every kernel a call
+launches counts), ``device_ms`` (the profiler's sum over the call's
+kernels) and ``host_us`` (the host's time to issue one call). Run the
+checkouts in turns (parent, change, change, parent), each in its own
+process, on one card: times from two cards do not compare. ``--engine N``
+adds N samples of the LLaMA-7B int4 streaming engine (seeded random
+weights at full width, 4 slots x 8 beams, prompts of 512 tokens): the
+admission wave's ms and the next 32 steps' ms per step, host clock.
 """
 
 from __future__ import annotations
@@ -219,32 +232,169 @@ def time_scaled(tfa: object, b: int, t: int, heads: int, d: int, iters: int,
     return _device_ms(step, iters)
 
 
-def main(argv: List[str] | None = None) -> None:
+L2_BYTES = 50 * 2 ** 20
+
+
+def parse_quant(spec: str) -> List[Tuple[int, int, int]]:
+    """``"MxKxN,..."`` -> ``[(M, K, N), ...]``; an empty string gives none."""
+    shapes = []
+    for item in filter(None, (part.strip() for part in spec.split(","))):
+        dims = item.split("x")
+        if len(dims) != 3 or not all(d.isdigit() and int(d) > 0 for d in dims):
+            raise ValueError(f"--quant wants MxKxN with positive sizes, got {item!r}")
+        shapes.append((int(dims[0]), int(dims[1]), int(dims[2])))
+    return shapes
+
+
+def queued_ms(fn: Callable[[int], object], copies: int, iters: int) -> Tuple[float, float]:
+    """``(device ms per call, host us per call)`` of ``fn(i)`` cycling over
+    ``copies`` operand sets: the calls are queued behind a device sleep
+    longer than their enqueue, so the events time the device running them
+    back to back."""
+    import time
+
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i % copies)
+    host_s = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * (2 * host_s * iters + 1e-3)))  # ~2 GHz cycles
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % copies)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, 1e6 * host_s
+
+
+def time_quant(qm: object, qz: object, m: int, k: int, n: int, bits: int, iters: int,
+               seed: int) -> Dict[str, float]:
+    """Kernel 11 (bits 8) or 12 (bits 4) on ``[m, k] x [k, n]``, bf16
+    activations, over weight copies that exceed the L2 cache."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    qw = qz.quantize_weight(w) if bits == 8 else qz.quantize_weight4(w)
+    del w
+    copies = max(1, -(-3 * L2_BYTES // qw.nbytes))
+    ws = [qw] + [type(qw)(**{f: getattr(qw, f).clone() if torch.is_tensor(getattr(qw, f))
+                             else getattr(qw, f) for f in qw.__dataclass_fields__})
+                 for _ in range(copies - 1)]
+    out_dtype = torch.float32 if n == 32000 else torch.bfloat16
+    if bits == 8:
+        def call(i: int) -> object:
+            return qm.quant_matmul(x, ws[i].q, ws[i].scale.reshape(-1), out_dtype)
+    else:
+        def call(i: int) -> object:
+            return qm.quant4_matmul(x, ws[i].q, ws[i].scale, ws[i].group, out_dtype)
+    ms, host_us = queued_ms(call, copies, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            call(i % copies)
+        torch.cuda.synchronize()
+    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    return {"M": m, "K": k, "N": n, "bits": bits, "group": getattr(qw, "group", None),
+            "ms": ms, "device_ms": device_us / 1e3 / iters, "host_us": host_us}
+
+
+def time_engine(samples: int, seed: int, cfg: object = None, device: str = "cuda",
+                num_slots: int = 4, num_beams: int = 8, src: int = 512, dec: int = 129,
+                chunk: int = 8, chunks: int = 4) -> Dict[str, object]:
+    """The int4 streaming engine of ``cfg`` (LLaMA-7B by default; random
+    weights from ``seed``, reorder by the gather kernel) at the serving
+    geometry: ``samples`` times (after one untimed), a blank state, one
+    admission wave of ``num_slots`` random prompts of ``src`` tokens, then
+    ``chunks`` chunks of ``chunk`` steps; per sample the wave's ms and the
+    chunks' ms per step, both on the host clock with the device
+    synchronized."""
+    import time
+
+    import torch
+
+    from reprover_tpu_torch.generation.causal_engine import CausalStepwiseEngine
+    from reprover_tpu_torch.models.causal_lm import CausalLMConfig, init_serving_params
+
+    cfg = cfg or CausalLMConfig(compute_dtype=torch.bfloat16)
+    params = init_serving_params(cfg, seed, device, bits=4)
+    engine = CausalStepwiseEngine(params, cfg, num_slots=num_slots, num_beams=num_beams,
+                                  max_src_len=src, max_decode_len=dec, chunk_size=chunk,
+                                  reorder_mode="gather")
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, cfg.vocab_size, (num_slots, src), generator=gen)
+    mask = torch.ones_like(ids)
+
+    def sync() -> None:
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    admit_ms: List[float] = []
+    step_ms: List[float] = []
+    for sample in range(samples + 1):
+        engine.reset()
+        sync()
+        t0 = time.perf_counter()
+        engine.admit_batch_tokens(list(range(num_slots)), ids, mask)
+        sync()
+        admit = 1e3 * (time.perf_counter() - t0)
+        steps, t0 = 0, time.perf_counter()
+        for _ in range(chunks):
+            steps += engine.unpack_status(engine.dispatch_run(chunk))[3]
+        sync()
+        if sample:
+            admit_ms.append(admit)
+            step_ms.append(1e3 * (time.perf_counter() - t0) / max(steps, 1))
+    return {"engine": "int4", "d_model": cfg.d_model, "slots": num_slots, "beams": num_beams, "src": src,
+            "steps_per_sample": steps, "admit_ms": admit_ms, "ms_per_step": step_ms}
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", required=True, help="root of the checkout to time")
     parser.add_argument("--label", required=True)
     parser.add_argument("--shapes", default="8x2048,8x1024,40x1024",
-                        help="comma-separated BxL")
+                        help="comma-separated BxL (empty: none)")
     parser.add_argument("--decoder", default="", help="BxTxS of the decoder rows, e.g. 8x512x2304")
     parser.add_argument("--long", default="", help="BxL of the long-route rows, e.g. 4x8192")
     parser.add_argument("--scaled", default="",
                         help="comma-separated BxTxHxD of the scaled causal rows, e.g. 4x2048x32x128")
+    parser.add_argument("--quant", default="",
+                        help="comma-separated MxKxN of the int8/int4 products, e.g. 32x4096x11008")
+    parser.add_argument("--engine", type=int, default=0,
+                        help="samples of the LLaMA-7B int4 engine's admission wave and steps")
     parser.add_argument("--iters", type=int, default=20)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: List[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
+    quant = parse_quant(args.quant)
 
     checkout = os.path.abspath(args.checkout)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [checkout] + [p for p in sys.path if os.path.abspath(p or ".") != here]
+    from reprover_tpu_torch.models import quantize as qz
     from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.ops import quant_matmul as qm
 
-    if not os.path.abspath(tfa.__file__).startswith(checkout + os.sep):
-        raise RuntimeError(f"imported {tfa.__file__}, not the checkout {checkout}")
+    for mod in (tfa, qm, qz):
+        if not os.path.abspath(mod.__file__).startswith(checkout + os.sep):
+            raise RuntimeError(f"imported {mod.__file__}, not the checkout {checkout}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     shapes: List[Tuple[int, int]] = [
-        (int(s.split("x")[0]), int(s.split("x")[1])) for s in args.shapes.split(",")]
+        (int(s.split("x")[0]), int(s.split("x")[1])) for s in filter(None, args.shapes.split(","))]
     for i, (b, length) in enumerate(shapes):
         row = {"label": args.label, "card": card, "B": b, "L": length, "dtype": "bfloat16"}
         row.update(time_shape(tfa, b, length, args.iters, seed=i))
@@ -265,6 +415,14 @@ def main(argv: List[str] | None = None) -> None:
         for row in time_long(tfa, b, length, 512, args.iters, seed=len(shapes)):
             print(json.dumps({"label": args.label, "card": card, "route": "long",
                               "dtype": "bfloat16", **row}), flush=True)
+    for i, (m, k, n) in enumerate(quant):
+        for bits in (8, 4):
+            row = time_quant(qm, qz, m, k, n, bits, args.iters, seed=i)
+            print(json.dumps({"label": args.label, "card": card, "kernel": "quant_matmul"
+                              if bits == 8 else "quant4_matmul", **row}), flush=True)
+    if args.engine:
+        print(json.dumps({"label": args.label, "card": card,
+                          **time_engine(args.engine, seed=0)}), flush=True)
 
 
 if __name__ == "__main__":

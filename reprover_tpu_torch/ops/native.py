@@ -76,7 +76,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.beam_reorder_append.argtypes = [vp] * 9 + [i] * 7 + [vp]
     lib.beam_reorder_append.restype = i
-    lib.quant_matmul_launch.argtypes = [i] + [vp] * 5 + [i] * 6 + [vp]
+    lib.quant_matmul_launch.argtypes = [i] + [vp] * 6 + [i] * 9 + [ctypes.c_longlong, i, vp]
     lib.quant_matmul_launch.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p

@@ -7,40 +7,162 @@ counterpart of :mod:`reprover_tpu.ops.quant_matmul` (kernels 11 and 12).
 Storing weights in 8 or 4 bits only pays when the product reads them in 8 or
 4 bits: converting a whole weight to bf16 first writes and reads a bf16 copy.
 On a CUDA tensor :func:`quant_matmul` and :func:`quant4_matmul` launch the
-hand-written kernels of ``csrc/quant_matmul.cu``, which convert each weight
-tile in shared memory on its way to the tensor cores; on a CPU tensor they
-run their plain versions (:func:`quant_matmul_reference`,
+hand-written kernels of ``csrc/quant_matmul.cu`` (one launch per product);
+on a CPU tensor they run their plain versions (:func:`quant_matmul_reference`,
 :func:`quant4_matmul_reference`). There is no fallback between the two. The
 kernels take bf16 activations; the output is bf16 or fp32.
+
+:func:`quant_plan` picks the kernel body and its tiling from the shapes:
+``decode`` (M <= 64: 128 output channels per block as the tensor cores' M,
+the activation rows as their N, K split so that about two blocks stream on
+every SM), ``admission`` (M > 64: 256 x 128 output tiles) or, for operands a
+TMA tensor map cannot describe, ``simple``. Split-K partial sums go to a
+workspace the wrapper allocates; the last block of each output tile sums
+them, elected through a per-tile counter that the wrapper zeroes once per
+device and stream.
 
 Rounding follows the JAX kernels: int8 is converted to the compute type,
 the product accumulates in fp32 and the scale multiplies the fp32 result;
 int4 values are dequantized in fp32 with their group's scale, rounded to the
-compute type, then multiplied with fp32 accumulation.
+compute type, then multiplied with fp32 accumulation. The decode body alone
+multiplies the exact bf16 nibble by the scale rounded to bf16
+(``csrc/quant_matmul.cu``, "Rounding").
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+import re
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 # Launches of each CUDA kernel in this process: each wrapper adds one where
-# it launches and nowhere else.
+# it launches and nowhere else; BODY_LAUNCHES splits them by body.
 KERNEL_LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "quant4_matmul": 0}
+BODY_LAUNCHES: Dict[str, int] = {"tma": 0, "simple": 0}
 
-# Output tiles of the kernel, and how many blocks per SM a split of K aims
-# for when the output alone has too few tiles to fill the card (decode).
-_TILE = 64
-_BLOCKS_PER_SM = 4
+# The kernels' tiles (csrc/quant_matmul.cu: KT, DEC_TN, ADM_TM, ADM_TN, BM/BN;
+# the C entry refuses a plan whose ``out_tiles`` is not its grid's).
+K_TILE = 64
+DECODE_MAX_ROWS = 64
+DECODE_TILE_N = 128
+ADMIT_TILE_M, ADMIT_TILE_N = 256, 128
+SIMPLE_TILE = 64
+# Blocks per SM a split of K aims for when the output tiles alone are fewer.
+BLOCKS_PER_SM = {"decode": 2, "admission": 1}
+# The C entry's body codes.
+BODY_CODES = {"simple": 0, "decode": 1, "admission": 2}
 
 _sm_counts: Dict[int, int] = {}
+# One zeroed int32 arrival counter per output tile, per (device, stream):
+# the kernels leave them zero.
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    for counts in (KERNEL_LAUNCHES, BODY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+@dataclass(frozen=True)
+class QuantPlan:
+    """How one product runs: ``body`` "tma" (the Hopper bodies: ``regime``
+    "decode" for M <= 64, else "admission") or "simple"; the output tile
+    ``tile_m`` x ``tile_n``; K in ``splits`` ranges of ``tiles_per_split``
+    64-deep tiles (the last may be shorter, none is empty); the fp32
+    ``workspace_bytes`` of the split partial sums; ``out_tiles`` blocks per
+    split (one arrival counter each)."""
+
+    body: str
+    regime: str
+    tile_m: int
+    tile_n: int
+    splits: int
+    tiles_per_split: int
+    workspace_bytes: int
+    out_tiles: int
+
+    @property
+    def code(self) -> int:
+        return BODY_CODES["simple" if self.body == "simple" else self.regime]
+
+
+def tma_shape_ok(bits: int, m: int, n: int, k: int, group: int) -> bool:
+    """Whether TMA tensor maps describe the operands (given 16-byte aligned
+    bases): x rows and weight rows multiples of 16 bytes, and for int4 a
+    group that is a multiple of 16 and divides 64 or is a multiple of it."""
+    if m < 1 or k < 1 or n < 1 or k % 8 or n % 16:
+        return False
+    return bits == 8 or (group % 16 == 0 and (K_TILE % group == 0 or group % K_TILE == 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def quant_plan(bits: int, m: int, n: int, k: int, group: int, sm_count: int,
+               aligned: bool = True) -> QuantPlan:
+    """The body and tiling of one ``[m, k] x [k, n]`` product on a card with
+    ``sm_count`` SMs; ``aligned``: x, the weight and the scales start on
+    16-byte boundaries. The tensor-core bodies split K when their output
+    tiles are fewer than ``BLOCKS_PER_SM`` per SM; the simple body never
+    does."""
+    k_tiles = max(1, -(-k // K_TILE))
+    if not (aligned and tma_shape_ok(bits, m, n, k, group)):
+        tiles = -(-m // SIMPLE_TILE) * -(-n // SIMPLE_TILE)
+        return QuantPlan("simple", "decode" if m <= DECODE_MAX_ROWS else "admission",
+                         SIMPLE_TILE, SIMPLE_TILE, 1, k_tiles, 0, tiles)
+    if m <= DECODE_MAX_ROWS:
+        regime, tile_m, tile_n = "decode", (32 if m <= 32 else 64), DECODE_TILE_N
+        tiles = -(-n // tile_n)
+    else:
+        regime, tile_m, tile_n = "admission", ADMIT_TILE_M, ADMIT_TILE_N
+        tiles = -(-m // tile_m) * -(-n // tile_n)
+    target = BLOCKS_PER_SM[regime] * sm_count
+    splits = 1 if tiles >= target else min(k_tiles, -(-target // tiles))
+    per = -(-k_tiles // splits)
+    splits = -(-k_tiles // per)
+    workspace = 4 * splits * m * n if splits > 1 else 0
+    return QuantPlan("tma", regime, tile_m, tile_n, splits, per, workspace, tiles)
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+def plan_for(bits: int, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+             group: int) -> QuantPlan:
+    """:func:`quant_plan` of the kernel call on these card tensors."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, scale))
+    return quant_plan(bits, x.shape[0], w.shape[1], x.shape[1], group, _sm_count(x.device),
+                      aligned)
+
+
+# A quantized-product kernel's profiled or mangled name: the Hopper bodies
+# (quant_decode_kernel<bits, rows>, quant_admission_kernel<bits>) and the
+# simple one (quant_matmul_kernel<int4>).
+_TMA_KERNEL = re.compile(
+    r"quant_(decode|admission)_kernel(?:<(\d+)(?:,\s*(\d+))?>|ILi(\d+)E(?:Li(\d+)E)?E)")
+_SIMPLE_KERNEL = re.compile(r"quant_matmul_kernel(?:<(true|false)>|ILb([01])E)")
+
+
+def kernel_instance(kernel_name: str) -> Optional[Tuple[str, int, int]]:
+    """``(body, bits, tile rows)`` of a quantized-product kernel's name
+    (body "decode", "admission" or "simple"), or None for another kernel."""
+    m = _TMA_KERNEL.search(kernel_name)
+    if m is not None:
+        body, b1, r1, b2, r2 = m.groups()
+        bits, rows = int(b1 or b2), r1 or r2
+        return body, bits, int(rows) if rows else ADMIT_TILE_M
+    m = _SIMPLE_KERNEL.search(kernel_name)
+    if m is not None:
+        int4 = m.group(1) == "true" or m.group(2) == "1"
+        return "simple", 4 if int4 else 8, SIMPLE_TILE
+    return None
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -100,18 +222,15 @@ def quant4_matmul_reference(
     return torch.matmul(x.float(), w).to(out_dtype)
 
 
-def _splits(device: torch.device, m: int, n: int, k: int) -> int:
-    """K splits per output tile: enough blocks for ``_BLOCKS_PER_SM`` per SM
-    when the output tiles alone are fewer (decode), else one."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    target = _BLOCKS_PER_SM * _sm_counts[index]
-    tiles = -(-m // _TILE) * -(-n // _TILE)
-    k_tiles = max(1, -(-k // _TILE))
-    if tiles >= target:
-        return 1
-    return max(1, min(k_tiles, -(-target // tiles)))
+def _counter_buffer(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """At least ``tiles`` zeroed int32 arrival counters for ``stream`` on
+    ``device``, made once and kept (the kernels leave them zero)."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _launch(
@@ -136,16 +255,20 @@ def _launch(
     n = w.shape[1]
     lib = load_library()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    splits = _splits(x.device, m, n, k)
-    work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    plan = plan_for(bits, x, w, scale, group)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    work = counters = None
+    if plan.splits > 1:
+        work = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=x.device)
+        counters = _counter_buffer(x.device, stream, plan.out_tiles)
     err = lib.quant_matmul_launch(
-        bits, _ptr(x), _ptr(w), _ptr(scale), _ptr(out), _ptr(work), m, n, k, group, splits,
-        int(out_dtype == torch.float32), ctypes.c_void_p(stream),
+        bits, _ptr(x), _ptr(w), _ptr(scale), _ptr(out), _ptr(work), _ptr(counters), m, n, k,
+        group, plan.code, plan.tile_m, plan.splits, plan.tiles_per_split, plan.out_tiles,
+        plan.workspace_bytes, int(out_dtype == torch.float32), ctypes.c_void_p(stream),
     )
     _raise_on_error(lib, err, name)
     KERNEL_LAUNCHES[name] += 1
+    BODY_LAUNCHES[plan.body] += 1
     return out
 
 

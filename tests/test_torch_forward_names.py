@@ -303,3 +303,62 @@ def test_sass_counts_tensor_core_ops_per_backward_instance():
         ("fp32", "1/1/64/0"): {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}}
     assert chip_smoke.sass_mma_counts(BWD_SASS) == {
         ("bf16", "2/1/64/0"): {"HGMMA": 1, "HMMA": 0, "DEPBAR": 0}}
+
+
+# The quantized products (kernels 11/12): the build log, the machine code and
+# the profiler name their three bodies.
+@pytest.mark.parametrize("name, want", [
+    ("_ZN12_GLOBAL__N_119quant_decode_kernelILi4ELi32EEEv14CUtensorMap_stS1_S1_NS_5QArgsE",
+     ("decode", 4, 32)),
+    ("void (anonymous namespace)::quant_decode_kernel<8, 64>(CUtensorMap_st, CUtensorMap_st)",
+     ("decode", 8, 64)),
+    ("_ZN12_GLOBAL__N_122quant_admission_kernelILi8EEEv14CUtensorMap_stS1_S1_NS_5QArgsE",
+     ("admission", 8, 256)),
+    ("void (anonymous namespace)::quant_admission_kernel<4>(CUtensorMap_st)",
+     ("admission", 4, 256)),
+    ("_ZN12_GLOBAL__N_119quant_matmul_kernelILb1EEEvNS_8OperandsE", ("simple", 4, 64)),
+    ("void (anonymous namespace)::quant_matmul_kernel<false>((anonymous namespace)::Operands)",
+     ("simple", 8, 64)),
+    ("_ZN12_GLOBAL__N_115attn_fwd_kernelI13__nv_bfloat16Li3ELi2ELi128ELi0EEEv14CUtensorMap_st",
+     None),
+])
+def test_quant_kernel_names(name, want):
+    from reprover_tpu_torch.ops import quant_matmul as qm
+
+    assert qm.kernel_instance(name) == want
+    assert chip_smoke._instance(name, "quant") == (
+        None if want is None else ("bf16", "/".join(str(x) for x in want)))
+
+
+QUANT_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_119quant_decode_kernelILi4ELi32EEEv14CUtensorMap_stS1_S1_NS_5QArgsE
+        /*0490*/                   HGMMA.64x32x16.F32.BF16 R24, R8, gdesc[UR4], R24 ;
+        /*04a0*/                   HGMMA.64x32x16.F32.BF16 R24, R12, gdesc[UR8], R24, gsb0 ;
+        /*04b0*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\tFunction : _ZN12_GLOBAL__N_122quant_admission_kernelILi8EEEv14CUtensorMap_stS1_S1_NS_5QArgsE
+        /*0490*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*04a0*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\tFunction : _ZN12_GLOBAL__N_119quant_matmul_kernelILb0EEEvNS_8OperandsE
+        /*0490*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_115attn_fwd_kernelI13__nv_bfloat16Li2ELi1ELi64ELi0EEEv14CUtensorMap_st
+        /*0490*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+"""
+
+
+def test_sass_counts_tensor_core_ops_per_quant_body():
+    """A pipelined decode body passes (2 HGMMA, 1 wait), a serialized
+    admission body (as many waits as HGMMAs) is told apart, the simple body
+    keeps its wmma products; the attention's counts are untouched."""
+    counts = chip_smoke.sass_mma_counts(QUANT_SASS, "quant")
+    assert counts == {("bf16", "decode/4/32"): {"HGMMA": 2, "HMMA": 0, "DEPBAR": 1},
+                      ("bf16", "admission/8/256"): {"HGMMA": 1, "HMMA": 0, "DEPBAR": 1},
+                      ("bf16", "simple/8/64"): {"HGMMA": 0, "HMMA": 1, "DEPBAR": 0}}
+    assert chip_smoke.sass_mma_counts(QUANT_SASS) == {
+        ("bf16", "2/1/64/0"): {"HGMMA": 1, "HMMA": 0, "DEPBAR": 0}}
+
+
+def test_quant_instances_in_the_build():
+    """Decode at bits 8/4 x 32/64 rows and admission at bits 8/4: the
+    instantiations the launcher reaches."""
+    assert chip_smoke.QUANT_TMA_INSTANCES == 2 * 2 + 2 == 6

@@ -529,6 +529,64 @@ def test_quant_matmul_kernels_match_plain(cuda_device, bits, m, k, n):
         assert (got.float() - ref).abs().max().item() <= tol
 
 
+QUANT_EDGE_M = [1, 31, 32, 33, 64, 65, 129, 2044]
+# (K, bits, group): int8; int4 at groups 64 and 128, where a 64-deep k tile
+# lies in one group, and at groups 16 and 32, where one tile holds several
+# (LLaMA-7B's down projection takes group 32 at K 11008).
+QUANT_EDGE_WEIGHTS = [(1472, 8, 0), (1472, 4, 64), (11008, 8, 0), (11008, 4, 64),
+                      (11008, 4, 128), (1472, 4, 32), (11008, 4, 32), (1472, 4, 16),
+                      (11008, 4, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, bits, group", QUANT_EDGE_WEIGHTS)
+@pytest.mark.parametrize("m", QUANT_EDGE_M)
+def test_quant_matmul_edges_match_plain(cuda_device, m, k, bits, group):
+    """The w8a16 / w4a16 kernels around their tiles: decode rows (1-64: 32
+    or 64 wide), admission rows (65, 129, 2044: 256-row tiles, a ragged
+    last one), N = 320 (a ragged 128-channel tile), split K;
+    bf16 and fp32 outputs within 2e-2 of max(1, max|ref|) and every output
+    row within 2e-2 of its own max|ref| (``chip_smoke.row_error``); two
+    launches bit-equal; the tensor-core body on aligned operands, and a
+    weight view at an odd offset (the simple body) held alike."""
+    from reprover_tpu_torch.ops import quant_matmul as qm
+
+    n = 320
+    rng = np.random.default_rng(m * 7 + k + bits + group)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    rows = k if bits == 8 else k // 2
+    raw = rng.integers(-127, 128, size=(rows, n)) if bits == 8 else rng.integers(0, 256, size=(rows, n))
+    w = torch.from_numpy(raw.astype(np.int8 if bits == 8 else np.uint8)).to(cuda_device)
+    scale_shape = (n,) if bits == 8 else (k // group, n)
+    scale = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=scale_shape).astype(np.float32)).to(
+        cuda_device)
+    # The same bytes at an odd address: a contiguous view one byte into a buffer.
+    buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda_device)
+    odd = buf[1:].view(w.shape)
+    odd.copy_(w)
+
+    def run(weight, out_dtype):
+        if bits == 8:
+            return qm.quant_matmul(x, weight, scale, out_dtype=out_dtype)
+        return qm.quant4_matmul(x, weight, scale, group, out_dtype=out_dtype)
+
+    ref = (qm.quant_matmul_reference(x, w, scale, torch.float32) if bits == 8 else
+           qm.quant4_matmul_reference(x, w, scale, group, torch.float32))
+    tol = 2e-2 * max(1.0, ref.abs().max().item())
+    assert qm.plan_for(bits, x, w, scale, group).body == "tma"
+    assert qm.plan_for(bits, x, odd, scale, group).body == "simple"
+    for weight, body in ((w, "tma"), (odd, "simple")):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            before = qm.BODY_LAUNCHES[body]
+            got, again = run(weight, out_dtype), run(weight, out_dtype)
+            torch.cuda.synchronize()
+            assert qm.BODY_LAUNCHES[body] == before + 2
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            assert torch.equal(got, again)
+            assert (got.float() - ref).abs().max().item() <= tol
+            assert chip_smoke.row_error(got[None], ref[None], 1) <= 2e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b, t, h, d, block_kv", [(3, 1000, 4, 128, 0), (2, 256, 4, 64, 0),
