@@ -159,12 +159,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 22. kernel 14: the ablation variants of kernel 1
     (``benchmarks/flash_kernel_bisect.py``) against their plain versions at
     [2, 512], ``full`` bit-equal to kernel 1, then the harness's default
-    sweep at [64, 1024] x 6 x 64, 12 layers.
+    sweep at [64, 1024] x 6 x 64, 12 layers;
+23. remat policies: the fixed steps of phases 11 and 18 ([8, 2304] ->
+    [8, 512], [4, 8192] -> [4, 512]) and phase 8's retriever step at the
+    cap [40, 1024], from one seeded byt5-small init, 10 steps under each of
+    remat ``full``, ``lite`` and ``offload``, then 5 under ``full`` with
+    Adam's moments in host memory (``offload_optimizer``): forward /
+    backward / optimizer ms per step (CUDA events), peak GiB and each
+    attention kernel's launches in the first step. Fails unless each
+    forward kernel of the route (1, 1c, 8; 2 on the long route) launches
+    once per layer per step under ``lite`` and ``offload`` and twice under
+    ``full``, the backward kernels once per layer, the first-step losses
+    are bit-equal across the policies, every gradient leaf after one step
+    lies within 2e-2 of ``full``'s relative to max(1, max|ref|), the losses
+    are finite and fall, and with ``offload_optimizer`` the parameters are
+    bit-equal to the on-device optimizer's on the same gradients while the
+    peak falls by at least half the moments' bytes;
+24. pretraining: ``reprover_tpu_torch.training.pretrain.main(["fit",
+    ...])`` on the phase-4 corpus at byt5-small width and its defaults
+    ([8, 1024] -> [8, 256]), remat ``lite``, 20 steps, one validation,
+    ``--export_dir``: every loss finite, ``loss_val``, ``emb_eff_rank`` and
+    ``cos_offdiag_std`` logged, the nine full-row kernels launched, the
+    export reloaded through the port's ``load_hf_t5`` with ``safetensors``
+    unimportable, bit-equal; ``generation.main fit --model.model_name
+    <export>`` for 2 steps on phase 10's data; then 5 pretraining steps
+    with remat ``offload`` and ``offload_optimizer``; ms per step and peak
+    GiB of each run.
 
 The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
 their launches on the main paths: serving, retriever training, generator
-training, streaming byt5-small, LLaMA-7B int4 and int8, long serving, long
-generator training and decoder-only fine-tuning (the causal and scaled
+training, the remat policies' steps, pretraining and the fine-tuning from
+its export, streaming byt5-small, LLaMA-7B int4 and int8, long serving,
+long generator training and decoder-only fine-tuning (the causal and scaled
 causal long-route kernels run in phases 15 and 19 only: no path's sequence
 passes 4096), kernel 14's in its sweep; and their times, bounds and
 library times at the generator-training shapes, the LLaMA-7B decode shapes
@@ -187,6 +213,13 @@ Rehearse the training phases on the CPU at tiny width (a minute)::
     chip_smoke.phase_generator_train(torch.device("cpu"), work, long_bench, tiny=True,
                                      gen=chip_smoke.LONG_GEN)
 
+the remat phase (~6 min; its long step is left out at the tiny width) and
+the pretraining phase (~1 min; it needs ``phase_train``'s checkpoint and the
+``retrieval.main predict`` that ``phase_generator_train`` runs)::
+
+    chip_smoke.phase_remat(torch.device("cpu"), tiny=True)
+    chip_smoke.phase_pretrain(torch.device("cpu"), work, bench, tiny=True)
+
 and the streaming phases (a minute): shrink ``SLICE`` (e.g. 4 beams, 256
 input bytes, 12 output bytes, 2 theorems) and ``STREAM``, build a tiny
 ``T5Config`` generator and retriever on the CPU, then
@@ -201,6 +234,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -939,6 +973,31 @@ def _long_backward_plain(tfa, mode, q, k, v, mask, rel, out, dout):
     return dq, dk, dv, tfa.fold_rel_bins(bins, table, 32)
 
 
+def _efficient_lse_ms(q, k, v, attn, iters: int):
+    """A reading beside kernel 5 (the long route's LSE sweep): PyTorch's
+    efficient attention with ``compute_log_sumexp=True`` and the dense
+    bias, the one call that returns the biased LSE; it writes the output as
+    well, so it is not the same function, and the kernels line keeps kernel
+    5's ``library_ms`` null. A string where the call is refused."""
+    import torch
+
+    def heads(x):
+        b, l, inner = x.shape
+        return x.view(b, l, NUM_HEADS, inner // NUM_HEADS)
+
+    # The call takes the bias as [B, H, Lq, Lk] with a unit last stride; the
+    # SDPA mask of _library broadcasts over heads (cross) or is laid out
+    # head-last by its broadcast add (self-attention).
+    bias = attn.expand(q.shape[0], NUM_HEADS, q.shape[1], k.shape[1]).contiguous()
+    args = (heads(q), heads(k), heads(v), bias, None, None, None, None, 0.0, 0)
+    try:
+        with torch.no_grad():
+            return _time_ms(lambda: torch.ops.aten._efficient_attention_forward(
+                *args, compute_log_sumexp=True, scale=1.0), iters)
+    except Exception as ex:  # a reading, not a check
+        return f"not measured: {type(ex).__name__}: {str(ex)[:160]}"
+
+
 def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
     """Kernels 2, 5, 6 and 7 of one attention at one shape against their
     plain versions: kernel 2's output and kernel 5's LSE; kernel 6 (dq and
@@ -1064,6 +1123,7 @@ def _long_row(tfa, mode, b, lq, lk, block_kv, dtype, gen, device) -> dict:
             dkv_ms=_time_ms(lambda: tfa._backward_cuda(mode, "dkv", *common, dk, dv, NUM_HEADS,
                                                        128, tfa.LONG), iters),
             dkv_plain_ms=_time_ms(lambda: tfa.long_backward_dkv_reference(*plain_args), iters))
+    row["lse_library_ms"] = _efficient_lse_ms(q, k, v, attn, iters)
     out_l = F.scaled_dot_product_attention(*qkv, attn_mask=attn, scale=1.0)
     dout_l = dout.view(b, lq, NUM_HEADS, HEAD_DIM).transpose(1, 2)
     row["library_bwd_ms"] = _time_ms(
@@ -1600,30 +1660,24 @@ def phase_generator_train(device, work: str, bench: str, tiny: bool = False,
     return result
 
 
-def phase_generator_steps(device, tiny: bool = False, gen: dict = GEN) -> dict:
-    """One fixed random batch at ``gen["shape"]`` (``GEN``: the reference cap,
-    [8, 2304] sources; ``LONG_GEN``: [4, 8192]) with [B, 512] targets,
-    ragged, -100 past each target, no warmup: ``gen["fixed_steps"]`` steps
-    whose loss must fall, timed by part, peak memory and each attention
-    kernel's share of a profiled step."""
-    import numpy as np
-    import torch
-
-    from reprover_tpu_torch.models.t5 import (
-        T5Config, byt5_small, default_dtype, fuse_mlp_params, init_params, place_master_params,
-    )
-    from reprover_tpu_torch.training.tasks import generation_loss, init_train_state
+def _generator_cfg(device, tiny: bool):
+    """The generator's model config with remat ``full``: byt5-small, or the
+    tiny geometry of the CLIs' ``--model.tiny``."""
+    from reprover_tpu_torch.models.t5 import T5Config, byt5_small, default_dtype
 
     dtype = default_dtype(device)
     if tiny:
-        cfg = T5Config(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
-                       num_decoder_layers=1, compute_dtype=dtype, remat=True)
-    else:
-        cfg = byt5_small(compute_dtype=dtype, remat=True)
-    params = init_params(cfg, torch.Generator().manual_seed(gen["seed"]))
-    state = init_train_state(place_master_params(fuse_mlp_params(params), device), gen["lr"],
-                             warmup_steps=0)
-    del params
+        return T5Config(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
+                        num_decoder_layers=1, compute_dtype=dtype, remat=True)
+    return byt5_small(compute_dtype=dtype, remat=True)
+
+
+def _generator_batch(gen: dict, device) -> dict:
+    """One fixed random batch at ``gen["shape"]`` with [B, max_oup_seq_len]
+    targets, ragged, -100 past each target, on ``device``."""
+    import numpy as np
+    import torch
+
     rng = np.random.default_rng(gen["seed"])
     (b, src), tgt = gen["shape"], gen["max_oup_seq_len"]
     src_len = rng.integers(src // 2, min(src, gen["max_inp_seq_len"]) + 1, b)
@@ -1633,7 +1687,26 @@ def phase_generator_steps(device, tiny: bool = False, gen: dict = GEN) -> dict:
     tactic[np.arange(tgt)[None, :] >= tgt_len[:, None]] = -100
     batch = {"state_ids": torch.from_numpy(rng.integers(3, 259, (b, src)) * src_mask),
              "state_mask": torch.from_numpy(src_mask), "tactic_ids": torch.from_numpy(tactic)}
-    batch = {k: v.to(device) for k, v in batch.items()}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def phase_generator_steps(device, tiny: bool = False, gen: dict = GEN) -> dict:
+    """One fixed random batch at ``gen["shape"]`` (``GEN``: the reference cap,
+    [8, 2304] sources; ``LONG_GEN``: [4, 8192]) with [B, 512] targets,
+    ragged, -100 past each target, no warmup: ``gen["fixed_steps"]`` steps
+    whose loss must fall, timed by part, peak memory and each attention
+    kernel's share of a profiled step."""
+    import torch
+
+    from reprover_tpu_torch.models.t5 import fuse_mlp_params, init_params, place_master_params
+    from reprover_tpu_torch.training.tasks import generation_loss, init_train_state
+
+    cfg = _generator_cfg(device, tiny)
+    params = init_params(cfg, torch.Generator().manual_seed(gen["seed"]))
+    state = init_train_state(place_master_params(fuse_mlp_params(params), device), gen["lr"],
+                             warmup_steps=0)
+    del params
+    batch = _generator_batch(gen, device)
     tag = gen["tag"] + "_step"
     row = _step_report(tag, state, generation_loss, cfg, batch, gen["fixed_steps"], device)
     losses = row["losses"]
@@ -2721,6 +2794,345 @@ def phase_bisect(device) -> dict:
 
 # The TPU kernel each of the nine replaces (file:line of its pallas_call or
 # kernel function in the JAX package).
+# Phase 23: the remat policies at three fixed train steps (the generator's
+# at [8, 2304] -> [8, 512] and at [4, 8192] -> [4, 512], the retriever's at
+# the 1024 cap), each policy for REMAT["steps"] steps from the same weights,
+# then remat full with Adam's moments in host memory. Phase 24:
+# span-corruption pretraining through its CLI at the JAX package's defaults
+# (byt5-small, [8, 1024] -> [8, 256]).
+REMAT = dict(steps=10, offload_opt_steps=5, policies=("full", "lite", "offload"))
+OFFLOAD_OPT = "full+offload_optimizer"
+PRETRAIN = dict(steps=20, offload_steps=5, log_interval=5, finetune_steps=2)
+
+
+def _retriever_cap_batch(device) -> dict:
+    """Phase 8's batch at the cap: contexts [8, 1024] and premises [32,
+    1024] of random bytes, ragged, each context's own premise positive."""
+    import numpy as np
+
+    from reprover_tpu_torch.training.tasks import numeric_batch
+
+    b = TRAIN["batch_size"]
+    n = b * (1 + TRAIN["num_negatives"])
+    label = np.zeros((b, n), np.float32)
+    label[np.arange(b), np.arange(b)] = 1.0
+    layout = {"context_ids": np.zeros((b, 1), np.int32), "premise_ids": np.zeros((n, 1), np.int32),
+              "label": label}
+    return numeric_batch(_long_batch(layout, TRAIN["seed"]), device)
+
+
+def _remat_cases(device, tiny: bool) -> list:
+    """(tag, loss function, model config, fused CPU params, batch, the
+    forward kernels of its route with their calls per step under a
+    selective policy). The long step is left out at the tiny width (its
+    plain version at 8192 is minutes on the CPU)."""
+    import torch
+
+    from reprover_tpu_torch.models.t5 import fuse_mlp_params, init_params
+    from reprover_tpu_torch.training.tasks import generation_loss, retrieval_infonce_loss
+
+    cfg = _generator_cfg(device, tiny)
+    enc, dec = cfg.num_encoder_layers, cfg.num_decoder_layers
+    params = fuse_mlp_params(init_params(cfg, torch.Generator().manual_seed(GEN["seed"])))
+    encoder = {"shared_embedding": params["shared_embedding"], "encoder": params["encoder"]}
+    cases = [("gen", generation_loss, cfg, params, _generator_batch(GEN, device),
+              {"encoder_attn": enc, "causal_attn": dec, "cross_attn": dec})]
+    if not tiny:
+        cases.append(("long_gen", generation_loss, cfg, params, _generator_batch(LONG_GEN, device),
+                      {"encoder_attn_long": enc, "causal_attn": dec, "cross_attn_long": dec}))
+    cases.append(("retriever_cap", retrieval_infonce_loss, cfg, encoder,
+                  _retriever_cap_batch(device), {"encoder_attn": enc}))
+    return cases
+
+
+def _flat_map(fn, tree):
+    """``tree`` with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: _flat_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _grad_error(got: list, want: list) -> float:
+    """Largest |got - want| of any leaf over max(1, max|want|) of that leaf."""
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+def _policy_run(policy: str, loss_fn, cfg, params: dict, batch: dict, device,
+                record_all: bool, profile: bool) -> tuple:
+    """One policy's steps from ``params`` -> (row, the first step's
+    gradients on the host, every step's gradients on the host if
+    ``record_all``, final parameters, launches). The gradients are copied
+    between backward and update, outside the timed parts; the peak covers
+    the steps alone. ``profile``: one more step under the profiler, its
+    device time and top kernels."""
+    import dataclasses
+
+    import torch
+
+    from reprover_tpu_torch.models.t5 import place_master_params
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.training.tasks import (
+        init_train_state, offload_opt_state, param_leaves, timed_train_steps,
+    )
+
+    offload_opt = policy == OFFLOAD_OPT
+    run_cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy.split("+")[0])
+    # A copy on every device (on the CPU, placing alone would alias params).
+    placed = place_master_params(_flat_map(lambda t: t.clone(), params), device)
+    state = init_train_state(placed, GEN["lr"], warmup_steps=0)
+    if offload_opt:
+        state = offload_opt_state(state)
+    steps = REMAT["offload_opt_steps"] if offload_opt else REMAT["steps"]
+    first: dict = {}
+    grads: list = []
+
+    def after_backward(i: int, st) -> None:
+        if i == 0:
+            first["launches"] = {k: n for k, n in tfa.KERNEL_LAUNCHES.items() if n}
+        if i == 0 or record_all:
+            grads.append([p.grad.detach().to("cpu") for p in param_leaves(st.params)])
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launch_counts()
+    timed = timed_train_steps(state, loss_fn, run_cfg, batch, steps, after_backward)
+    launches = dict(tfa.KERNEL_LAUNCHES)
+    losses = [float(t[0]) for t in timed]
+    warm = timed[2:]
+    row = dict(policy=policy, losses=losses,
+               forward_ms=[t[1] for t in timed], backward_ms=[t[2] for t in timed],
+               optimizer_ms=[t[3] for t in timed],
+               mean_forward_ms=sum(t[1] for t in warm) / len(warm),
+               mean_backward_ms=sum(t[2] for t in warm) / len(warm),
+               mean_optimizer_ms=sum(t[3] for t in warm) / len(warm),
+               step1_attention_launches=first["launches"])
+    row["mean_step_ms"] = row["mean_forward_ms"] + row["mean_backward_ms"] + row["mean_optimizer_ms"]
+    # One slow host step (it delays the launches the events bracket) moves a
+    # mean of eight by tens of ms; the medians are the rows to compare.
+    for i, part in enumerate(("forward", "backward", "optimizer", "step"), 1):
+        row[f"median_{part}_ms"] = statistics.median(
+            sum(t[1:4]) if part == "step" else t[i] for t in warm)
+    if cuda:
+        row["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        if profile:
+            row.update(_profiled_share(state, loss_fn, run_cfg, batch, device))
+    final = [p.detach() for p in param_leaves(state.params)]
+    return row, grads[0], grads, final, launches
+
+
+def phase_remat(device, tiny: bool = False) -> dict:
+    """Remat ``full``, ``lite`` and ``offload`` at three fixed steps, each
+    for ``REMAT["steps"]`` steps from the same weights (lr 1e-4, no warmup),
+    then ``full`` with ``offload_optimizer`` for ``REMAT["offload_opt_steps"]``:
+    per step forward / backward / optimizer ms by CUDA events, peak GiB and
+    each attention kernel's launches in the first step. Fails unless each
+    forward kernel of the route launches once per layer per step under
+    ``lite`` and ``offload`` and twice under ``full`` (the backward kernels
+    once either way), the first step's losses are bit-equal across the
+    policies, every gradient leaf after one step lies within 2e-2 of
+    ``full``'s relative to max(1, max|ref|), the losses are finite and fall,
+    and with the moments in host memory the parameters after the steps are
+    bit-equal to the on-device optimizer's on the same gradients (replayed)
+    while the peak is lower by at least half the moments' bytes."""
+    import torch
+
+    from reprover_tpu_torch.training.optim import AdamWClip
+    from reprover_tpu_torch.training.tasks import param_leaves
+
+    cuda = device.type == "cuda"
+    results: dict = {}
+    launches: dict = {}
+    for tag, loss_fn, cfg, params, batch, forward_kernels in _remat_cases(device, tiny):
+        n_params = sum(t.numel() for t in param_leaves(params))
+        rows, first_grads = {}, {}
+        for policy in REMAT["policies"] + (OFFLOAD_OPT,):
+            row, grads0, grads, final, run_launches = _policy_run(
+                policy, loss_fn, cfg, params, batch, device, record_all=policy == OFFLOAD_OPT,
+                profile=tag == "gen" and policy != OFFLOAD_OPT)
+            for name, n in run_launches.items():
+                launches[name] = launches.get(name, 0) + n
+            if policy != "full":
+                row["grad_error_vs_full"] = _grad_error(grads0, first_grads["full"])
+            first_grads[policy] = grads0
+            if policy == OFFLOAD_OPT:
+                # The on-device optimizer on the same gradients, from the same weights.
+                leaves = [t.to(device, copy=True).requires_grad_(True)
+                          for t in param_leaves(params)]
+                ref = AdamWClip(leaves, GEN["lr"], 0)
+                for step_grads in grads:
+                    for p, g in zip(leaves, step_grads):
+                        p.grad = g.to(device)
+                    ref.step()
+                row["params_bit_equal"] = all(torch.equal(a, b) for a, b in zip(final, leaves))
+                del leaves, ref
+            del grads, final
+            if cuda:
+                torch.cuda.empty_cache()
+            rows[policy] = row
+            log(f"[remat] {tag} {json.dumps(row)}")
+            expected = 1 if policy in ("lite", "offload") else 2
+            got = row["step1_attention_launches"]
+            for name, layers in forward_kernels.items():
+                if cuda and (got.get(name, 0) != expected * layers
+                             or got.get(name + "_bwd_dq", 0) != layers
+                             or got.get(name + "_bwd_dkv", 0) != layers):
+                    raise AssertionError(
+                        f"{tag} {policy}: {name} launched {got.get(name, 0)} times in one step "
+                        f"(expected {expected} per layer, {layers} layers), its backward "
+                        f"kernels {got.get(name + '_bwd_dq', 0)} and "
+                        f"{got.get(name + '_bwd_dkv', 0)} (expected {layers})")
+            losses = row["losses"]
+            if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+                raise AssertionError(f"{tag} {policy}: losses not finite or not falling: {losses}")
+            if row.get("grad_error_vs_full", 0.0) > BF16_REL_TOL:
+                raise AssertionError(f"{tag} {policy}: a gradient leaf differs from full's by "
+                                     f"{row['grad_error_vs_full']} of max(1, max|ref|)")
+        first = {p: rows[p]["losses"][0] for p in rows}
+        if len(set(first.values())) != 1:
+            raise AssertionError(f"{tag}: first-step losses differ across the policies: {first}")
+        off = rows[OFFLOAD_OPT]
+        if not off["params_bit_equal"]:
+            raise AssertionError(f"{tag}: parameters with the moments in host memory differ from "
+                                 f"the on-device optimizer's")
+        moments_gib = 2 * 4 * n_params / 2**30
+        if cuda:
+            saved = rows["full"]["peak_GiB"] - off["peak_GiB"]
+            log(f"[remat] {tag} offload_optimizer: peak {rows['full']['peak_GiB']:.3f} -> "
+                f"{off['peak_GiB']:.3f} GiB (moments {moments_gib:.3f} GiB, {n_params} "
+                f"parameters), optimizer {rows['full']['mean_optimizer_ms']:.2f} -> "
+                f"{off['mean_optimizer_ms']:.2f} ms")
+            if saved < moments_gib / 2:
+                raise AssertionError(f"{tag}: offload_optimizer lowered the peak by {saved:.3f} "
+                                     f"GiB, less than half the moments' {moments_gib:.3f}")
+        results[tag] = dict(rows=rows, n_params=n_params, moments_GiB=moments_gib)
+        del params, batch
+    results["launches"] = launches
+    return results
+
+
+def _without_safetensors(fn, *args):
+    """``fn(*args)`` with the ``safetensors`` package unimportable."""
+    hidden = {name: sys.modules.pop(name) for name in list(sys.modules)
+              if name == "safetensors" or name.startswith("safetensors.")}
+    sys.modules["safetensors"] = None
+    try:
+        return fn(*args)
+    finally:
+        del sys.modules["safetensors"]
+        sys.modules.update(hidden)
+
+
+def phase_pretrain(device, work: str, bench: str, tiny: bool = False) -> dict:
+    """Span-corruption pretraining through its CLI on the phase-4 corpus:
+    byt5-small width (bf16 over fp32 masters, seeded random init) at the
+    defaults ([8, 1024] -> [8, 256], lr 1e-3 with 1000 warmup steps, the
+    divergence guard on), remat ``lite``, ``PRETRAIN["steps"]`` steps, one
+    validation and ``--export_dir``; every logged loss finite, ``loss_val``,
+    ``emb_eff_rank`` and ``cos_offdiag_std`` logged, the nine full-row
+    attention kernels launched, the export reloaded through the port's
+    ``load_hf_t5`` with ``safetensors`` unimportable and bit-equal to the
+    trained parameters. Then ``generation.main fit --model.model_name
+    <export>`` (phase 10's data) for ``PRETRAIN["finetune_steps"]`` steps, and
+    pretraining for ``PRETRAIN["offload_steps"]`` steps with remat
+    ``offload`` and ``offload_optimizer``. ms per step (the log windows'
+    wall time) and peak GiB of each run."""
+    import torch
+
+    from reprover_tpu_torch.generation.main import main as generation_main
+    from reprover_tpu_torch.models.hf_import import load_hf_t5
+    from reprover_tpu_torch.models.t5 import fuse_mlp_params
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.training.pretrain import PretrainDataModule
+    from reprover_tpu_torch.training.pretrain import main as pretrain_main
+
+    cuda = device.type == "cuda"
+    corpus = os.path.join(bench, "corpus.jsonl")
+    dm = PretrainDataModule(corpus)
+    log(f"[pretrain] stream {len(dm.train_ids)} train and {len(dm.val_ids)} val bytes, window "
+        f"{dm.window}")
+    if len(dm.val_ids) <= dm.window:
+        raise AssertionError("the corpus's held-out tail is shorter than one window")
+    out = os.path.join(work, "pretrain")
+    export = os.path.join(out, "hf")
+    launches: dict = {}
+
+    def run(tag: str, fn, argv: list, log_dir: str, steps: int) -> tuple:
+        tfa.reset_launch_counts()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = fn(["fit"] + argv)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+        run_launches = dict(tfa.KERNEL_LAUNCHES)
+        for name, n in run_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        sps = [r["steps_per_sec"] for r in recs if "steps_per_sec" in r]
+        val = [r for r in recs if "loss_val" in r]
+        row = dict(run=tag, steps=state.step, fit_s=fit_s, losses=losses,
+                   ms_per_step=[1e3 / x for x in sps], validation=val[-1] if val else None,
+                   launches={k: n for k, n in run_launches.items() if n})
+        if cuda:
+            row["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[pretrain] {json.dumps(row)}")
+        if state.step != steps or not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{tag}: ran {state.step} steps, losses {losses}")
+        return state, row
+
+    def pretrain_argv(tag: str, steps: int, extra: list) -> tuple:
+        log_dir = os.path.join(out, tag)
+        return (["--device", device.type, "--data.data_path", corpus,
+                 "--trainer.max_steps", str(steps), "--trainer.val_interval", str(steps),
+                 "--trainer.log_interval", str(PRETRAIN["log_interval"]), "--log_dir", log_dir]
+                + (["--model.tiny", "true"] if tiny else []) + extra, log_dir)
+
+    argv, log_dir = pretrain_argv("lite", PRETRAIN["steps"],
+                                  ["--model.remat_policy", "lite", "--export_dir", export])
+    state, lite = run("lite", pretrain_main, argv, log_dir, PRETRAIN["steps"])
+    if not lite["validation"] or not {"emb_eff_rank", "cos_offdiag_std"} <= set(lite["validation"]):
+        raise AssertionError("metrics.jsonl lacks loss_val, emb_eff_rank or cos_offdiag_std")
+    if cuda and min(lite["launches"].get(name, 0) for name in FULL_ROW_KERNELS) < 1:
+        raise AssertionError(f"pretraining did not launch every full-row kernel: "
+                             f"{lite['launches']}")
+    loaded, _ = _without_safetensors(load_hf_t5, export)
+    loaded = _flat(fuse_mlp_params(loaded))
+    trained = {name: t.detach().cpu() for name, t in _flat(state.params).items()}
+    mismatched = [name for name, t in trained.items() if not torch.equal(loaded[name], t)]
+    if set(loaded) != set(trained) or mismatched:
+        raise AssertionError(f"the export reloaded different parameters: {mismatched}")
+    log(f"[pretrain] export reloaded without safetensors: {len(trained)} tensors bit-equal")
+    del state, loaded, trained
+
+    preds = os.path.join(work, "logs", "predictions.pickle")
+    gen = dict(GEN, eval_batch_size=8)
+    argv = _gen_argv(device, os.path.join(out, "finetune"), bench, preds, tiny, gen)
+    init = argv.index("--model.tiny" if tiny else "--model.random_init")
+    argv[init:init + 2] = ["--model.model_name", export]
+    steps = PRETRAIN["finetune_steps"]
+    argv += ["--trainer.max_steps", str(steps), "--trainer.val_interval", str(steps),
+             "--trainer.log_interval", "1", "--trainer.monitor", "loss_val",
+             "--trainer.monitor_mode", "min", "--trainer.patience", "99"]
+    state, finetune = run("finetune_from_export", generation_main, argv,
+                          os.path.join(out, "finetune", "glogs"), steps)
+    del state
+
+    argv, log_dir = pretrain_argv("offload", PRETRAIN["offload_steps"],
+                                  ["--model.remat_policy", "offload",
+                                   "--model.offload_optimizer", "true"])
+    state, offload = run("offload", pretrain_main, argv, log_dir, PRETRAIN["offload_steps"])
+    if not state.optimizer.offload_moments:
+        raise AssertionError("--model.offload_optimizer true left the moments on the device")
+    del state
+    return dict(lite=lite, finetune=finetune, offload=offload, launches=launches)
+
+
 REPLACES = {
     "encoder_attn": "reprover_tpu/ops/flash_attention.py:176",
     "encoder_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:607",
@@ -2950,14 +3362,23 @@ def main() -> int:
         ft = phase("finetune", phase_finetune, device, work, bench)
         phase("finetune_steps", phase_finetune_steps, device)
         bs = phase("bisect", phase_bisect, device)
+        torch.cuda.empty_cache()
+        rm = phase("remat", phase_remat, device)
+        torch.cuda.empty_cache()
+        pt = phase("pretrain", phase_pretrain, device, work, bench)
     log(f"[smoke] phase seconds {json.dumps(seconds)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
     # Launches on the main paths: serving, retriever and generator training,
-    # streaming byt5-small, LLaMA-7B int4 and int8.
+    # the remat policies' steps, pretraining (and fine-tuning from its
+    # export), streaming byt5-small, LLaMA-7B int4 and int8.
     launches = {name: tr["launches"][name] + gt["launches"][name]
+                + rm["launches"].get(name, 0) + pt["launches"].get(name, 0)
                 for name in REPLACES if name not in SERVING_SOURCES}
     launches["encoder_attn"] += sl["launches"]
+    log(f"[smoke] phase-23 (remat) launches "
+        f"{json.dumps({k: n for k, n in rm['launches'].items() if n})}; phase-24 (pretraining) "
+        f"launches {json.dumps({k: n for k, n in pt['launches'].items() if n})}")
     entries = kernel_entries(rows + dec_fwd, bwd_rows + dec_bwd, launches)
     llama_cache = [32, LLAMA["num_slots"], LLAMA["num_beams"], 32, LLAMA["dec"], 128]
     serving_launches = {
@@ -2968,11 +3389,11 @@ def main() -> int:
     }
     entries += [serving_entry(name, serving_rows, n, llama_cache)
                 for name, n in serving_launches.items()]
-    # The long route's main paths: long serving and generator training at
-    # 8192 bytes. The causal mode runs only in phase 15: no path has a
+    # The long route's main paths: long serving, generator training at 8192
+    # bytes and phase 23's long step. The causal mode runs only in phase 15: no path has a
     # target past 4096 (T <= 512).
     long_launches = {a + p: ls["launches"].get(a + p, 0) + lg["launches"][a + p]
-                     for a in ATTENTIONS for p in LONG_PARTS}
+                     + rm["launches"].get(a + p, 0) for a in ATTENTIONS for p in LONG_PARTS}
     log(f"[smoke] long-route launches on the main paths {json.dumps(long_launches)}; the "
         f"causal_attn_long kernels are launched by the check phase only (T <= 512 on every "
         f"path)")

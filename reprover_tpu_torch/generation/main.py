@@ -20,9 +20,10 @@ rule). Optional end-to-end Pass@1 validation runs when
 available, served by the port's ``InferenceService`` when
 ``eval.num_workers > 1``.
 
-Not ported (each raises with a pointer into ROADMAP.md):
-``--model.offload_optimizer``, remat policies other than ``full``, and
-``--data_parallel`` over more than one card.
+``--model.remat_policy`` takes ``full``, ``lite`` or ``offload`` and
+``--model.offload_optimizer true`` keeps Adam's moments in host memory.
+Not ported (raises with a pointer into ROADMAP.md): ``--data_parallel``
+over more than one card.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ class ModelConfig:
     # Activation checkpointing per layer, default ON as in the JAX package:
     # byt5-small at the reference batch keeps far fewer activations with it.
     remat: bool = True
-    remat_policy: str = "full"  # "lite" and "offload" are not ported
-    offload_optimizer: bool = False  # not ported, raises
+    remat_policy: str = "full"  # "full", "lite" or "offload" (models/t5.py)
+    # Adam's moments in pinned host memory, streamed in for each update.
+    offload_optimizer: bool = False
 
 
 @dataclasses.dataclass
@@ -111,10 +113,7 @@ def _build(cfg: GenerationConfig) -> Tuple[Any, Any, Any]:
         resolve_device,
     )
     from reprover_tpu_torch.retrieval.main import DATA_PARALLEL_TODO
-    from reprover_tpu_torch.training.tasks import OFFLOAD_OPT_TODO
 
-    if cfg.model.offload_optimizer:
-        raise NotImplementedError(OFFLOAD_OPT_TODO)
     device = resolve_device(cfg.device)
     if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(DATA_PARALLEL_TODO.format(torch.cuda.device_count()))
@@ -217,13 +216,17 @@ def run_fit(cfg: GenerationConfig, environment: Any = None) -> Any:
         generation_loss,
         init_train_state,
         make_train_step,
+        offload_opt_state,
     )
     from reprover_tpu_torch.utils.metrics import make_writer
 
     dm, model, model_cfg = _build(cfg)
     dm.setup("fit")
     state = init_train_state(model.params, cfg.model.lr, cfg.model.warmup_steps)
-    step_fn = make_train_step(generation_loss, model_cfg)
+    if cfg.model.offload_optimizer:
+        state = offload_opt_state(state)
+    step_fn = make_train_step(generation_loss, model_cfg,
+                              offload_opt=cfg.model.offload_optimizer)
     writer = make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval)
     writer.write_hparams(config_to_dict(cfg))
 

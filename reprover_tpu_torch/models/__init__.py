@@ -1,5 +1,5 @@
-"""T5 (ByT5) in PyTorch, HF checkpoint import, and the weight bridge from
-the JAX package."""
+"""T5 (ByT5) in PyTorch, HF checkpoint import and export, and the weight
+bridge from the JAX package."""
 
 from reprover_tpu_torch.models.t5 import (
     DecodeState,
@@ -17,7 +17,11 @@ from reprover_tpu_torch.models.t5 import (
     place_params,
     shift_right,
 )
-from reprover_tpu_torch.models.hf_import import load_hf_t5, params_from_torch_state_dict
+from reprover_tpu_torch.models.hf_import import (
+    export_hf_t5,
+    load_hf_t5,
+    params_from_torch_state_dict,
+)
 from reprover_tpu_torch.models.bridge import params_from_jax
 
 __all__ = [
@@ -35,6 +39,7 @@ __all__ = [
     "place_master_params",
     "place_params",
     "shift_right",
+    "export_hf_t5",
     "load_hf_t5",
     "params_from_torch_state_dict",
     "params_from_jax",

@@ -18,25 +18,41 @@ The encoder's self-attention goes through
 the teacher-forced decoder's (:func:`decode`) through
 ``causal_flash_attention`` and ``cross_flash_attention``: on a CUDA tensor
 those are the hand-written kernels, on a CPU tensor their plain versions.
-The incremental decoder, and ``decode`` with a ``decoder_mask``, use plain
-attention, as the JAX package leaves it to XLA. Their attention scores are
-the matrix product's output in ``compute_dtype`` before the float32 softmax.
+The incremental decoder, and ``decode`` with a ``decoder_mask`` or with
+``flash_attention=False``, use plain attention, as the JAX package leaves
+it to XLA. Their attention scores are the matrix product's output in
+``compute_dtype`` before the float32 softmax.
+
+Training rematerializes each layer (``cfg.remat``) with one of the JAX
+package's three policies: ``full`` recomputes the whole layer in backward;
+``lite`` keeps the products the JAX package names ``qkv`` and
+``mlp_hidden`` and the attention operators' outputs (``attn_out``, with its
+LSE) in device memory, so the backward recomputes only the norms, the
+elementwise ops, the weight casts and the output projection; ``offload``
+keeps that same set in pinned host memory instead.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import threading
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from reprover_tpu_torch.models.quantize import QuantWeight, quantized_dense, quantized_logits
 from reprover_tpu_torch.ops.flash_attention import (
+    ATTENTION_OPS,
     causal_flash_attention,
     cross_flash_attention,
+    encoder_attention_reference,
     encoder_flash_attention,
+    keeping_outputs,
 )
 
 Params = Dict[str, Any]
@@ -69,8 +85,10 @@ class T5Config:
     compute_dtype: torch.dtype = torch.float32
     # Rematerialize each encoder and teacher-forced decoder layer's
     # activations in backward (``torch.utils.checkpoint``): the JAX
-    # package's ``remat``. Only the "full" policy is ported; "lite" and
-    # "offload" raise.
+    # package's ``remat``, with its policies (REMAT_POLICIES): "full"
+    # recomputes the whole layer; "lite" keeps the named products and the
+    # attention's outputs on the device; "offload" keeps them in pinned
+    # host memory.
     remat: bool = False
     remat_policy: str = "full"
     # Send the encoder's self-attention down the long route (the KV-blocked
@@ -254,10 +272,19 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0))))
 
 
-def _dense(x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
+def _dense(x: torch.Tensor, w: Any, dtype: torch.dtype, name: Optional[str] = None
+           ) -> torch.Tensor:
+    """``x @ w`` in ``dtype``; ``name`` is the JAX package's checkpoint name of
+    the product, which a selective remat policy reads (:data:`SAVED_NAMES`)."""
     if isinstance(w, QuantWeight):  # weight-only int8/int4 serving
         return quantized_dense(x, w, dtype)
-    return torch.matmul(x.to(dtype), w.to(dtype))
+    if name is None:
+        return torch.matmul(x.to(dtype), w.to(dtype))
+    _naming.name = name
+    try:
+        return torch.matmul(x.to(dtype), w.to(dtype))
+    finally:
+        _naming.name = None
 
 
 def relative_position_bucket(
@@ -333,9 +360,10 @@ def attention(
 def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config) -> torch.Tensor:
     dtype = cfg.compute_dtype
     if "wi" in p:
-        gate, up = _dense(x, p["wi"], dtype).chunk(2, dim=-1)
+        gate, up = _dense(x, p["wi"], dtype, "mlp_hidden").chunk(2, dim=-1)
     else:
-        gate, up = _dense(x, p["wi_0"], dtype), _dense(x, p["wi_1"], dtype)
+        gate, up = _dense(x, p["wi_0"], dtype, "mlp_hidden"), _dense(x, p["wi_1"], dtype,
+                                                                      "mlp_hidden")
     return _dense(gelu_new(gate) * up, p["wo"], dtype)
 
 
@@ -360,20 +388,137 @@ def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ #
-# Encoder
+# Rematerialization
 # ------------------------------------------------------------------ #
 
-
-REMAT_TODO = (
-    "remat_policy {!r} is not ported: only 'full' (torch.utils.checkpoint per "
-    "layer) is (ROADMAP.md Queue 1 item 5)"
-)
+REMAT_POLICIES = ("full", "lite", "offload")
+# The products a selective policy keeps, by the JAX package's checkpoint
+# names (``t5.py:310-326, 364-368``); it also keeps the outputs of the
+# attention operators (ATTENTION_OPS), the JAX package's "attn_out", whose
+# backward needs them (out and LSE) and would otherwise run the forward
+# kernel again. The fp32 masters' casts to ``compute_dtype`` are not kept:
+# each layer would hold a copy of its weights.
+SAVED_NAMES = frozenset({"qkv", "mlp_hidden"})
+_PRODUCTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                       torch.ops.aten.addmm.default})
+_naming = threading.local()  # .name: the checkpoint name of the product being computed
 
 
 def check_remat_policy(cfg: T5Config) -> None:
-    """Raise ``NotImplementedError`` for a remat policy the port lacks."""
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(REMAT_TODO.format(cfg.remat_policy))
+    """Raise ``ValueError`` for a remat policy that is not one of
+    :data:`REMAT_POLICIES` (the JAX package takes any other name as
+    "full")."""
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got "
+                         f"{cfg.remat_policy!r}")
+
+
+def _keeps(func: Any) -> bool:
+    """Whether a selective policy keeps this operator's outputs."""
+    if func in ATTENTION_OPS:
+        return True
+    return func in _PRODUCTS and getattr(_naming, "name", None) in SAVED_NAMES
+
+
+def _park(t: torch.Tensor, offload: bool) -> Tuple[torch.Tensor, Optional[torch.device]]:
+    """A kept output: the tensor itself, or with ``offload`` a CUDA tensor's
+    copy in pinned host memory (asynchronous, ordered on the stream before
+    anything that reuses the device memory) and the device to return it to."""
+    if offload and t.is_cuda:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host, t.device
+    return t.detach(), None
+
+
+def _unpark(kept: Tuple[torch.Tensor, Optional[torch.device]]) -> torch.Tensor:
+    t, device = kept
+    return t.detach() if device is None else t.to(device, non_blocking=True)
+
+
+def _park_outputs(out: Any, offload: bool) -> Tuple[bool, List[Any]]:
+    """An operator's output (a tensor or a tuple of them), parked."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return isinstance(out, tuple), [_park(t, offload) for t in outs]
+
+
+def _unpark_outputs(kept: Tuple[bool, List[Any]]) -> Any:
+    is_tuple, parked = kept
+    outs = tuple(_unpark(x) for x in parked)
+    return outs if is_tuple else outs[0]
+
+
+class _PolicyMode(TorchDispatchMode):
+    """A dispatch mode of a selective policy; while it is active the
+    attention runs as its operator on every device (``keeping_outputs``)."""
+
+    def __enter__(self) -> Any:
+        self._keeping = keeping_outputs()
+        self._keeping.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc: Any) -> Any:
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._keeping.__exit__(*exc)
+
+
+class _KeepMode(_PolicyMode):
+    """A layer's forward under a selective policy: every operator runs, and
+    the outputs of those it keeps (:func:`_keeps`) are stored in order."""
+
+    def __init__(self, kept: Deque[Any], offload: bool) -> None:
+        super().__init__()
+        self.kept, self.offload = kept, offload
+
+    def __torch_dispatch__(self, func: Any, types: Any, args: Tuple[Any, ...] = (),
+                           kwargs: Optional[Dict[str, Any]] = None) -> Any:
+        out = func(*args, **(kwargs or {}))
+        if _keeps(func):
+            self.kept.append(_park_outputs(out, self.offload))
+        return out
+
+
+class _ReplayMode(_PolicyMode):
+    """That layer's recompute in backward: a kept operator returns its stored
+    outputs (back on the device) instead of running; every other one runs
+    again."""
+
+    def __init__(self, kept: Deque[Any]) -> None:
+        super().__init__()
+        self.kept = kept
+
+    def __torch_dispatch__(self, func: Any, types: Any, args: Tuple[Any, ...] = (),
+                           kwargs: Optional[Dict[str, Any]] = None) -> Any:
+        if _keeps(func):
+            return _unpark_outputs(self.kept.popleft())
+        return func(*args, **(kwargs or {}))
+
+
+def _rematerialized(layer: Callable[..., torch.Tensor], cfg: T5Config
+                    ) -> Callable[..., torch.Tensor]:
+    """``layer`` under ``torch.utils.checkpoint`` with ``cfg.remat_policy``
+    (the JAX package's ``_layer_remat``). A selective policy is a pair of
+    dispatch modes: the forward stores what it keeps, the recompute reads it
+    back in the same order."""
+    check_remat_policy(cfg)
+    if cfg.remat_policy == "full":
+        return functools.partial(torch.utils.checkpoint.checkpoint, layer, use_reentrant=False)
+    offload = cfg.remat_policy == "offload"
+
+    def run(*args: Any) -> torch.Tensor:
+        kept: Deque[Any] = collections.deque()
+        return torch.utils.checkpoint.checkpoint(
+            layer, *args, use_reentrant=False,
+            context_fn=lambda: (_KeepMode(kept, offload), _ReplayMode(kept)))
+
+    return run
+
+
+# ------------------------------------------------------------------ #
+# Encoder
+# ------------------------------------------------------------------ #
 
 
 def encode(
@@ -389,11 +534,12 @@ def encode(
     the kernels mask their own ragged tile, so no length condition applies
     (the JAX package's flash path needs ``L % 128 == 0``). Past 4096, or at
     any length with ``cfg.flash_block_kv``, it takes the long route.
-    ``attention_fn`` lets a check run the plain version on the card instead.
-    With ``cfg.remat`` and grad on, each layer runs under
-    ``torch.utils.checkpoint`` and is recomputed in backward.
+    ``attention_fn`` lets a check, or :func:`forward_loss`'s
+    ``flash_attention=False``, run the plain version
+    (``encoder_attention_reference``) instead. With ``cfg.remat`` and grad
+    on, each layer runs under ``torch.utils.checkpoint`` with
+    ``cfg.remat_policy``.
     """
-    check_remat_policy(cfg)
     dtype = cfg.compute_dtype
     enc = params["encoder"]
     eps = cfg.layer_norm_epsilon
@@ -403,9 +549,9 @@ def encode(
         p = lp["attn"]
         n = rms_norm(h, lp["attn_norm"], eps)
         attn = attention_fn(
-            _dense(n, p["q"], dtype),
-            _dense(n, p["k"], dtype),
-            _dense(n, p["v"], dtype),
+            _dense(n, p["q"], dtype, "qkv"),
+            _dense(n, p["k"], dtype, "qkv"),
+            _dense(n, p["v"], dtype, "qkv"),
             attention_mask,
             enc["rel_bias"],
             num_heads=cfg.num_heads,
@@ -416,13 +562,11 @@ def encode(
         h = h + _dense(attn, p["o"], dtype)
         return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
 
-    remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.remat and torch.is_grad_enabled():
+        layer = _rematerialized(layer, cfg)
     h = params["shared_embedding"].to(dtype)[input_ids]
     for lp in unbind_layers(enc["layers"], cfg.num_encoder_layers):
-        if remat:
-            h = torch.utils.checkpoint.checkpoint(layer, h, lp, use_reentrant=False)
-        else:
-            h = layer(h, lp)
+        h = layer(h, lp)
     return rms_norm(h, enc["final_norm"], eps)
 
 
@@ -445,9 +589,9 @@ def _attn_block(
     """Plain multi-head attention of ``x`` over ``kv_src`` plus the output
     projection (the naive path of :func:`decode`)."""
     dtype = cfg.compute_dtype
-    q = _split_heads(_dense(x, p["q"], dtype), cfg.num_heads, cfg.d_kv)
-    k = _split_heads(_dense(kv_src, p["k"], dtype), cfg.num_heads, cfg.d_kv)
-    v = _split_heads(_dense(kv_src, p["v"], dtype), cfg.num_heads, cfg.d_kv)
+    q = _split_heads(_dense(x, p["q"], dtype, "qkv"), cfg.num_heads, cfg.d_kv)
+    k = _split_heads(_dense(kv_src, p["k"], dtype, "qkv"), cfg.num_heads, cfg.d_kv)
+    v = _split_heads(_dense(kv_src, p["v"], dtype, "qkv"), cfg.num_heads, cfg.d_kv)
     return _dense(_merge_heads(attention(q, k, v, bias, dtype)), p["o"], dtype)
 
 
@@ -458,6 +602,7 @@ def decode(
     encoder_mask: torch.Tensor,  # [B, S]
     decoder_input_ids: torch.Tensor,  # int [B, T]
     decoder_mask: Optional[torch.Tensor] = None,  # [B, T] or None (causal only)
+    flash_attention: bool = True,
 ) -> torch.Tensor:
     """Teacher-forced decoder forward -> logits ``[B, T, vocab]`` fp32.
 
@@ -466,27 +611,27 @@ def decode(
     ``causal_flash_attention`` and ``cross_flash_attention`` at any length:
     the kernels on the card, their plain versions on the CPU; a source or
     target past 4096 takes the long route there, as in the JAX package,
-    which passes no ``block_kv`` to them. With a
-    ``decoder_mask`` the naive path runs, padding keys masked with the finite
-    ``NEG_INF``, as in the JAX package. With ``cfg.remat`` and grad on, each
-    layer runs under ``torch.utils.checkpoint``.
+    which passes no ``block_kv`` to them. With a ``decoder_mask``, or with
+    ``flash_attention=False``, the naive path runs, padding keys masked
+    with the finite ``NEG_INF``, as in the JAX package. With ``cfg.remat``
+    and grad on, each layer runs under ``torch.utils.checkpoint`` with
+    ``cfg.remat_policy``.
     """
-    check_remat_policy(cfg)
     dtype = cfg.compute_dtype
     dec = params["decoder"]
     eps = cfg.layer_norm_epsilon
     enc_h = encoder_hidden.to(dtype)
 
-    if decoder_mask is None:
+    if decoder_mask is None and flash_attention:
 
         def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
             n = rms_norm(h, lp["self_norm"], eps)
             p = lp["self_attn"]
             # Flat [B, T, H*d] projection layout straight into the kernels.
             attn = causal_flash_attention(
-                _dense(n, p["q"], dtype),
-                _dense(n, p["k"], dtype),
-                _dense(n, p["v"], dtype),
+                _dense(n, p["q"], dtype, "qkv"),
+                _dense(n, p["k"], dtype, "qkv"),
+                _dense(n, p["v"], dtype, "qkv"),
                 dec["rel_bias"],
                 num_heads=cfg.num_heads,
                 num_buckets=cfg.relative_attention_num_buckets,
@@ -496,9 +641,9 @@ def decode(
             pc = lp["cross_attn"]
             n = rms_norm(h, lp["cross_norm"], eps)
             attn = cross_flash_attention(
-                _dense(n, pc["q"], dtype),
-                _dense(enc_h, pc["k"], dtype),
-                _dense(enc_h, pc["v"], dtype),
+                _dense(n, pc["q"], dtype, "qkv"),
+                _dense(enc_h, pc["k"], dtype, "qkv"),
+                _dense(enc_h, pc["v"], dtype, "qkv"),
                 encoder_mask,
                 num_heads=cfg.num_heads,
             )
@@ -510,7 +655,8 @@ def decode(
         self_bias = compute_position_bias(dec["rel_bias"], positions, positions, False, cfg)
         causal = (positions[None, :] <= positions[:, None])[None, None]
         self_bias = torch.where(causal, self_bias, torch.full_like(self_bias, NEG_INF))
-        self_bias = self_bias + _mask_bias(decoder_mask)
+        if decoder_mask is not None:
+            self_bias = self_bias + _mask_bias(decoder_mask)
         cross_bias = _mask_bias(encoder_mask)
 
         def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
@@ -520,13 +666,11 @@ def decode(
             h = h + _attn_block(n, enc_h, lp["cross_attn"], cross_bias, cfg)
             return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
 
-    remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.remat and torch.is_grad_enabled():
+        layer = _rematerialized(layer, cfg)
     h = params["shared_embedding"].to(dtype)[decoder_input_ids]
     for lp in unbind_layers(dec["layers"], cfg.num_decoder_layers):
-        if remat:
-            h = torch.utils.checkpoint.checkpoint(layer, h, lp, use_reentrant=False)
-        else:
-            h = layer(h, lp)
+        h = layer(h, lp)
     return _lm_logits(params, cfg, rms_norm(h, dec["final_norm"], eps))
 
 
@@ -550,10 +694,16 @@ def forward_loss(
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor,
     labels: torch.Tensor,
+    flash_attention: bool = True,
 ) -> torch.Tensor:
-    """Seq2seq CE loss with HF ``labels`` semantics (shift-right inside)."""
-    enc = encode(params, cfg, input_ids, attention_mask)
-    logits = decode(params, cfg, enc, attention_mask, shift_right(labels, cfg))
+    """Seq2seq CE loss with HF ``labels`` semantics (shift-right inside).
+    ``flash_attention=False`` runs the plain attention in the encoder and the
+    decoder instead of the kernels: the JAX package's naive path, an A/B
+    switch (pretraining's ``--model.flash false``), never a fallback."""
+    attention_fn = encoder_flash_attention if flash_attention else encoder_attention_reference
+    enc = encode(params, cfg, input_ids, attention_mask, attention_fn)
+    logits = decode(params, cfg, enc, attention_mask, shift_right(labels, cfg),
+                    flash_attention=flash_attention)
     return cross_entropy_loss(logits, labels)
 
 

@@ -33,10 +33,14 @@ bias, drop masked key columns, take an exact fp32 softmax and multiply by
 also stores each row's log-sum-exp.
 
 The JAX package wires the backward kernels with ``jax.custom_vjp``; here
-:class:`_KernelAttention`, a ``torch.autograd.Function`` taking the
-attention as its first argument, does it for all three. It saves q, k, v,
-the mask, the bias table, the output and the LSE (never an ``[Lq, Lk]``
-tensor), and its backward rebuilds ``P = exp(S - LSE)`` tile by tile. The
+:func:`attention_op`, an operator of PyTorch's dispatcher (``torch.library``)
+taking the attention's mode as an argument, does it for all four, with
+the forward kernel as its CUDA implementation, the plain version as its
+CPU one and the backward kernels (or their plain versions) as its
+gradient. Being an operator, it is visible to a rematerialization policy,
+which can keep its outputs (``models/t5.py``). It saves q, k, v, the mask,
+the bias table, the output and the LSE (never an ``[Lq, Lk]`` tensor), and
+its backward rebuilds ``P = exp(S - LSE)`` tile by tile. The
 relative-bias gradient comes out of the dQ kernel as sums of dS per clamped
 relative position ``k - q`` (``2*max_distance+1`` bins), which
 :func:`fold_rel_bins` folds into the buckets here.
@@ -76,10 +80,12 @@ Choices that differ from the Pallas kernels on purpose:
 
 A CPU tensor goes to the plain versions (:func:`encoder_attention_reference`,
 :func:`causal_attention_reference`, :func:`cross_attention_reference`,
-:func:`scaled_causal_attention_reference`, whose
-autograd is the backward's plain version, and the step-by-step
-``*_backward_reference`` functions); a CUDA tensor launches the kernels or
-raises. There is no fallback between the two.
+:func:`scaled_causal_attention_reference`) under plain autograd; while a
+selective remat policy keeps the operators' outputs
+(:func:`keeping_outputs`) it goes through :func:`attention_op` too, whose
+gradient on the CPU is the step-by-step ``*_backward_reference`` functions.
+A CUDA tensor launches the kernels or raises. There is no fallback between
+the two.
 
 **The long route.** As the JAX package does, the four functions switch to
 its KV-blocked long-context kernels when ``block_kv > 0`` or a query or key
@@ -89,7 +95,7 @@ length passes :data:`LONG_CONTEXT` (4096): ``_encoder_attn_kernel_blockwise``
 forward does not save), ``delta`` in plain torch, ``_bwd_dq_kernel_blockwise``
 (:934, kernel 6) and ``_bwd_dkv_kernel_blockwise`` (:1034, kernel 7). Here
 they are the same CUDA sources on their ``LONG`` and ``LONG_LSE`` routes
-(``csrc/encoder_attn_common.cuh``), behind :class:`_LongAttention`, with a
+(``csrc/encoder_attn_common.cuh``), behind :func:`long_attention_op`, with a
 launch count of their own (``encoder_attn_long``, ``encoder_attn_long_lse``,
 ``encoder_attn_long_bwd_dq``, ``encoder_attn_long_bwd_dkv``, and the same for
 ``causal_``, ``cross_`` and ``scaled_causal_``). A far (query tile, key
@@ -107,8 +113,10 @@ result does not depend on its value.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import re
+import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -136,6 +144,7 @@ KERNEL_LAUNCHES: Dict[str, int] = {
 LONG_CONTEXT = 4096
 TILE = 64  # the kernels' query and key tile
 TMA_ALIGN = 16  # bytes: the bf16 kernels' tensor maps need aligned bases
+OP_NAMESPACE = "reprover_torch"  # the dispatcher's namespace of the forward operators
 
 # The head widths each mode's kernels are compiled for.
 HEAD_DIMS = {ENCODER: (64,), CAUSAL: (64,), CROSS: (64,), SCALED_CAUSAL: (64, 128)}
@@ -802,43 +811,104 @@ def encoder_attention_backward(
                              num_buckets, max_distance)
 
 
-class _KernelAttention(torch.autograd.Function):
-    """The forward kernel of one attention (``mode``) with its backward
-    kernels as its gradient."""
+_keeping = threading.local()  # .depth: keeping_outputs() contexts entered on this thread
 
-    @staticmethod
-    def forward(  # type: ignore[override]
-        ctx: Any,
-        mode: int,
-        q: torch.Tensor,
-        k: torch.Tensor,
-        v: torch.Tensor,
-        mask: torch.Tensor,
-        rel_bias: Optional[torch.Tensor],
-        num_heads: int,
-        num_buckets: int,
-        max_distance: int,
-    ) -> torch.Tensor:
-        mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
-        out, lse = _forward_cuda(mode, q, k, v, mask32, rel32, table, num_heads, max_distance,
-                                 True)
-        # Flash-style residuals: inputs, output and LSE, never an [Lq, Lk] tensor.
-        ctx.save_for_backward(q, k, v, mask32, rel32, out, lse)
-        ctx.geometry = (num_heads, num_buckets, max_distance)
-        ctx.mode = mode
-        ctx.bias_dtype = None if rel_bias is None else rel_bias.dtype
-        return out
 
-    @staticmethod
-    def backward(  # type: ignore[override]
-        ctx: Any, dout: torch.Tensor
-    ) -> Tuple[Optional[torch.Tensor], ...]:
-        q, k, v, mask32, rel32, out, lse = ctx.saved_tensors
-        dq, dk, dv, d_rel = _backward_kernels(
-            ctx.mode, q, k, v, mask32, rel32, out, lse, dout, *ctx.geometry
-        )
-        d_rel = None if d_rel is None else d_rel.to(ctx.bias_dtype)
-        return None, dq, dk, dv, None, d_rel, None, None, None
+@contextlib.contextmanager
+def keeping_outputs() -> Iterator[None]:
+    """Within this, a selective rematerialization policy records or replays
+    the attention operators' outputs on this thread (``models/t5.py``), so
+    the full-row route runs as :func:`attention_op` on CPU tensors too,
+    whose forward the policy can keep. Outside it, a CPU tensor's gradient
+    is plain autograd of the plain version, as it always was."""
+    _keeping.depth = getattr(_keeping, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _keeping.depth -= 1
+
+
+def _plain_forward(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], num_heads: int, num_buckets: int, max_distance: int,
+) -> torch.Tensor:
+    """The plain version of ``mode``'s full-row forward on its operands (for
+    the scaled causal mode, q already scaled)."""
+    if mode == ENCODER:
+        return encoder_attention_reference(q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                           max_distance)
+    if mode == CAUSAL:
+        return causal_attention_reference(q, k, v, rel_bias, num_heads, num_buckets,
+                                          max_distance)
+    if mode == CROSS:
+        return cross_attention_reference(q, k, v, mask, num_heads)
+    return scaled_causal_attention_reference(q, k, v, mask, num_heads, 1.0)
+
+
+# The forwards are operators of PyTorch's dispatcher, not autograd.Functions
+# around a ctypes call: a rematerialization policy (models/t5.py) sees an
+# operator's call and can keep its outputs, so the backward's recompute does
+# not run the forward again, where a launch from Python inside a Function
+# is invisible to it. Each operator has two implementations: on CPU tensors
+# the plain version, on CUDA tensors the kernel. A tensor on any other
+# device has none and raises.
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::attention", mutates_args=(), device_types="cpu")
+def attention_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor],
+    mode: int,
+    num_heads: int,
+    num_buckets: int,
+    max_distance: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-row forward of ``mode`` -> (out, LSE ``[B, H, Lq]`` fp32),
+    differentiable in q, k, v and ``rel_bias``; its gradient is the two
+    backward kernels (their plain versions on CPU tensors). This body is the
+    CPU implementation: the plain forward (for the scaled causal mode on its
+    operands, the scale already in q) and the plain LSE."""
+    return (_plain_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets, max_distance),
+            _lse_plain(mode, q, k, mask, rel_bias, num_heads, num_buckets, max_distance))
+
+
+@attention_op.register_kernel("cuda")
+def _attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], mode: int, num_heads: int, num_buckets: int,
+    max_distance: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
+    mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
+    return _forward_cuda(mode, q, k, v, mask32, rel32, table, num_heads, max_distance, True)
+
+
+def _save_residuals(ctx: Any, inputs: Tuple[Any, ...], output: Any) -> None:
+    """Flash-style residuals: the inputs and the output (and the LSE on the
+    full-row route), never an ``[Lq, Lk]`` tensor."""
+    q, k, v, mask, rel_bias, mode, num_heads, num_buckets, max_distance = inputs
+    outs = output if isinstance(output, tuple) else (output,)
+    ctx.save_for_backward(q, k, v, mask, rel_bias, *outs)
+    ctx.mode = mode
+    ctx.geometry = (num_heads, num_buckets, max_distance)
+
+
+def _attention_grad(ctx: Any, dout: torch.Tensor, _dlse: Any) -> Tuple[Optional[torch.Tensor], ...]:
+    q, k, v, mask, rel_bias, out, lse = ctx.saved_tensors
+    if _on_cpu(q, k, v, mask, rel_bias, out, lse, dout):
+        dq, dk, dv, d_rel = _backward_plain(ctx.mode, q, k, v, mask, rel_bias, out, lse, dout,
+                                            *ctx.geometry)
+    else:
+        dq, dk, dv, d_rel = _backward_kernels(ctx.mode, q, k, v, mask, rel_bias, out, lse, dout,
+                                              *ctx.geometry)
+    d_rel = None if d_rel is None else d_rel.to(rel_bias.dtype)
+    return dq, dk, dv, None, d_rel, None, None, None, None
+
+
+attention_op.register_autograd(_attention_grad, setup_context=_save_residuals)
 
 
 def _check_card(
@@ -868,13 +938,20 @@ def _kernel_attention(
     num_buckets: int,
     max_distance: int,
 ) -> torch.Tensor:
-    """The card path of the four public functions: checks, then the
-    autograd.Function when a gradient is wanted, else the forward kernel
-    alone (no LSE)."""
+    """The full-row route of the four public functions, on either device:
+    :func:`attention_op` when a gradient is wanted, else the forward alone
+    (the plain version on CPU tensors, the kernel without LSE on CUDA ones).
+    On CPU tensors the plain version under autograd stands for the operator
+    unless a selective remat policy keeps the operators' outputs
+    (:func:`keeping_outputs`)."""
+    cpu = _on_cpu(q, k, v, mask, rel_bias)
+    if _wants_grad(q, k, v, rel_bias) and (not cpu or getattr(_keeping, "depth", 0)):
+        return attention_op(q, k, v, mask, rel_bias, mode, num_heads, num_buckets,
+                            max_distance)[0]
+    if cpu:
+        return _plain_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                              max_distance)
     _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
-    if _wants_grad(q, k, v, rel_bias):
-        return _KernelAttention.apply(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
-                                      max_distance)
     mask32, rel32, table = _kernel_operands(mode, mask, rel_bias, num_buckets, max_distance)
     return _forward_cuda(mode, q, k, v, mask32, rel32, table, num_heads, max_distance, False)[0]
 
@@ -966,7 +1043,7 @@ def long_attention_reference(
     """Plain version of kernel 2 (the long-route forward of ``mode``): an
     fp32 online softmax over the 64-wide key tiles of :func:`_long_tiles`,
     the row max over valid keys only, output in q's dtype (0 for a row with
-    no valid key). Not differentiable: :class:`_LongAttention` gives it the
+    no valid key). Not differentiable: :func:`long_attention_op` gives it the
     plain backward steps as its gradient."""
     b, lq, _ = q.shape
     vh = _heads(v, num_heads)
@@ -1085,7 +1162,7 @@ def long_attention_forward(
 ) -> torch.Tensor:
     """The long route's forward -> out: :func:`long_attention_reference` on
     CPU tensors, kernel 2 on CUDA tensors (or an error). Not
-    differentiable; the public functions wrap it in :class:`_LongAttention`."""
+    differentiable; the public functions wrap it in :func:`long_attention_op`."""
     if _on_cpu(q, k, v, mask, rel_bias):
         return long_attention_reference(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
                                         max_distance)
@@ -1144,41 +1221,50 @@ def long_attention_backward(
     return dq, dk, dv, d_rel
 
 
-class _LongAttention(torch.autograd.Function):
-    """The long route of one attention (``mode``): kernel 2 forward, kernels
-    5, 6 and 7 as its gradient, or their plain versions on CPU tensors. Its
-    residuals are the JAX package's: q, k, v, the mask, the bias table and
-    the output, no LSE."""
+@torch.library.custom_op(f"{OP_NAMESPACE}::long_attention", mutates_args=(),
+                         device_types="cpu")
+def long_attention_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor],
+    mode: int,
+    num_heads: int,
+    num_buckets: int,
+    max_distance: int,
+) -> torch.Tensor:
+    """The long route of ``mode`` -> out: kernel 2 forward, kernels 5, 6 and
+    7 as its gradient, or their plain versions on CPU tensors (this body is
+    the CPU implementation). Its residuals are the JAX package's: q, k, v,
+    the mask, the bias table and the output, no LSE."""
+    return long_attention_reference(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                    max_distance)
 
-    @staticmethod
-    def forward(  # type: ignore[override]
-        ctx: Any,
-        mode: int,
-        q: torch.Tensor,
-        k: torch.Tensor,
-        v: torch.Tensor,
-        mask: torch.Tensor,
-        rel_bias: Optional[torch.Tensor],
-        num_heads: int,
-        num_buckets: int,
-        max_distance: int,
-    ) -> torch.Tensor:
-        out = long_attention_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
-                                     max_distance)
-        ctx.save_for_backward(q, k, v, mask, rel_bias, out)
-        ctx.geometry = (num_heads, num_buckets, max_distance)
-        ctx.mode = mode
-        return out
 
-    @staticmethod
-    def backward(  # type: ignore[override]
-        ctx: Any, dout: torch.Tensor
-    ) -> Tuple[Optional[torch.Tensor], ...]:
-        q, k, v, mask, rel_bias, out = ctx.saved_tensors
-        dq, dk, dv, d_rel = long_attention_backward(ctx.mode, q, k, v, mask, rel_bias, out, dout,
-                                                    *ctx.geometry)
-        d_rel = None if d_rel is None else d_rel.to(rel_bias.dtype)
-        return None, dq, dk, dv, None, d_rel, None, None, None
+@long_attention_op.register_kernel("cuda")
+def _long_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], mode: int, num_heads: int, num_buckets: int,
+    max_distance: int,
+) -> torch.Tensor:
+    return long_attention_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
+                                  max_distance)
+
+
+def _long_attention_grad(ctx: Any, dout: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+    q, k, v, mask, rel_bias, out = ctx.saved_tensors
+    dq, dk, dv, d_rel = long_attention_backward(ctx.mode, q, k, v, mask, rel_bias, out, dout,
+                                                *ctx.geometry)
+    d_rel = None if d_rel is None else d_rel.to(rel_bias.dtype)
+    return dq, dk, dv, None, d_rel, None, None, None, None
+
+
+long_attention_op.register_autograd(_long_attention_grad, setup_context=_save_residuals)
+
+# The operators a rematerialization policy keeps (models/t5.py).
+ATTENTION_OPS = (getattr(torch.ops, OP_NAMESPACE).attention.default,
+                 getattr(torch.ops, OP_NAMESPACE).long_attention.default)
 
 
 def _long_attention(
@@ -1193,11 +1279,11 @@ def _long_attention(
     max_distance: int,
 ) -> torch.Tensor:
     """The long route of the four public functions, on either device:
-    :class:`_LongAttention` when a gradient is wanted, else the forward
+    :func:`long_attention_op` when a gradient is wanted, else the forward
     alone (each checks what the kernels take)."""
     if _wants_grad(q, k, v, rel_bias):
-        return _LongAttention.apply(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
-                                    max_distance)
+        return long_attention_op(q, k, v, mask, rel_bias, mode, num_heads, num_buckets,
+                                 max_distance)
     return long_attention_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
                                   max_distance)
 
@@ -1216,7 +1302,9 @@ def encoder_flash_attention(
     """Bidirectional T5 self-attention -> ``[B, L, H*d]`` in the input dtype.
     Differentiable in q, k, v and ``rel_bias``.
 
-    CPU tensors: :func:`encoder_attention_reference` (plain autograd). CUDA
+    CPU tensors: :func:`encoder_attention_reference` (plain autograd; while a
+    selective remat policy keeps the operators' outputs,
+    :func:`attention_op` with the backward's plain version). CUDA
     tensors: the forward kernel (fp32 or bf16, head width 64, contiguous
     q/k/v, one device), with the backward kernels as its gradient when grad
     is on and an input requires it, or an error. ``block_kv > 0`` or ``L >
@@ -1227,10 +1315,6 @@ def encoder_flash_attention(
     if takes_long_route(block_kv, q.shape[1], k.shape[1]):
         return _long_attention(ENCODER, q, k, v, mask, rel_bias, num_heads, num_buckets,
                                max_distance)
-    if _on_cpu(q, k, v, mask, rel_bias):
-        return encoder_attention_reference(
-            q, k, v, mask, rel_bias, num_heads, num_buckets, max_distance
-        )
     return _kernel_attention(ENCODER, q, k, v, mask, rel_bias, num_heads, num_buckets,
                              max_distance)
 
@@ -1259,8 +1343,6 @@ def causal_flash_attention(
     if takes_long_route(block_kv, q.shape[1], k.shape[1]):
         return _long_attention(CAUSAL, q, k, v, ones, rel_bias, num_heads, num_buckets,
                                max_distance)
-    if _on_cpu(q, k, v, rel_bias):
-        return causal_attention_reference(q, k, v, rel_bias, num_heads, num_buckets, max_distance)
     return _kernel_attention(CAUSAL, q, k, v, ones, rel_bias, num_heads, num_buckets,
                              max_distance)
 
@@ -1284,8 +1366,6 @@ def cross_flash_attention(
     an error."""
     if takes_long_route(block_kv, q.shape[1], k.shape[1]):
         return _long_attention(CROSS, q, k, v, mask, None, num_heads, 32, 128)
-    if _on_cpu(q, k, v, mask):
-        return cross_attention_reference(q, k, v, mask, num_heads)
     return _kernel_attention(CROSS, q, k, v, mask, None, num_heads, 32, 128)
 
 
@@ -1306,7 +1386,7 @@ def scaled_causal_flash_attention(
 
     The scale is folded into q first (:func:`scale_queries`), as the JAX
     package folds it. CPU tensors: the plain attention on the scaled q
-    (plain autograd). CUDA tensors: the ``SCALED_CAUSAL`` kernels (fp32 or
+    (plain autograd, as in :func:`encoder_flash_attention`). CUDA tensors: the ``SCALED_CAUSAL`` kernels (fp32 or
     bf16, head width 64 or 128, contiguous q/k/v), or an error. ``block_kv >
     0`` or ``T > 4096`` takes the long route (kernels 2, 5, 6, 7 in this
     mode; see :func:`encoder_flash_attention`). A query row with no valid key
@@ -1315,7 +1395,5 @@ def scaled_causal_flash_attention(
     if takes_long_route(block_kv, q.shape[1], k.shape[1]):
         return _long_attention(SCALED_CAUSAL, scale_queries(q, scale), k, v, key_mask, None,
                                num_heads, 32, 128)
-    if _on_cpu(q, k, v, key_mask):
-        return scaled_causal_attention_reference(q, k, v, key_mask, num_heads, scale)
     return _kernel_attention(SCALED_CAUSAL, scale_queries(q, scale), k, v, key_mask, None,
                              num_heads, 32, 128)

@@ -18,9 +18,10 @@ kernels; on the CPU it computes in float32 (the JAX package's TPU/CPU
 rule). The data module is the port's copy of the JAX package's. Only the
 encoder's parameters are built and trained.
 
-Not ported (each raises with a pointer into ROADMAP.md): ``--model.approx``,
-``--model.offload_optimizer``, remat policies other than ``full``, and
-``--data_parallel`` over more than one card.
+``--model.remat_policy`` takes ``full``, ``lite`` or ``offload`` and
+``--model.offload_optimizer true`` keeps Adam's moments in host memory.
+Not ported (each raises with a pointer into ROADMAP.md): ``--model.approx``
+and ``--data_parallel`` over more than one card.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ logger = logging.getLogger(__name__)
 
 DATA_PARALLEL_TODO = (
     "data-parallel training over {} cards is not ported; pass --data_parallel false "
-    "(ROADMAP.md Queue 1 item 10)"
+    "(ROADMAP.md Queue 1 item 7)"
 )
 
 
@@ -58,8 +59,9 @@ class ModelConfig:
     # Activation checkpointing per encoder layer (default ON, as in the JAX
     # package: byt5-small at the reference batch needs it to fit).
     remat: bool = True
-    remat_policy: str = "full"  # "lite" and "offload" are not ported
-    offload_optimizer: bool = False  # not ported, raises
+    remat_policy: str = "full"  # "full", "lite" or "offload" (models/t5.py)
+    # Adam's moments in pinned host memory, streamed in for each update.
+    offload_optimizer: bool = False
     # "mse" = the reference's label-matrix MSE; "infonce" = multi-positive
     # contrastive (the recipe that trains from random init).
     loss: str = "mse"
@@ -109,12 +111,9 @@ def _build(cfg: RetrievalConfig) -> Tuple[Any, Any, Any]:
     )
     from reprover_tpu_torch.retrieval.datamodule import RetrievalDataModule
     from reprover_tpu_torch.retrieval.retriever import APPROX_TODO, PremiseRetriever
-    from reprover_tpu_torch.training.tasks import OFFLOAD_OPT_TODO
 
     if cfg.model.approx:
         raise NotImplementedError(APPROX_TODO)
-    if cfg.model.offload_optimizer:
-        raise NotImplementedError(OFFLOAD_OPT_TODO)
     if cfg.model.loss not in ("mse", "infonce"):
         raise ValueError(f"--model.loss must be 'mse' or 'infonce', got {cfg.model.loss!r}")
     device = resolve_device(cfg.device)
@@ -163,6 +162,7 @@ def run_fit(cfg: RetrievalConfig) -> Any:
     from reprover_tpu_torch.training.tasks import (
         init_train_state,
         make_train_step,
+        offload_opt_state,
         retrieval_infonce_loss,
         retrieval_loss,
     )
@@ -171,8 +171,10 @@ def run_fit(cfg: RetrievalConfig) -> Any:
     dm, retriever, model_cfg = _build(cfg)
     dm.setup("fit")
     state = init_train_state(retriever.params, cfg.model.lr, cfg.model.warmup_steps)
+    if cfg.model.offload_optimizer:
+        state = offload_opt_state(state)
     loss_fn = retrieval_loss if cfg.model.loss == "mse" else retrieval_infonce_loss
-    step_fn = make_train_step(loss_fn, model_cfg)
+    step_fn = make_train_step(loss_fn, model_cfg, offload_opt=cfg.model.offload_optimizer)
     writer = make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval)
     writer.write_hparams(config_to_dict(cfg))
 

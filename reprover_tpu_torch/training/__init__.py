@@ -10,8 +10,10 @@ from reprover_tpu_torch.training.tasks import (
     TrainState,
     generation_loss,
     init_train_state,
+    make_eval_step,
     make_train_step,
     numeric_batch,
+    offload_opt_state,
     param_leaves,
     retrieval_infonce_loss,
     retrieval_loss,
@@ -25,8 +27,10 @@ __all__ = [
     "TrainState",
     "generation_loss",
     "init_train_state",
+    "make_eval_step",
     "make_train_step",
     "numeric_batch",
+    "offload_opt_state",
     "param_leaves",
     "retrieval_infonce_loss",
     "retrieval_loss",

@@ -6,10 +6,12 @@ The JAX package builds a pure loss and one donated, jitted update; here the
 loss runs eagerly, ``backward`` fills the float32 master parameters'
 gradients (the attention backward through the CUDA kernels on a card), and :class:`~reprover_tpu_torch.training.optim.AdamWClip` updates the
 parameters in place. The step returns the loss as a device tensor; nothing
-syncs with the host until a caller reads it.
+syncs with the host until a caller reads it. Adam's moments can live in
+host memory (:func:`offload_opt_state` with ``make_train_step(...,
+offload_opt=True)``), streamed to the device leaf by leaf for each update.
 
 Not ported: the mesh (data parallelism, ZeRO-sharded moments, Megatron
-specs) and Adam moments in host memory (``offload_opt``).
+specs).
 """
 
 from __future__ import annotations
@@ -27,11 +29,7 @@ from reprover_tpu_torch.training.optim import AdamWClip
 
 MESH_TODO = (
     "multi-device training (mesh, data parallelism, ZeRO-sharded moments) is not "
-    "ported (ROADMAP.md Queue 1 item 10)"
-)
-OFFLOAD_OPT_TODO = (
-    "Adam moments in host memory (offload_optimizer) are not ported "
-    "(ROADMAP.md Queue 1 item 5)"
+    "ported (ROADMAP.md Queue 1 item 7)"
 )
 
 Batch = Dict[str, torch.Tensor]
@@ -63,6 +61,17 @@ def init_train_state(
     for t in leaves:
         t.requires_grad_(True)
     return TrainState(0, params, AdamWClip(leaves, lr, warmup_steps, **optimizer_kwargs))
+
+
+def offload_opt_state(state: TrainState, mesh: Any = None) -> TrainState:
+    """Keep the optimizer's moments in host memory (pinned on a card) from
+    now on; pair with ``make_train_step(..., offload_opt=True)``."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TODO)
+    if state.optimizer is None:
+        raise ValueError("the train state has no optimizer (use init_train_state)")
+    state.optimizer.offload()
+    return state
 
 
 # ------------------------------------------------------------------ #
@@ -114,11 +123,15 @@ def retrieval_infonce_loss(
     return nll.sum() / has_pos.sum().clamp_min(1)
 
 
-def generation_loss(params: Params, cfg: T5Config, batch: Batch) -> torch.Tensor:
+def generation_loss(
+    params: Params, cfg: T5Config, batch: Batch, flash_attention: bool = True
+) -> torch.Tensor:
     """Teacher-forced seq2seq CE with -100 masking
-    (`reference/generation/model.py:101-111`)."""
+    (`reference/generation/model.py:101-111`); ``flash_attention=False`` runs
+    the plain attention (:func:`~reprover_tpu_torch.models.t5.forward_loss`)."""
     return forward_loss(
-        params, cfg, batch["state_ids"], batch["state_mask"], batch["tactic_ids"]
+        params, cfg, batch["state_ids"], batch["state_mask"], batch["tactic_ids"],
+        flash_attention,
     )
 
 
@@ -134,21 +147,38 @@ def make_train_step(
     offload_opt: bool = False,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
     """Build ``(state, batch) -> (state, loss)``: forward, backward, clip and
-    AdamW update in place; the loss is a detached device tensor."""
+    AdamW update in place; the loss is a detached device tensor. With
+    ``offload_opt`` the state's moments must be in host memory
+    (:func:`offload_opt_state`)."""
     if mesh is not None:
         raise NotImplementedError(MESH_TODO)
-    if offload_opt:
-        raise NotImplementedError(OFFLOAD_OPT_TODO)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         if state.optimizer is None:
             raise ValueError("the train state has no optimizer (use init_train_state)")
+        if offload_opt and not state.optimizer.offload_moments:
+            raise ValueError("offload_opt needs the moments in host memory (offload_opt_state)")
         state.optimizer.zero_grad()
         loss = loss_fn(state.params, cfg, batch)
         loss.backward()
         state.optimizer.step()
         state.step += 1
         return state, loss.detach()
+
+    return step
+
+
+def make_eval_step(
+    loss_fn: LossFn, cfg: T5Config, mesh: Any = None
+) -> Callable[[Params, Batch], torch.Tensor]:
+    """Build ``(params, batch) -> loss`` under ``torch.no_grad()`` (the loss
+    a detached device tensor)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TODO)
+
+    def step(params: Params, batch: Batch) -> torch.Tensor:
+        with torch.no_grad():
+            return loss_fn(params, cfg, batch)
 
     return step
 
@@ -167,28 +197,34 @@ def _ms_between(a: Any, b: Any, cuda: bool) -> float:
 
 
 def timed_train_steps(
-    state: TrainState, loss_fn: LossFn, cfg: Any, batch: Batch, n: int
+    state: TrainState, loss_fn: LossFn, cfg: Any, batch: Batch, n: int,
+    after_backward: Optional[Callable[[int, TrainState], None]] = None,
 ) -> List[Tuple[torch.Tensor, float, float, float]]:
     """``n`` steps of :func:`make_train_step`'s update on one batch, each
     split by CUDA events on the card (the host clock on the CPU) and synced
-    -> per step (detached loss, forward ms, backward ms, optimizer ms)."""
+    -> per step (detached loss, forward ms, backward ms, optimizer ms).
+    ``after_backward(i, state)`` runs between step ``i``'s backward and its
+    update (to read the gradients), outside both times."""
     device = next(iter(batch.values())).device
     cuda = device.type == "cuda"
     out = []
-    for _ in range(n):
+    for i in range(n):
         m0 = _mark(cuda)
         state.optimizer.zero_grad()
         loss = loss_fn(state.params, cfg, batch)
         m1 = _mark(cuda)
         loss.backward()
         m2 = _mark(cuda)
+        if after_backward is not None:
+            after_backward(i, state)
+        m2b = _mark(cuda) if after_backward is not None else m2
         state.optimizer.step()
         state.step += 1
         m3 = _mark(cuda)
         if cuda:
             torch.cuda.synchronize(device)
         out.append((loss.detach(), _ms_between(m0, m1, cuda), _ms_between(m1, m2, cuda),
-                    _ms_between(m2, m3, cuda)))
+                    _ms_between(m2b, m3, cuda)))
     return out
 
 

@@ -36,6 +36,8 @@ NEW_MODULES = (
     "reprover_tpu_torch.benchmarks",
     "reprover_tpu_torch.benchmarks.causal_finetune_step",
     "reprover_tpu_torch.benchmarks.flash_kernel_bisect",
+    # Pretraining.
+    "reprover_tpu_torch.training.pretrain",
 )
 
 

@@ -270,9 +270,6 @@ def test_config_depth2_override_keeps_customized_grandchild():
 
 @pytest.mark.parametrize("argv_extra, error", [
     (["--model.approx", "true"], NotImplementedError),
-    (["--model.offload_optimizer", "true"], NotImplementedError),
-    (["--model.remat_policy", "lite"], NotImplementedError),
-    (["--model.remat_policy", "offload"], NotImplementedError),
     (["--model.loss", "hinge"], ValueError),
 ])
 def test_cli_rejects_unported_options(toy_corpus_path, toy_dataset_dir, argv_extra, error):
