@@ -184,12 +184,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     unimportable, bit-equal; ``generation.main fit --model.model_name
     <export>`` for 2 steps on phase 10's data; then 5 pretraining steps
     with remat ``offload`` and ``offload_optimizer``; ms per step and peak
-    GiB of each run.
+    GiB of each run;
+25. the evaluation harnesses: ``retrieval.evaluate`` on phase 10's
+    predictions (R@1, R@10, MRR per split, finite and in range); the val
+    split predicted again at phase 7's 100 premises, its R@10 and MRR within
+    0.5 points and 0.005 of phase 7's logged validation; the BM25 baseline
+    (``retrieval.bm25 train-tokenizer``/``retrieve``, a pool of 4) scored
+    beside it; ``scripts.convert_checkpoint retriever`` on phase 7's
+    checkpoint reloaded by ``load_hf_t5``, parameters and a batch of
+    embeddings through kernel 1 bit-equal;
+26. failure attribution of phase 4's failed theorems through the card's
+    retrieval-augmented generator (64 samples): the bucket table, counts
+    summing to the traced failures, kernel 1 launched, a second run's
+    records identical;
+27. the port's service load driver at byt5-small width, streaming, 16
+    workers x 8 slots x 64 beams, input 512, output 128, 16 theorems, at
+    environment latency 0 (5 expansions a search) and 2.0 s a tactic (1
+    expansion): expansions/s, the service's stats, the device-busy share of
+    a profiled window naming the encoder and reorder kernels, kernel 13
+    launched, every search at its expansions.
 
 The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
 their launches on the main paths: serving, retriever training, generator
 training, the remat policies' steps, pretraining and the fine-tuning from
-its export, streaming byt5-small, LLaMA-7B int4 and int8, long serving,
+its export, the evaluation harnesses, attribution and the load driver,
+streaming byt5-small, LLaMA-7B int4 and int8, long serving,
 long generator training and decoder-only fine-tuning (the causal and scaled
 causal long-route kernels run in phases 15 and 19 only: no path's sequence
 passes 4096), kernel 14's in its sweep; and their times, bounds and
@@ -1257,9 +1276,10 @@ def phase_slice(device, bench: str, cfg, gen_params, ret_params) -> dict:
     with open(os.path.join(data_path, "val.json")) as f:
         first = json.load(f)[0]
     phase_breakdown(device, generator, retriever, first)
+    failed = [r.theorem.full_name for r in results if r.status.name != "PROVED"]
     return dict(launches=launches, reindex_s=reindex_s, premises=n_premises,
                 premises_per_s=n_premises / reindex_s, requests=requests,
-                s_per_request=per_request, pass_1=pass_1, eval_s=eval_s)
+                s_per_request=per_request, pass_1=pass_1, eval_s=eval_s, failed=failed)
 
 
 def phase_breakdown(device, generator, retriever, thm: dict) -> dict:
@@ -3133,6 +3153,270 @@ def phase_pretrain(device, work: str, bench: str, tiny: bool = False) -> dict:
     return dict(lite=lite, finetune=finetune, offload=offload, launches=launches)
 
 
+EVAL = dict(num_retrieved=100, bm25_cpus=4, r10_tol=0.5, mrr_tol=0.005, embed_batch=16)
+LOAD = dict(workers=16, slots=8, chunk=8, beams=64, theorems=16, max_expansions=4,
+            latent_max_expansions=0, latencies=(0.0, 2.0), profile_window_s=3.0)
+
+
+def _evaluate_cli(preds: str, data_path: str) -> dict:
+    """``python -m reprover_tpu_torch.retrieval.evaluate`` in this process:
+    its printed lines -> ``{split: (R@1, R@10, MRR)}``."""
+    import contextlib
+    import io
+
+    from reprover_tpu_torch.retrieval.evaluate import main as evaluate_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        evaluate_main(["--preds-file", preds, "--data-path", data_path])
+    rows = {}
+    for line in out.getvalue().splitlines():
+        m = re.match(r"(\w+): R@1 = (\S+) %, R@10 = (\S+) %, MRR = (\S+)$", line)
+        if m:
+            rows[m.group(1)] = tuple(float(m.group(i)) for i in (2, 3, 4))
+    if set(rows) != {"train", "val", "test"}:
+        raise AssertionError(f"evaluate printed {out.getvalue()!r}")
+    for split, (r1, r10, mrr) in rows.items():
+        if not (0 <= r1 <= 100 and 0 <= r10 <= 100 and 0 <= mrr <= 1) or not all(
+                math.isfinite(x) for x in (r1, r10, mrr)):
+            raise AssertionError(f"evaluate's {split} numbers are out of range: {rows[split]}")
+    return rows
+
+
+def phase_evaluate(device, work: str, bench: str, validation: dict, tiny: bool = False) -> dict:
+    """Phase 25: the evaluation harnesses on phase 7's retriever.
+
+    ``retrieval.evaluate`` on phase 10's ``predictions.pickle`` (every
+    split, 40 premises a tactic: the corpus's first files see only 43), its
+    numbers finite and in range; ``retrieval.main predict`` of the val split
+    alone at the 100 premises phase 7's validation retrieved (a split
+    directory whose train and test files are empty), whose val R@10 and MRR
+    must lie within 0.5 points and 0.005 of the ``Recall@10_val`` and
+    ``MRR`` that phase 7 logged for the same weights (the two paths embed
+    the same contexts in different bf16 batches, so near-ties may flip);
+    then the BM25 baseline (``retrieval.bm25 train-tokenizer`` and
+    ``retrieve`` in a pool of 4) scored the same way beside the dense
+    retriever; then ``scripts.convert_checkpoint retriever`` on phase 7's
+    checkpoint, reloaded with ``load_hf_t5``: every parameter and one batch
+    of premise embeddings through kernel 1 bit-equal to the checkpoint's."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from reprover_tpu_torch.models.hf_import import hf_config, load_hf_t5
+    from reprover_tpu_torch.models.t5 import T5Config, byt5_small, fuse_mlp_params, place_params
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.retrieval import PremiseRetriever, build_preds_map, evaluate_split
+    from reprover_tpu_torch.data.interop import load_reference_pickle
+    from reprover_tpu_torch.retrieval.bm25 import main as bm25_main
+    from reprover_tpu_torch.retrieval.main import main as retrieval_main
+    from reprover_tpu_torch.scripts.convert_checkpoint import main as convert_main
+
+    data_path = os.path.join(bench, "random")
+    out = os.path.join(work, "evaluate")
+    os.makedirs(os.path.join(out, "logs"), exist_ok=True)
+    tfa.reset_launch_counts()
+    report: dict = {}
+    dense = _evaluate_cli(os.path.join(work, "logs", "predictions.pickle"), data_path)
+    report["dense_k40"] = dense
+
+    # The val split alone at phase 7's 100 premises, against its validation.
+    view = os.path.join(out, "val_only", "random")
+    os.makedirs(view, exist_ok=True)
+    shutil.copy(os.path.join(data_path, "val.json"), os.path.join(view, "val.json"))
+    for split in ("train", "test"):
+        with open(os.path.join(view, f"{split}.json"), "w") as f:
+            json.dump([], f)
+    argv = _fit_argv(device, out, bench, tiny)
+    argv[argv.index("--data.data_path") + 1] = view
+    retrieval_main(["predict"] + argv + [
+        "--ckpt_dir", os.path.join(work, "ckpts"), "--preds_out", "val_predictions.pickle",
+        "--model.num_retrieved", str(EVAL["num_retrieved"])])
+    with open(os.path.join(data_path, "val.json")) as f:
+        val = json.load(f)
+    r1, r10, mrr = evaluate_split(val, build_preds_map(load_reference_pickle(
+        os.path.join(out, "logs", "val_predictions.pickle"))))
+    report["dense_val_k100"] = dict(r1=r1, r10=r10, mrr=mrr)
+    gap = dict(r10=r10 - validation["Recall@10_val"], mrr=mrr - validation["MRR"])
+    report["gap_to_phase7"] = gap
+    log(f"[evaluate] dense (phase 10's pickle, 40 premises) {json.dumps(dense)}; val at 100 "
+        f"premises R@1 {r1} R@10 {r10} MRR {mrr}; phase 7 logged R@10 "
+        f"{validation['Recall@10_val']} MRR {validation['MRR']}; gap {json.dumps(gap)}")
+    if abs(gap["r10"]) > EVAL["r10_tol"] or abs(gap["mrr"]) > EVAL["mrr_tol"]:
+        raise AssertionError(f"evaluate's val R@10/MRR differ from phase 7's validation by "
+                             f"{gap} (limits {EVAL['r10_tol']} points, {EVAL['mrr_tol']})")
+
+    # BM25 on the same benchmark, scored by the same evaluator.
+    t0 = time.perf_counter()
+    tok = os.path.join(out, "bm25.tok")
+    bm25_main(["train-tokenizer", "--data-path", data_path, "--output-path", tok])
+    bm25_preds = os.path.join(out, "bm25_predictions.pickle")
+    bm25_main(["retrieve", "--tokenizer-path", tok, "--data-path", data_path,
+               "--output-path", bm25_preds, "--num-cpus", str(EVAL["bm25_cpus"])])
+    bm25 = _evaluate_cli(bm25_preds, data_path)
+    report["bm25"], report["bm25_s"] = bm25, time.perf_counter() - t0
+    for split in ("train", "val", "test"):
+        log(f"[evaluate] {split}: R@1 / R@10 / MRR dense {dense[split][0]:.4f} / "
+            f"{dense[split][1]:.4f} / {dense[split][2]:.4f}, BM25 {bm25[split][0]:.4f} / "
+            f"{bm25[split][1]:.4f} / {bm25[split][2]:.4f}")
+
+    # The checkpoint converted to an HF directory and reloaded.
+    cfg = (T5Config(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
+                    num_decoder_layers=1) if tiny else byt5_small())
+    geometry = os.path.join(out, "geometry")
+    os.makedirs(geometry, exist_ok=True)
+    with open(os.path.join(geometry, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, encoder_only=True), f)
+    hf_dir = os.path.join(out, "hf_retriever")
+    convert_main(["retriever", "--src", os.path.join(work, "ckpts"), "--hf-config", geometry,
+                  "--dst", hf_dir])
+    step = max(int(s) for s in os.listdir(os.path.join(work, "ckpts")) if s.isdigit())
+    saved = torch.load(os.path.join(work, "ckpts", str(step), "state.pt"), map_location="cpu",
+                       weights_only=True)["params"]
+    loaded, loaded_cfg = load_hf_t5(hf_dir, encoder_only=True)
+    loaded = fuse_mlp_params(loaded)
+    flat_saved, flat_loaded = _flat(saved), _flat(loaded)
+    unequal = [n for n, t in flat_saved.items()
+               if n not in flat_loaded or not torch.equal(flat_loaded[n], t)]
+    if unequal or loaded_cfg.d_model != cfg.d_model:
+        raise AssertionError(f"the converted checkpoint differs from phase 7's: {unequal}")
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    ecfg = dataclasses.replace(loaded_cfg, compute_dtype=dtype)
+    with open(os.path.join(bench, "corpus.jsonl")) as f:
+        first = json.loads(f.readline())
+    texts = [p["code"] for p in first["premises"][: EVAL["embed_batch"]]]
+    before = tfa.KERNEL_LAUNCHES["encoder_attn"]
+    embs = []
+    for params in ({"shared_embedding": saved["shared_embedding"], "encoder": saved["encoder"]},
+                   loaded):
+        retriever = PremiseRetriever(place_params(params, ecfg, device), ecfg,
+                                     max_seq_len=TRAIN["max_seq_len"])
+        embs.append(torch.from_numpy(retriever.encode_strings(texts)))
+        _sync(device)
+    launched = tfa.KERNEL_LAUNCHES["encoder_attn"] - before
+    if not torch.equal(embs[0], embs[1]) or not bool(torch.isfinite(embs[0]).all()):
+        raise AssertionError("the converted checkpoint's embeddings differ from phase 7's")
+    if device.type == "cuda" and launched < 2:
+        raise AssertionError(f"the converted checkpoint's encode launched kernel 1 "
+                             f"{launched} times")
+    log(f"[evaluate] convert_checkpoint retriever: {len(flat_saved)} tensors and a "
+        f"[{len(texts)}] embedding batch bit-equal ({launched} kernel-1 launches); BM25 "
+        f"took {report['bm25_s']:.1f}s")
+    report["launches"] = dict(tfa.KERNEL_LAUNCHES)
+    return report
+
+
+def phase_attribution(device, bench: str, cfg, gen_params, ret_params, failed: list) -> dict:
+    """Phase 26: Pass@1 failure attribution of phase 4's failed theorems
+    (4 val theorems at full width, 64 samples) through the card's
+    ``RetrievalAugmentedTacticGenerator`` over phase 4's models and corpus;
+    the bucket table; fails unless the counts sum to the failed theorems
+    that have ``traced_tactics``, kernel 1 launched, and a second run gives
+    identical records (the search is seeded, beam search deterministic)."""
+    import dataclasses
+
+    from reprover_tpu_torch.generation import TacticGeneratorModel
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.prover import (
+        LocalTacticGenerator,
+        RetrievalAugmentedTacticGenerator,
+        attribute_failures,
+    )
+    from reprover_tpu_torch.retrieval import PremiseRetriever
+
+    data_path = os.path.join(bench, "random")
+    with open(os.path.join(data_path, "val.json")) as f:
+        theorems = json.load(f)
+    tfa.reset_launch_counts()
+    retriever = PremiseRetriever(ret_params, cfg, max_seq_len=SLICE["max_inp_seq_len"])
+    retriever.load_corpus(os.path.join(bench, "corpus.jsonl"))
+    retriever.reindex_corpus(batch_size=32)
+    generator = TacticGeneratorModel(gen_params, cfg, SLICE["max_inp_seq_len"],
+                                     SLICE["max_oup_seq_len"])
+    tac_gen = RetrievalAugmentedTacticGenerator(
+        LocalTacticGenerator(generator, device=device.type), retriever,
+        max_inp_seq_len=SLICE["max_inp_seq_len"], max_num_retrieved=100)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = attribute_failures(theorems, failed, tac_gen, SLICE["num_sampled_tactics"],
+                                 corpus=retriever.corpus)
+        _sync(device)
+        runs.append((out, time.perf_counter() - t0))
+    (out, seconds), (again, _) = runs
+    by_name = {t["full_name"]: t for t in theorems}
+    traced = [n for n in failed if by_name.get(n, {}).get("traced_tactics")]
+    launches = tfa.KERNEL_LAUNCHES["encoder_attn"]
+    records = [dataclasses.asdict(r) for r in out["records"]]
+    log(f"[attribution] {len(failed)} failed theorems, buckets {json.dumps(out['counts'])} in "
+        f"{seconds:.1f}s; first failing steps "
+        f"{[r['first_failing_step'] for r in records]}; kernel-1 launches {launches}")
+    if sum(out["counts"].values()) != len(traced) or len(records) != len(traced):
+        raise AssertionError(f"attribution counted {out['counts']} for {len(traced)} traced "
+                             f"failures")
+    if records != [dataclasses.asdict(r) for r in again["records"]]:
+        raise AssertionError("a second attribution run gave different records")
+    if device.type == "cuda" and launches < 1:
+        raise AssertionError("attribution did not launch the encoder-attention kernel")
+    return dict(counts=out["counts"], seconds=seconds, failed=len(failed),
+                launches=dict(tfa.KERNEL_LAUNCHES))
+
+
+def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
+    """Phase 27: the port's service load driver
+    (``benchmarks/service_load.py``) at full byt5-small width (phase 4's
+    generator weights, input 512, output 128, the JAX driver's geometry),
+    streaming, 16 spawned workers, 8 slots, chunk 8, 64 beams, on the
+    driver's synthetic benchmark, in two cells: ``--env-latency 0`` and
+    ``2.0``. Cut to fit the smoke: 16 theorems (one per worker; the driver
+    runs 24), ``max_expansions`` 4 at latency 0 and 0 at 2.0 (the driver
+    runs 6; the search stops once it has passed the limit, so a search runs
+    5 and 1 expansions: at 2.0 s per tactic one expansion waits ~128 s on
+    the environment). Expansions/s by wall and over the serving window, the
+    service's stats and the device-busy share of a 3 s profiled window
+    (``utils/profiling.device_trace``); fails unless every search ran its
+    expansions, kernel 13 launched and the trace names the encoder and
+    reorder kernels."""
+    from reprover_tpu_torch.benchmarks import service_load as sl
+    from reprover_tpu_torch.generation import TacticGeneratorModel
+
+    data = sl.make_data(os.path.join(work, "service_load"))
+    model = TacticGeneratorModel(gen_params, cfg, max_inp_seq_len=512, max_oup_seq_len=128)
+    cells = []
+    launches: dict = {}
+    for latency in LOAD["latencies"]:
+        limit = LOAD["max_expansions"] if latency == 0 else LOAD["latent_max_expansions"]
+        reset_all_launch_counts()
+        row = sl.run_cell(model, data, LOAD["workers"], 0, 0.0, num_theorems=LOAD["theorems"],
+                          streaming=True, num_slots=LOAD["slots"], chunk_size=LOAD["chunk"],
+                          num_beams=LOAD["beams"], env_latency_s=latency,
+                          max_expansions=limit, device=device,
+                          profile_window_s=LOAD["profile_window_s"])
+        counts = all_launch_counts()
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        names = row.get("trace_kernels", {})
+        row["launches"] = {k: n for k, n in counts.items() if n}
+        log(f"[load] {json.dumps({k: v for k, v in row.items() if k != 'trace_kernels'})}")
+        if row["searched_nodes"] != [limit + 1] * LOAD["theorems"]:
+            raise AssertionError(f"the load searches ran {row['searched_nodes']} expansions, "
+                                 f"not {limit + 1} each")
+        if device.type == "cuda":
+            if counts["beam_reorder"] < 1:
+                raise AssertionError("the load cells did not launch the beam-reorder kernel")
+            from reprover_tpu_torch.ops.flash_attention import kernel_instance
+
+            enc = [n for n in names if (kernel_instance(n) or (None,))[0] == "fwd"
+                   and kernel_instance(n)[2] == 0]
+            if not enc or not any("reorder_append_kernel" in n for n in names):
+                raise AssertionError(f"the profiled window does not name the encoder and "
+                                     f"reorder kernels: {sorted(names)[:20]} "
+                                     f"{row.get('profiler')}")
+        cells.append(row)
+    return dict(cells=cells, launches=launches)
+
+
 REPLACES = {
     "encoder_attn": "reprover_tpu/ops/flash_attention.py:176",
     "encoder_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:607",
@@ -3366,6 +3650,14 @@ def main() -> int:
         rm = phase("remat", phase_remat, device)
         torch.cuda.empty_cache()
         pt = phase("pretrain", phase_pretrain, device, work, bench)
+        torch.cuda.empty_cache()
+        ev = phase("evaluate", phase_evaluate, device, work, bench, tr["validation"])
+        cfg, gen_params, ret_params = _full_width_models(device)
+        at = phase("attribution", phase_attribution, device, bench, cfg, gen_params, ret_params,
+                   sl["failed"])
+        del ret_params
+        ld = phase("load", phase_load, device, work, cfg, gen_params)
+        del gen_params
     log(f"[smoke] phase seconds {json.dumps(seconds)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
@@ -3375,7 +3667,13 @@ def main() -> int:
     launches = {name: tr["launches"][name] + gt["launches"][name]
                 + rm["launches"].get(name, 0) + pt["launches"].get(name, 0)
                 for name in REPLACES if name not in SERVING_SOURCES}
-    launches["encoder_attn"] += sl["launches"]
+    launches["encoder_attn"] += (sl["launches"] + ev["launches"]["encoder_attn"]
+                                 + at["launches"]["encoder_attn"]
+                                 + ld["launches"]["encoder_attn"])
+    log(f"[smoke] phase-25 (evaluate), 26 (attribution), 27 (load) launches of kernel 1: "
+        f"{ev['launches']['encoder_attn']}, {at['launches']['encoder_attn']}, "
+        f"{ld['launches']['encoder_attn']}; of kernel 13 in phase 27: "
+        f"{ld['launches']['beam_reorder']}")
     log(f"[smoke] phase-23 (remat) launches "
         f"{json.dumps({k: n for k, n in rm['launches'].items() if n})}; phase-24 (pretraining) "
         f"launches {json.dumps({k: n for k, n in pt['launches'].items() if n})}")
@@ -3385,7 +3683,7 @@ def main() -> int:
         "quant_matmul": ll["int8"]["launches"]["quant_matmul"],
         "quant4_matmul": ll["int4"]["launches"]["quant4_matmul"],
         "beam_reorder": st["beam_reorder_launches"] + ll["int4"]["launches"]["beam_reorder"]
-        + ll["int8"]["launches"]["beam_reorder"],
+        + ll["int8"]["launches"]["beam_reorder"] + ld["launches"]["beam_reorder"],
     }
     entries += [serving_entry(name, serving_rows, n, llama_cache)
                 for name, n in serving_launches.items()]

@@ -246,7 +246,14 @@ def export_hf_t5(params: Params, cfg: T5Config, out_dir: str, encoder_only: bool
             put_dense("lm_head.weight", params["lm_head"])
 
     save_safetensors(sd, os.path.join(out_dir, "model.safetensors"), {"format": "pt"})
-    hf_cfg = {
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, encoder_only), f, indent=2)
+
+
+def hf_config(cfg: T5Config, encoder_only: bool = False) -> Dict[str, Any]:
+    """The ``config.json`` that :func:`export_hf_t5` writes for ``cfg``
+    (:func:`config_from_hf` reads it back)."""
+    return {
         "architectures": ["T5EncoderModel" if encoder_only else "T5ForConditionalGeneration"],
         "model_type": "t5",
         "vocab_size": cfg.vocab_size,
@@ -266,5 +273,3 @@ def export_hf_t5(params: Params, cfg: T5Config, out_dir: str, encoder_only: bool
         "decoder_start_token_id": cfg.decoder_start_token_id,
         "is_encoder_decoder": not encoder_only,
     }
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(hf_cfg, f, indent=2)

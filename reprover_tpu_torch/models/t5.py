@@ -52,7 +52,6 @@ from reprover_tpu_torch.ops.flash_attention import (
     cross_flash_attention,
     encoder_attention_reference,
     encoder_flash_attention,
-    keeping_outputs,
 )
 
 Params = Dict[str, Any]
@@ -448,23 +447,7 @@ def _unpark_outputs(kept: Tuple[bool, List[Any]]) -> Any:
     return outs if is_tuple else outs[0]
 
 
-class _PolicyMode(TorchDispatchMode):
-    """A dispatch mode of a selective policy; while it is active the
-    attention runs as its operator on every device (``keeping_outputs``)."""
-
-    def __enter__(self) -> Any:
-        self._keeping = keeping_outputs()
-        self._keeping.__enter__()
-        return super().__enter__()
-
-    def __exit__(self, *exc: Any) -> Any:
-        try:
-            return super().__exit__(*exc)
-        finally:
-            self._keeping.__exit__(*exc)
-
-
-class _KeepMode(_PolicyMode):
+class _KeepMode(TorchDispatchMode):
     """A layer's forward under a selective policy: every operator runs, and
     the outputs of those it keeps (:func:`_keeps`) are stored in order."""
 
@@ -480,7 +463,7 @@ class _KeepMode(_PolicyMode):
         return out
 
 
-class _ReplayMode(_PolicyMode):
+class _ReplayMode(TorchDispatchMode):
     """That layer's recompute in backward: a kept operator returns its stored
     outputs (back on the device) instead of running; every other one runs
     again."""

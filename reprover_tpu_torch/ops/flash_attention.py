@@ -80,12 +80,14 @@ Choices that differ from the Pallas kernels on purpose:
 
 A CPU tensor goes to the plain versions (:func:`encoder_attention_reference`,
 :func:`causal_attention_reference`, :func:`cross_attention_reference`,
-:func:`scaled_causal_attention_reference`) under plain autograd; while a
-selective remat policy keeps the operators' outputs
-(:func:`keeping_outputs`) it goes through :func:`attention_op` too, whose
-gradient on the CPU is the step-by-step ``*_backward_reference`` functions.
-A CUDA tensor launches the kernels or raises. There is no fallback between
-the two.
+:func:`scaled_causal_attention_reference`). When a gradient is wanted it goes
+through :func:`attention_op` on both devices; on the CPU that operator's
+gradient is the plain forward's derivative taken step by step
+(:func:`_plain_grads`, dq, dk and dv bit-equal to autograd of the plain
+version, no forward rerun). The step-by-step ``*_backward_reference``
+functions are the backward kernels' own algorithm (P from the LSE), which
+the card's checks hold the kernels to. A CUDA tensor launches the kernels or
+raises. There is no fallback between the two.
 
 **The long route.** As the JAX package does, the four functions switch to
 its KV-blocked long-context kernels when ``block_kv > 0`` or a query or key
@@ -113,10 +115,8 @@ result does not depend on its value.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import re
-import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -459,6 +459,21 @@ def row_delta(dout: torch.Tensor, out: torch.Tensor, num_heads: int) -> torch.Te
     return prod.reshape(b, l, num_heads, inner // num_heads).sum(-1).transpose(1, 2).contiguous()
 
 
+def _rel_grad(mode: int, ds: torch.Tensor, num_buckets: int, max_distance: int
+              ) -> Optional[torch.Tensor]:
+    """The bias gradient fp32 ``[num_buckets, H]`` of a self-attention's fp32
+    dS ``[B, H, L, L]``: binned by clamped relative position, then folded
+    into the buckets (None for a mode without a bias)."""
+    if not has_bias(mode):
+        return None
+    h, l = ds.shape[1], ds.shape[2]
+    idx = rel_index(l, max_distance, ds.device).flatten()
+    bins = torch.zeros((h, 2 * max_distance + 1), dtype=torch.float32, device=ds.device)
+    bins.index_add_(1, idx, ds.sum(0).reshape(h, l * l))
+    table = bucket_table(num_buckets, max_distance, ds.device, mode == ENCODER)
+    return fold_rel_bins(bins, table, num_buckets)
+
+
 def _backward_plain(
     mode: int,
     q: torch.Tensor,
@@ -483,14 +498,7 @@ def _backward_plain(
     gh = _heads(dout, num_heads)
     dp = torch.matmul(gh, _heads(v, num_heads).transpose(-1, -2))
     ds = p * (dp - row_delta(dout, out, num_heads)[..., None])
-    d_rel = None
-    if has_bias(mode):
-        l = q.shape[1]
-        idx = rel_index(l, max_distance, q.device).flatten()
-        bins = torch.zeros((num_heads, 2 * max_distance + 1), dtype=torch.float32, device=q.device)
-        bins.index_add_(1, idx, ds.sum(0).reshape(num_heads, l * l))
-        table = bucket_table(num_buckets, max_distance, q.device, mode == ENCODER)
-        d_rel = fold_rel_bins(bins, table, num_buckets)
+    d_rel = _rel_grad(mode, ds, num_buckets, max_distance)
     dq = torch.matmul(ds, _heads(k, num_heads))
     dk = torch.matmul(ds.transpose(-1, -2), _heads(q, num_heads))
     dv = torch.matmul(p.transpose(-1, -2), gh)
@@ -811,23 +819,6 @@ def encoder_attention_backward(
                              num_buckets, max_distance)
 
 
-_keeping = threading.local()  # .depth: keeping_outputs() contexts entered on this thread
-
-
-@contextlib.contextmanager
-def keeping_outputs() -> Iterator[None]:
-    """Within this, a selective rematerialization policy records or replays
-    the attention operators' outputs on this thread (``models/t5.py``), so
-    the full-row route runs as :func:`attention_op` on CPU tensors too,
-    whose forward the policy can keep. Outside it, a CPU tensor's gradient
-    is plain autograd of the plain version, as it always was."""
-    _keeping.depth = getattr(_keeping, "depth", 0) + 1
-    try:
-        yield
-    finally:
-        _keeping.depth -= 1
-
-
 def _plain_forward(
     mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     rel_bias: Optional[torch.Tensor], num_heads: int, num_buckets: int, max_distance: int,
@@ -896,11 +887,45 @@ def _save_residuals(ctx: Any, inputs: Tuple[Any, ...], output: Any) -> None:
     ctx.geometry = (num_heads, num_buckets, max_distance)
 
 
+def _plain_grads(
+    mode: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    rel_bias: Optional[torch.Tensor], dout: torch.Tensor, num_heads: int, num_buckets: int,
+    max_distance: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The operator's gradient on CPU tensors -> ``(dq, dk, dv, d_rel)``,
+    d_rel None without a bias: the derivative of :func:`_plain_attention`,
+    step by step in the order autograd takes it (``out = (E V) / l`` with
+    ``E = exp(S - max)``, ``l = rowsum(E)``: ``dE = (dO / l) V^T -
+    rowsum(dO * (E V / l) / l)``, ``dS = E * dE``), without running the
+    forward again; dq, dk and dv are bit-equal to autograd's. The kernels'
+    form (:func:`_backward_plain`: ``P = exp(S - LSE)``, ``delta`` from the
+    forward's output) differs from it by fp32 rounding only, but where a dq
+    element cancels that rounding reaches ~1e-5, the limit that the Pallas
+    interpreter is held to; against it each form misses on some seeded
+    inputs, and so does the exact (fp64) gradient."""
+    scores = _scores_plain(mode, q, k, rel_bias, num_heads, num_buckets, max_distance)
+    scores = scores.masked_fill(~_valid(mode, mask, q), float("-inf"))
+    row_max = scores.amax(dim=-1, keepdim=True)
+    row_max = torch.where(torch.isfinite(row_max), row_max, torch.zeros_like(row_max))
+    e = torch.exp(scores - row_max)  # invalid columns: 0
+    denom = e.sum(dim=-1, keepdim=True)
+    denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+    qh, kh, vh, gh = (_heads(x, num_heads) for x in (q, k, v, dout))
+    g_ev = gh / denom
+    g_denom = (-gh * ((torch.matmul(e, vh) / denom) / denom)).sum(dim=-1, keepdim=True)
+    ds = (torch.matmul(g_ev, vh.transpose(-1, -2)) + g_denom) * e
+    d_rel = _rel_grad(mode, ds, num_buckets, max_distance)
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dv = torch.matmul(e.transpose(-1, -2), g_ev)
+    return _flat(dq, q.dtype), _flat(dk, q.dtype), _flat(dv, q.dtype), d_rel
+
+
 def _attention_grad(ctx: Any, dout: torch.Tensor, _dlse: Any) -> Tuple[Optional[torch.Tensor], ...]:
     q, k, v, mask, rel_bias, out, lse = ctx.saved_tensors
     if _on_cpu(q, k, v, mask, rel_bias, out, lse, dout):
-        dq, dk, dv, d_rel = _backward_plain(ctx.mode, q, k, v, mask, rel_bias, out, lse, dout,
-                                            *ctx.geometry)
+        dq, dk, dv, d_rel = _plain_grads(ctx.mode, q, k, v, mask, rel_bias, dout,
+                                         *ctx.geometry)
     else:
         dq, dk, dv, d_rel = _backward_kernels(ctx.mode, q, k, v, mask, rel_bias, out, lse, dout,
                                               *ctx.geometry)
@@ -940,15 +965,11 @@ def _kernel_attention(
 ) -> torch.Tensor:
     """The full-row route of the four public functions, on either device:
     :func:`attention_op` when a gradient is wanted, else the forward alone
-    (the plain version on CPU tensors, the kernel without LSE on CUDA ones).
-    On CPU tensors the plain version under autograd stands for the operator
-    unless a selective remat policy keeps the operators' outputs
-    (:func:`keeping_outputs`)."""
-    cpu = _on_cpu(q, k, v, mask, rel_bias)
-    if _wants_grad(q, k, v, rel_bias) and (not cpu or getattr(_keeping, "depth", 0)):
+    (the plain version on CPU tensors, the kernel without LSE on CUDA ones)."""
+    if _wants_grad(q, k, v, rel_bias):
         return attention_op(q, k, v, mask, rel_bias, mode, num_heads, num_buckets,
                             max_distance)[0]
-    if cpu:
+    if _on_cpu(q, k, v, mask, rel_bias):
         return _plain_forward(mode, q, k, v, mask, rel_bias, num_heads, num_buckets,
                               max_distance)
     _check_card(mode, q, k, v, mask, rel_bias, num_heads, num_buckets)
@@ -1302,9 +1323,8 @@ def encoder_flash_attention(
     """Bidirectional T5 self-attention -> ``[B, L, H*d]`` in the input dtype.
     Differentiable in q, k, v and ``rel_bias``.
 
-    CPU tensors: :func:`encoder_attention_reference` (plain autograd; while a
-    selective remat policy keeps the operators' outputs,
-    :func:`attention_op` with the backward's plain version). CUDA
+    CPU tensors: :func:`encoder_attention_reference` (under a gradient,
+    :func:`attention_op` with the plain forward's derivative). CUDA
     tensors: the forward kernel (fp32 or bf16, head width 64, contiguous
     q/k/v, one device), with the backward kernels as its gradient when grad
     is on and an input requires it, or an error. ``block_kv > 0`` or ``L >
@@ -1386,7 +1406,7 @@ def scaled_causal_flash_attention(
 
     The scale is folded into q first (:func:`scale_queries`), as the JAX
     package folds it. CPU tensors: the plain attention on the scaled q
-    (plain autograd, as in :func:`encoder_flash_attention`). CUDA tensors: the ``SCALED_CAUSAL`` kernels (fp32 or
+    (as in :func:`encoder_flash_attention`). CUDA tensors: the ``SCALED_CAUSAL`` kernels (fp32 or
     bf16, head width 64 or 128, contiguous q/k/v), or an error. ``block_kv >
     0`` or ``T > 4096`` takes the long route (kernels 2, 5, 6, 7 in this
     mode; see :func:`encoder_flash_attention`). A query row with no valid key

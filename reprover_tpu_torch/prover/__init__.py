@@ -1,10 +1,9 @@
 """Proof search on the port's models: environment protocol, search tree,
 best-first search, tactic generators, the shared inference service, the
-distributed worker pool and the Pass@1 evaluation harness. Copies of the JAX
-package's host-side modules, wired to the port's models.
-
-Not copied yet (ROADMAP.md Queue 1): ``attribution`` (failure attribution),
-``api_generator`` (tactics from a hosted LLM API)."""
+distributed worker pool, the Pass@1 evaluation harness, its failure
+attribution and the LLM-API tactic generator. Copies of the JAX package's
+host-side modules (``reprover_tpu/prover/__init__.py:37-45`` for the last
+two), wired to the port's models."""
 
 from reprover_tpu_torch.prover.environment import (
     Environment,
@@ -38,8 +37,15 @@ from reprover_tpu_torch.prover.tactic_generator import (
     RetrievalAugmentedTacticGenerator,
     TacticGenerator,
 )
+from reprover_tpu_torch.prover.api_generator import ApiTacticGenerator
 from reprover_tpu_torch.prover.distributed import DistributedProver
 from reprover_tpu_torch.prover.evaluate import aggregate_pass1, evaluate, get_theorems
+from reprover_tpu_torch.prover.attribution import (
+    StepAttribution,
+    TheoremAttribution,
+    attribute_failure,
+    attribute_failures,
+)
 from reprover_tpu_torch.prover.service import (
     InferenceService,
     ServiceClient,
@@ -74,7 +80,12 @@ __all__ = [
     "RemoteTacticGenerator",
     "RetrievalAugmentedTacticGenerator",
     "TacticGenerator",
+    "ApiTacticGenerator",
     "DistributedProver",
+    "StepAttribution",
+    "TheoremAttribution",
+    "attribute_failure",
+    "attribute_failures",
     "aggregate_pass1",
     "evaluate",
     "get_theorems",

@@ -1,4 +1,5 @@
-"""Utilities of the port: config parsing, metric writers, checkpoints.
+"""Utilities of the port: config parsing, metric writers, checkpoints,
+profiling and small glue.
 
 Copies of the JAX package's host-side utilities, which cannot be imported
 from there without JAX (``reprover_tpu/utils/__init__.py`` imports it and
@@ -14,6 +15,8 @@ from reprover_tpu_torch.utils.metrics import (
     StdoutWriter,
     make_writer,
 )
+from reprover_tpu_torch.utils.misc import set_logger, zip_strict
+from reprover_tpu_torch.utils.profiling import SectionTimer, device_trace
 
 __all__ = [
     "CheckpointManager",
@@ -24,4 +27,8 @@ __all__ = [
     "MultiWriter",
     "StdoutWriter",
     "make_writer",
+    "set_logger",
+    "zip_strict",
+    "SectionTimer",
+    "device_trace",
 ]

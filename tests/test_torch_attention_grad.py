@@ -11,10 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from reprover_tpu.models import t5 as jt5
 from reprover_tpu.ops.flash_attention import encoder_flash_attention as jax_flash
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 B, H, D = 3, 4, 16
 
@@ -130,3 +134,65 @@ def test_backward_off_cpu_without_kernel_raises():
     lse = torch.zeros(B, H, 16, device="meta")
     with pytest.raises(ValueError):
         tfa.encoder_attention_backward(q, k, v, mask, rel, q, lse, dout, H)
+
+
+class _OpCalls(TorchDispatchMode):
+    """Counts the attention operators' calls while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls += func in tfa.ATTENTION_OPS
+        return func(*args, **(kwargs or {}))
+
+
+def _mode_call(mode, q, k, v, mask, rel, block_kv):
+    if mode == "encoder":
+        return tfa.encoder_flash_attention(q, k, v, mask, rel, num_heads=H, block_kv=block_kv)
+    if mode == "causal":
+        return tfa.causal_flash_attention(q, k, v, rel, num_heads=H, block_kv=block_kv)
+    if mode == "cross":
+        return tfa.cross_flash_attention(q, k, v, mask, num_heads=H, block_kv=block_kv)
+    return tfa.scaled_causal_flash_attention(q, k, v, mask, num_heads=H, scale=D ** -0.5,
+                                             block_kv=block_kv)
+
+
+@pytest.mark.parametrize("block_kv", [0, 64])
+@pytest.mark.parametrize("mode", ["encoder", "causal", "cross", "scaled_causal"])
+def test_cpu_gradient_goes_through_operator(monkeypatch, mode, block_kv):
+    """On CPU tensors with no remat policy, a gradient is taken through the
+    attention operator (one forward call, and on the full-row route one call
+    of its CPU gradient), and on the full-row route dq, dk and dv are
+    bit-equal to autograd of the plain forward (d_rel, whose buckets the
+    two sum in different orders, within 1e-5 of its max)."""
+    q, k, v, mask, rel, w = _inputs(128, seed=11)
+    grad_calls = []
+    plain_grads = tfa._plain_grads
+    monkeypatch.setattr(tfa, "_plain_grads",
+                        lambda *a: grad_calls.append(1) or plain_grads(*a))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, rel)]
+    counter = _OpCalls()
+    with counter:
+        out = _mode_call(mode, *leaves[:3], torch.from_numpy(mask), leaves[3], block_kv)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert counter.calls == 1
+    assert len(grad_calls) == (0 if block_kv else 1)
+    if block_kv:
+        return
+    plain = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, rel)]
+    tm, m = torch.from_numpy(mask), {"encoder": tfa.ENCODER, "causal": tfa.CAUSAL,
+                                     "cross": tfa.CROSS, "scaled_causal": tfa.SCALED_CAUSAL}[mode]
+    qs = tfa.scale_queries(plain[0], D ** -0.5) if mode == "scaled_causal" else plain[0]
+    ref = tfa._plain_forward(m, qs, plain[1], plain[2], tm,
+                             plain[3] if tfa.has_bias(m) else None, H, 32, 128)
+    (ref * torch.from_numpy(w)).sum().backward()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    for got, want in zip(leaves[:3], plain[:3]):
+        torch.testing.assert_close(got.grad, want.grad, rtol=0, atol=0)
+    if plain[3].grad is None:
+        assert leaves[3].grad is None
+    else:
+        scale = plain[3].grad.abs().max().item()
+        torch.testing.assert_close(leaves[3].grad, plain[3].grad, rtol=0, atol=1e-5 * scale)

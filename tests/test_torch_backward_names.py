@@ -21,6 +21,9 @@ import torch
 
 import chip_smoke
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 # Scaled causal attention at T 4096, one head of 64: late rows are diffuse
 # (P ~ 1/T), so their gradients are small beside the first rows'.

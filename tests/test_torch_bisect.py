@@ -28,6 +28,9 @@ from jax.experimental.pallas import tpu as pltpu
 import benchmarks.flash_kernel_bisect as jbisect
 from reprover_tpu_torch.benchmarks import flash_kernel_bisect as bisect
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 B, L, H, D = 2, 256, 2, 64
 

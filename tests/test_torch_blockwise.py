@@ -25,6 +25,9 @@ from reprover_tpu.ops.flash_attention import encoder_flash_attention as jax_enco
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 FWD_TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=3e-4, rtol=1e-4)

@@ -24,6 +24,9 @@ from reprover_tpu_torch.data import Pos
 from reprover_tpu_torch.generation.causal_generator import CausalTacticGeneratorModel
 from reprover_tpu_torch.models import causal_lm as tcl
 from reprover_tpu_torch.models.bridge import causal_params_from_jax
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 JCFG = jcl.CausalLMConfig(vocab_size=64, d_model=32, num_layers=2, num_heads=4, num_kv_heads=2,
                           d_ff=64)

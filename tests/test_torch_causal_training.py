@@ -30,6 +30,9 @@ from reprover_tpu.ops import flash_attention as jfa
 from reprover_tpu_torch.models import causal_lm as tcl
 from reprover_tpu_torch.models.bridge import causal_params_from_jax
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 GEO = dict(vocab_size=64, d_model=128, num_layers=2, num_heads=4, num_kv_heads=2, d_ff=128)
 

@@ -19,6 +19,9 @@ import torch
 from reprover_tpu.ops.flash_attention import causal_flash_attention as jax_causal
 from reprover_tpu.ops.flash_attention import cross_flash_attention as jax_cross
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 B, D = 2, 8
 

@@ -24,6 +24,9 @@ from reprover_tpu_torch.generation.engine import StepwiseBeamEngine
 from reprover_tpu_torch.generation.generator import TacticGeneratorModel
 from reprover_tpu_torch.models.t5 import T5Config, encode, init_params
 from reprover_tpu_torch.prover.service import GenerateRequest, StreamingInferenceService
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 CFG = T5Config(
     vocab_size=64,  # small vocab -> beams collide and EOS fires often

@@ -17,6 +17,9 @@ from reprover_tpu.ops.flash_attention import encoder_flash_attention as jax_flas
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 B, H, D = 3, 4, 16
 

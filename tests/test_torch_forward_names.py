@@ -24,6 +24,9 @@ import chip_smoke
 from chip_smoke import ptxas_report
 from reprover_tpu_torch.ops import flash_attention as tfa
 from reprover_tpu_torch.ops import kernel_timing
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 ROUTE_KIND = {tfa.FULL_ROW: "fwd", tfa.LONG: "long", tfa.LONG_LSE: "long_lse"}
 MODE_PREFIX = {tfa.ENCODER: "", tfa.CAUSAL: "causal_", tfa.CROSS: "cross_",

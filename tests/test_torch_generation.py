@@ -24,6 +24,9 @@ from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
 from reprover_tpu_torch.ops import flash_attention as tfa
 from reprover_tpu_torch.training.tasks import generation_loss
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 TINY = dict(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
             num_decoder_layers=2)

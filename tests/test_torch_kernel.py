@@ -23,6 +23,9 @@ import torch
 import chip_smoke
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 HEADS = 6
 

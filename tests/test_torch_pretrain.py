@@ -26,6 +26,9 @@ from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
 from reprover_tpu_torch.training import pretrain as tpre
 from reprover_tpu_torch.training import tasks as ttasks
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 TINY = dict(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2, num_decoder_layers=1)
 

@@ -23,6 +23,9 @@ from reprover_tpu.ops.quant_matmul import quant4_matmul as jax_quant4_matmul
 from reprover_tpu_torch.models import quantize as qz
 from reprover_tpu_torch.ops import kernel_timing
 from reprover_tpu_torch.ops import quant_matmul as qm
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 SMS = 132  # the H100's SMs
 ROWS = [1, 2, 7, 31, 32, 33, 63, 64, 65, 127, 128, 129, 511, 1000, 2044, 2048]

@@ -22,6 +22,9 @@ from reprover_tpu.ops.quant_matmul import quant4_matmul as jax_quant4_matmul
 from reprover_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
 from reprover_tpu_torch.models import quantize as qz
 from reprover_tpu_torch.ops import quant_matmul as qm
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 
 @pytest.mark.parametrize("shape", [(64, 48), (3, 32, 8), (1472, 24), (2304, 16), (4096, 8)])

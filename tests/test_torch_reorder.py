@@ -17,6 +17,9 @@ from reprover_tpu.generation.engine import reorder_append as jax_reorder_append
 from reprover_tpu.ops.beam_reorder import reorder_append_gather as jax_gather
 from reprover_tpu_torch.generation import engine as te
 from reprover_tpu_torch.ops import beam_reorder as br
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 L, S, K, H, T, D = 2, 3, 4, 2, 8, 4
 

@@ -11,6 +11,9 @@ import torch
 
 from reprover_tpu.ops import topk as jtopk
 from reprover_tpu_torch.ops import topk as ttopk
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 # The packages re-export the function under the module's name.
 jbs = importlib.import_module("reprover_tpu.generation.beam_search")

@@ -28,6 +28,9 @@ from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
 from reprover_tpu_torch.prover import tactic_generator as ttg
 from reprover_tpu_torch.retrieval import PremiseRetriever
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JCFG = jt5.T5Config(

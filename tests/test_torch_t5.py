@@ -17,6 +17,9 @@ from reprover_tpu.models import t5 as jt5
 from reprover_tpu_torch.models import hf_import as thf
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 JCFG = jt5.T5Config(
     d_model=64, d_kv=16, d_ff=128, num_heads=4, num_encoder_layers=3, num_decoder_layers=2

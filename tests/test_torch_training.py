@@ -32,6 +32,9 @@ from reprover_tpu_torch.training.loop import Trainer, TrainerConfig
 from reprover_tpu_torch.utils.checkpoint import CheckpointManager
 from reprover_tpu_torch.utils.config import parse_config
 from reprover_tpu_torch.utils.metrics import MetricWriter
+from reprover_tpu_torch.utils.misc import cap_cpu_threads
+
+cap_cpu_threads()
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
