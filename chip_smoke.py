@@ -202,7 +202,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     environment latency 0 (5 expansions a search) and 2.0 s a tactic (1
     expansion): expansions/s, the service's stats, the device-busy share of
     a profiled window naming the encoder and reorder kernels, kernel 13
-    launched, every search at its expansions.
+    launched, every search at its expansions;
+28. data-parallel training, two ranks sharing the card over gloo (one
+    spawn): ``dp_retriever`` (``retrieval.main fit`` at byt5-small width,
+    batch 8 split over the ranks, 5 steps without warmup, one validation)
+    and ``dp_generator`` (``generation.main fit`` on phase 10's
+    predictions, the ranks' rows with unequal valid-token counts), each
+    against the same fit on one rank in this process: the loss at every
+    step (2e-2 of itself plus 2e-3 of max(1, |loss|)), the parameters'
+    updates after the last step (summed absolute difference within 5% of
+    the one-rank update's), the validation (R@10 within 5 points, one of
+    the 23 validation contexts; ``loss_val`` as the loss), the checkpoint's
+    moments in the one-card layout, each rank's moment bytes at most 0.55
+    of the one-rank run's and every kernel of the task's path launched on
+    every rank, with both runs' ms per step and the gradient reduction's
+    ms; ``dp_dryrun``: ``benchmarks/multichip_dryrun.py``'s checks on the
+    same two ranks, and which collectives gloo runs on CUDA tensors.
 
 The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
 their launches on the main paths: serving, retriever training, generator
@@ -3417,6 +3432,241 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
     return dict(cells=cells, launches=launches)
 
 
+# Data-parallel training: two ranks share the one card over gloo
+# (NCCL refuses two ranks on one device), each launching the CUDA kernels.
+DP = dict(ranks=2, backend="gloo", steps=5, lr=1e-4, loss_rtol=2e-2, loss_atol=2e-3,
+          update_l1=5e-2, r10_tol=5.0, moment_share=0.55)
+
+
+def _dp_argv(device, run_dir: str, bench: str, task: str, tiny: bool, preds: str) -> list:
+    """``fit`` flags of a data-parallel phase's runs: the training phases'
+    flags (the generator's on phase 10's predictions), ``DP["steps"]``
+    steps at lr 1e-4 without warmup (so the parameters move; at the
+    generator's 5e-4 the loss swings 2-6 between steps, and the validation
+    of two runs that differ by bf16's rounding parts by 3%), a loss logged
+    at every step, one validation and a checkpoint at the end."""
+    if task == "retriever":
+        argv = _fit_argv(device, run_dir, bench, tiny)
+        monitor = []
+    else:
+        argv = _gen_argv(device, run_dir, bench, preds, tiny, GEN)
+        monitor = ["--trainer.monitor", "loss_val", "--trainer.monitor_mode", "min"]
+    return argv + monitor + [
+        "--model.lr", str(DP["lr"]),
+        "--model.warmup_steps", "0",
+        "--trainer.max_steps", str(DP["steps"]),
+        "--trainer.val_interval", str(DP["steps"]),
+        "--trainer.log_interval", "1",
+        "--trainer.patience", "99",
+        "--trainer.ckpt_dir", os.path.join(run_dir, "ckpts"),
+    ]
+
+
+DP_TASKS = {"retriever": "reprover_tpu_torch.retrieval.main",
+            "generator": "reprover_tpu_torch.generation.main"}
+
+
+def _dp_rank(rank: int, device_type: str, argvs: dict, init_file: str, out_dir: str) -> None:
+    """One rank of the data-parallel phases: joins the ranks' gloo group,
+    runs each task's ``fit`` (kernel launches, moment bytes, seconds), times
+    the reduction of the last step's gradients alone, then runs the
+    multichip dry run's checks on the same ranks; writes one JSON file."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from reprover_tpu_torch.benchmarks import multichip_dryrun
+    from reprover_tpu_torch.parallel.collectives import reduce_gradients_
+    from reprover_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    device = torch.device(device_type)
+    if device.type == "cpu":  # a CPU rehearsal: two ranks' OpenMP threads spin on few cores
+        torch.set_num_threads(1)
+    init_distributed(device, backend=DP["backend"], init_method=f"file://{init_file}",
+                     rank=rank, world_size=DP["ranks"])
+    out: dict = {}
+    for task, argv in argvs.items():
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        state = importlib.import_module(DP_TASKS[task]).main(["fit"] + argv)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+        grads = [p.grad for p in state.optimizer.params if p.grad is not None]
+        mesh = make_mesh(data=DP["ranks"])
+        reduce_ms = []
+        for _ in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            reduce_gradients_(grads, mesh)
+            _sync(device)
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        out[task] = dict(launches=all_launch_counts(), fit_s=fit_s, reduce_ms=reduce_ms,
+                         moment_bytes=state.optimizer.moment_bytes(),
+                         grad_bytes=sum(g.numel() * g.element_size() for g in grads),
+                         shard_axes=sum(a is not None for a in state.optimizer.shard_axes))
+        del state, grads
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_all_launch_counts()
+    out["dryrun"] = multichip_dryrun.run_rank(make_mesh(data=DP["ranks"]), device)
+    out["dryrun"]["launches"] = {k: n for k, n in all_launch_counts().items() if n}
+    out["dryrun"]["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _metrics(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _initial_params(task: str, tiny: bool, seed: int) -> dict:
+    """The fits' seeded initial parameters (the CLIs' ``random_init`` or
+    ``tiny`` build), flat, on the CPU."""
+    import torch
+
+    from reprover_tpu_torch.models.t5 import byt5_small, fuse_mlp_params, init_params
+
+    cfg = _generator_cfg(torch.device("cpu"), tiny) if tiny else byt5_small()
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    if task == "retriever":
+        params = {"shared_embedding": params["shared_embedding"], "encoder": params["encoder"]}
+    return _flat(fuse_mlp_params(params))
+
+
+def _dp_compare(task: str, one_dir: str, dp_dir: str, tiny: bool, seed: int) -> dict:
+    """One rank's fit against the two ranks': the loss at each step (bf16:
+    within 2e-2 of itself plus 2e-3 of max(1, |loss|), the form of the bf16
+    gradient checks), the parameters after the last step (their updates
+    from the seeded initial parameters: summed absolute difference within
+    ``update_l1`` of the one-rank update's summed magnitude; Adam's
+    near-sign updates flip where a gradient element is below bf16's
+    noise), and the validation metric."""
+    import torch
+
+    recs = {k: _metrics(os.path.join(d, "logs" if task == "retriever" else "glogs",
+                                     "metrics.jsonl")) for k, d in (("one", one_dir),
+                                                                    ("dp", dp_dir))}
+    losses = {k: [r["loss"] for r in v if "loss" in r] for k, v in recs.items()}
+    ms = {k: [1e3 / r["steps_per_sec"] for r in v if "steps_per_sec" in r][1:]
+          for k, v in recs.items()}
+    val_key = "Recall@10_val" if task == "retriever" else "loss_val"
+    val = {k: [r for r in v if val_key in r][-1] for k, v in recs.items()}
+    saved = {k: torch.load(os.path.join(d, "ckpts", str(DP["steps"]), "state.pt"),
+                           map_location="cpu", weights_only=True)
+             for k, d in (("one", one_dir), ("dp", dp_dir))}
+    init = _initial_params(task, tiny, seed)
+    one_p, dp_p = _flat(saved["one"]["params"]), _flat(saved["dp"]["params"])
+    diff = sum(float((dp_p[k] - one_p[k]).abs().sum()) for k in init)
+    moved = sum(float((one_p[k] - init[k]).abs().sum()) for k in init)
+    dot = sum(float(((dp_p[k] - init[k]) * (one_p[k] - init[k])).sum()) for k in init)
+    norm_dp = math.sqrt(sum(float(((dp_p[k] - init[k]) ** 2).sum()) for k in init))
+    norm_one = math.sqrt(sum(float(((one_p[k] - init[k]) ** 2).sum()) for k in init))
+    moments_whole = all(
+        tuple(st["exp_avg"].shape) == tuple(one_p[name].shape)
+        for (i, st), name in zip(sorted(saved["dp"]["optimizer"]["adamw"]["state"].items()),
+                                 _flat(saved["dp"]["params"])))
+    return dict(losses=losses, ms_per_step=ms, validation={k: v.get(val_key) for k, v in
+                                                           val.items()},
+                update_l1_rel=diff / max(moved, 1e-30),
+                update_cosine=dot / max(norm_dp * norm_one, 1e-30),
+                checkpoint_moments_whole=moments_whole,
+                top1={k: v.get("top1_acc_val") for k, v in val.items()})
+
+
+def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> dict:
+    """``dp_retriever``, ``dp_generator`` and ``dp_dryrun``: each fit on one
+    rank in this process, then on two ranks sharing the card over gloo (one
+    spawn for all three: each rank runs both fits, then the multichip dry
+    run's checks), held against each other; each rank must launch its
+    task's kernels and hold about half of the one-rank moment bytes."""
+    import torch
+    import torch.multiprocessing as mp
+
+    import importlib
+
+    seconds, results = {}, {}
+    root = os.path.join(work, "dp")
+    preds = os.path.join(work, "logs", "predictions.pickle")
+    argvs = {}
+    one_bytes = {}
+    for task, module in DP_TASKS.items():
+        t0 = time.perf_counter()
+        one_dir, dp_dir = os.path.join(root, task, "one"), os.path.join(root, task, "dp")
+        argvs[task] = _dp_argv(device, dp_dir, bench, task, tiny, preds)
+        state = importlib.import_module(module).main(
+            ["fit"] + _dp_argv(device, one_dir, bench, task, tiny, preds)
+            + ["--data_parallel", "false"])
+        one_bytes[task] = state.optimizer.moment_bytes()
+        del state
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        seconds[f"dp_{task}_one_rank"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(device.type, argvs, os.path.join(root, "rendezvous"), root),
+             nprocs=DP["ranks"], join=True)
+    seconds["dp_ranks"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP["ranks"]):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    failures = []
+    for task in DP_TASKS:
+        res = _dp_compare(task, os.path.join(root, task, "one"), os.path.join(root, task, "dp"),
+                          tiny, TRAIN["seed"] if task == "retriever" else GEN["seed"])
+        required = ([k for k in FULL_ROW_KERNELS if k.startswith("encoder_attn")]
+                    if task == "retriever" else FULL_ROW_KERNELS)
+        res.update(
+            launches_per_rank=[{k: r[task]["launches"][k] for k in required} for r in ranks],
+            moment_bytes_per_rank=[r[task]["moment_bytes"] for r in ranks],
+            moment_bytes_one_rank=one_bytes[task],
+            grad_bytes=ranks[0][task]["grad_bytes"],
+            reduce_ms=[r[task]["reduce_ms"] for r in ranks],
+            fit_s=[round(r[task]["fit_s"], 1) for r in ranks])
+        results[task] = res
+        log(f"[dp_{task}] {json.dumps(res)}")
+        one, dp = res["losses"]["one"], res["losses"]["dp"]
+        if len(one) != DP["steps"] or len(dp) != DP["steps"]:
+            failures.append(f"{task}: logged {len(one)} / {len(dp)} losses")
+        for a, b in zip(one, dp):
+            if not abs(a - b) <= DP["loss_rtol"] * abs(a) + DP["loss_atol"] * max(1.0, abs(a)):
+                failures.append(f"{task}: loss {b} on two ranks against {a} on one")
+        if not res["update_l1_rel"] <= DP["update_l1"]:
+            failures.append(f"{task}: parameter updates differ by {res['update_l1_rel']:.4f} "
+                            f"(limit {DP['update_l1']})")
+        if not res["checkpoint_moments_whole"]:
+            failures.append(f"{task}: the two ranks' checkpoint holds moment shards")
+        v1, v2 = res["validation"]["one"], res["validation"]["dp"]
+        tol = (DP["r10_tol"] if task == "retriever"
+               else DP["loss_rtol"] * abs(v1) + DP["loss_atol"] * max(1.0, abs(v1)))
+        if v1 is None or v2 is None or not abs(v1 - v2) <= tol:
+            failures.append(f"{task}: validation {v2} on two ranks against {v1} on one")
+        if any(b > DP["moment_share"] * one_bytes[task] for b in res["moment_bytes_per_rank"]):
+            failures.append(f"{task}: a rank holds more than {DP['moment_share']} of the "
+                            f"one-rank moment bytes")
+        if device.type == "cuda" and any(min(x.values()) < 1 for x in res["launches_per_rank"]):
+            failures.append(f"{task}: a rank did not launch every kernel of its path")
+        seconds[f"dp_{task}"] = round(seconds[f"dp_{task}_one_rank"]
+                                      + max(r[task]["fit_s"] for r in ranks), 1)
+    dry = [r["dryrun"] for r in ranks]
+    log(f"[dp_dryrun] {json.dumps(dry)}")
+    for d in dry:
+        for line in d["waiting"]:
+            log(f"[dp_dryrun] waiting: {line}")
+        if not d["ok"]:
+            failures.append(f"dryrun: rank {d['rank']} disagrees with one rank")
+    log(f"[dp_gloo] collectives on {device.type} tensors over gloo: "
+        f"{json.dumps(dry[0]['collectives'])}")
+    seconds["dp_dryrun"] = round(max(d["seconds"] for d in dry), 1)
+    if failures:
+        raise AssertionError("data-parallel phases failed: " + "; ".join(failures))
+    return dict(seconds={k: round(v, 1) for k, v in seconds.items()}, results=results,
+                dryrun=dry)
+
+
 REPLACES = {
     "encoder_attn": "reprover_tpu/ops/flash_attention.py:176",
     "encoder_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:607",
@@ -3658,6 +3908,9 @@ def main() -> int:
         del ret_params
         ld = phase("load", phase_load, device, work, cfg, gen_params)
         del gen_params
+        torch.cuda.empty_cache()
+        dp = phase("data_parallel", phase_data_parallel, device, work, bench)
+        seconds.update(dp["seconds"])
     log(f"[smoke] phase seconds {json.dumps(seconds)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
@@ -3674,6 +3927,9 @@ def main() -> int:
         f"{ev['launches']['encoder_attn']}, {at['launches']['encoder_attn']}, "
         f"{ld['launches']['encoder_attn']}; of kernel 13 in phase 27: "
         f"{ld['launches']['beam_reorder']}")
+    log(f"[smoke] phase-28 (data parallel) launches per rank: "
+        f"{json.dumps({t: r['launches_per_rank'] for t, r in dp['results'].items()})}; the "
+        f"kernels line counts the one-card main paths only")
     log(f"[smoke] phase-23 (remat) launches "
         f"{json.dumps({k: n for k, n in rm['launches'].items() if n})}; phase-24 (pretraining) "
         f"launches {json.dumps({k: n for k, n in pt['launches'].items() if n})}")

@@ -22,8 +22,10 @@ available, served by the port's ``InferenceService`` when
 
 ``--model.remat_policy`` takes ``full``, ``lite`` or ``offload`` and
 ``--model.offload_optimizer true`` keeps Adam's moments in host memory.
-Not ported (raises with a pointer into ROADMAP.md): ``--data_parallel``
-over more than one card.
+``fit`` is data-parallel by default, as ``retrieval.main fit`` is: on ``n``
+cards it launches ``gcd(batch_size, n)`` ranks itself (or joins the group
+``torchrun`` gives it), and the cross-entropy is weighted by the global
+count of valid tokens; validation runs on the first rank.
 """
 
 from __future__ import annotations
@@ -112,11 +114,8 @@ def _build(cfg: GenerationConfig) -> Tuple[Any, Any, Any]:
         place_master_params,
         resolve_device,
     )
-    from reprover_tpu_torch.retrieval.main import DATA_PARALLEL_TODO
 
     device = resolve_device(cfg.device)
-    if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(DATA_PARALLEL_TODO.format(torch.cuda.device_count()))
     dm = GeneratorDataModule(
         data_path=cfg.data.data_path,
         batch_size=cfg.data.batch_size,
@@ -211,6 +210,7 @@ def run_fit(cfg: GenerationConfig, environment: Any = None) -> Any:
     """Train; returns the final ``TrainState``. ``environment`` replaces
     LeanDojo in the end-to-end evaluation (tests inject a fake one)."""
     from reprover_tpu_torch.generation.validate import validation_metrics
+    from reprover_tpu_torch.parallel.mesh import fit_mesh, is_first_rank
     from reprover_tpu_torch.training.loop import Trainer
     from reprover_tpu_torch.training.tasks import (
         generation_loss,
@@ -218,16 +218,19 @@ def run_fit(cfg: GenerationConfig, environment: Any = None) -> Any:
         make_train_step,
         offload_opt_state,
     )
-    from reprover_tpu_torch.utils.metrics import make_writer
+    from reprover_tpu_torch.utils.metrics import MultiWriter, make_writer
 
+    mesh = fit_mesh(cfg.data_parallel, cfg.data.batch_size, cfg.device)
     dm, model, model_cfg = _build(cfg)
     dm.setup("fit")
     state = init_train_state(model.params, cfg.model.lr, cfg.model.warmup_steps)
     if cfg.model.offload_optimizer:
-        state = offload_opt_state(state)
-    step_fn = make_train_step(generation_loss, model_cfg,
+        state = offload_opt_state(state, mesh)
+    step_fn = make_train_step(generation_loss, model_cfg, mesh=mesh,
                               offload_opt=cfg.model.offload_optimizer)
-    writer = make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval)
+    first = is_first_rank(mesh)
+    writer = (make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval) if first
+              else MultiWriter([]))
     writer.write_hparams(config_to_dict(cfg))
 
     # Frozen retriever for retrieval-augmented end-to-end eval
@@ -243,6 +246,8 @@ def run_fit(cfg: GenerationConfig, environment: Any = None) -> Any:
 
     def validate(train_state: Any, step: int) -> Any:
         model.params = train_state.params
+        if not first:
+            return {}  # the first rank's metrics reach every rank (Trainer)
         metrics = validation_metrics(
             model,
             dm.val_dataloader(),
@@ -255,7 +260,8 @@ def run_fit(cfg: GenerationConfig, environment: Any = None) -> Any:
             metrics["Pass@1_val"] = _end_to_end_pass1(cfg, model, environment, retriever)
         return metrics
 
-    trainer = Trainer(cfg.trainer, step_fn, writer, validate_fn=validate, device=model.device)
+    trainer = Trainer(cfg.trainer, step_fn, writer, validate_fn=validate, device=model.device,
+                      mesh=mesh)
     try:
         return trainer.fit(state, dm.train_dataloader())
     finally:
@@ -286,10 +292,16 @@ def run_validate(cfg: GenerationConfig) -> Tuple[Any, Any]:
 
 def main(argv: Optional[List[str]] = None) -> Any:
     """Run a subcommand; returns what it returns."""
+    from reprover_tpu_torch.parallel.mesh import launch_count, launch_ranks
+
     logging.basicConfig(level=logging.INFO, force=True)
-    subcommand, cfg = parse_config(GenerationConfig, argv if argv is not None else sys.argv[1:])
+    argv = list(argv if argv is not None else sys.argv[1:])
+    subcommand, cfg = parse_config(GenerationConfig, argv)
     np.random.seed(cfg.seed)
     if subcommand == "fit":
+        ranks = launch_count(cfg.data_parallel, cfg.data.batch_size, cfg.device)
+        if ranks > 1:
+            return launch_ranks(main, argv, ranks, cfg.device)
         return run_fit(cfg)
     if subcommand == "validate":
         return run_validate(cfg)

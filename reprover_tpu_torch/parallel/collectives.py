@@ -1,0 +1,106 @@
+"""The collectives of data-parallel training over a mesh's ``data`` axis
+(the JAX package gets them implied by GSPMD from its shardings).
+
+Every one is built on ``all_reduce``, so NCCL between cards and gloo
+between ranks sharing one card run one algorithm (PyTorch's backend table
+promises gloo only ``all_reduce`` and ``broadcast`` on CUDA tensors). A
+gather is an ``all_reduce`` of a zero-filled buffer in which each rank has
+written its own part: a sum of one value and zeros, exact in every dtype,
+for a shard along any axis (the ZeRO axis is seldom axis 0, where an
+``all_gather`` would need the shards packed and unpacked). It moves twice
+the bytes of an ``all_gather``; ``PERF.md`` has its time.
+
+- :func:`reduce_gradients_`: the gradients summed over ``data``. Each rank's
+  loss is its share of the global batch's loss (the steps of
+  :mod:`reprover_tpu_torch.training.tasks`), so the sum is the global
+  batch's gradient, as GSPMD's step computes it.
+- :func:`gather_rows`: every rank's rows, in rank order, with gradient (the
+  in-batch negatives of the retrieval losses).
+- :func:`gather_shards_`: a tensor whose ranks each updated their own shard
+  along one axis made whole on every rank (the parameters after the ZeRO
+  update, the moments for a checkpoint).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+from reprover_tpu_torch.parallel.mesh import Mesh
+
+
+def _all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=mesh.group("data"))
+    return t
+
+
+def reduce_gradients_(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Sum ``grads`` over the ``data`` axis in place (in one order on every
+    rank: the callers pass the parameters' order)."""
+    import torch.distributed as dist
+
+    works = [dist.all_reduce(g, group=mesh.group("data"), async_op=True) for g in grads]
+    for work in works:
+        work.wait()
+
+
+def global_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over the ``data`` axis (a new tensor, no gradient)."""
+    return _all_reduce_(x.detach().clone(), mesh)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh, rows = mesh, x.shape[0]
+        out = x.new_zeros((mesh.shape["data"] * rows,) + tuple(x.shape[1:]))
+        out.narrow(0, mesh.coord("data") * rows, rows).copy_(x)
+        return _all_reduce_(out, mesh)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Any:
+        # Every rank's loss reads every row: a row's gradient is their sum.
+        mesh = ctx.mesh
+        rows = grad.shape[0] // mesh.shape["data"]
+        total = _all_reduce_(grad.contiguous().clone(), mesh)
+        return total.narrow(0, mesh.coord("data") * rows, rows), None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) stacked along axis 0 in rank order,
+    differentiable: the gradient of a rank's rows is the sum of every
+    rank's gradient for them."""
+    if not mesh.spans("data"):
+        return x
+    return _GatherRows.apply(x, mesh)
+
+
+def gather_shards_(full: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+    """Make ``full`` whole on every rank, where each rank holds the right
+    values only in its own shard along ``axis`` (the ``data`` coordinate's
+    slice of ``full.shape[axis] / data``); in place, no gradient."""
+    n, r = mesh.shape["data"], mesh.coord("data")
+    size = full.shape[axis] // n
+    with torch.no_grad():
+        own = full.narrow(axis, r * size, size).clone()
+        full.zero_()
+        full.narrow(axis, r * size, size).copy_(own)
+        return _all_reduce_(full, mesh)
+
+
+def broadcast_object(obj: Any, mesh: Mesh, src: int = 0) -> Any:
+    """``obj`` of the ``data`` group's rank ``src`` on every rank (the
+    mesh's coordinate ``src`` when it lists its ranks in order, as
+    ``make_mesh`` does by default): validation metrics, stop decisions,
+    where every rank must take the same branch."""
+    import torch.distributed as dist
+
+    if not mesh.spans("data"):
+        return obj
+    group = mesh.group("data")
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src), group=group)
+    return box[0]

@@ -20,8 +20,15 @@ encoder's parameters are built and trained.
 
 ``--model.remat_policy`` takes ``full``, ``lite`` or ``offload`` and
 ``--model.offload_optimizer true`` keeps Adam's moments in host memory.
-Not ported (each raises with a pointer into ROADMAP.md): ``--model.approx``
-and ``--data_parallel`` over more than one card.
+
+``fit`` is data-parallel by default (``--data_parallel true``, the JAX
+package's rule): on a machine with ``n`` cards it launches
+``gcd(batch_size, n)`` ranks itself, one per card, over NCCL; under
+``torchrun`` (or in a process group its caller formed) it trains on the
+group's ranks, each on the same global batches, with ZeRO-sharded moments.
+``--device cpu`` with ``torchrun``'s environment runs the same path over
+gloo. ``--data_parallel false`` trains on one card. Not ported (raises
+with a pointer into ROADMAP.md): ``--model.approx``.
 """
 
 from __future__ import annotations
@@ -40,10 +47,7 @@ from reprover_tpu_torch.utils.config import config_to_dict, parse_config
 
 logger = logging.getLogger(__name__)
 
-DATA_PARALLEL_TODO = (
-    "data-parallel training over {} cards is not ported; pass --data_parallel false "
-    "(ROADMAP.md Queue 1 item 7)"
-)
+REINDEX_BATCH = 64  # validation's re-index batch (retrieval/prediction.py's default)
 
 
 @dataclasses.dataclass
@@ -95,9 +99,9 @@ class RetrievalConfig:
 LINKS = [("data.max_seq_len", "model.max_seq_len")]
 
 
-def _build(cfg: RetrievalConfig) -> Tuple[Any, Any, Any]:
+def _build(cfg: RetrievalConfig, mesh: Any = None) -> Tuple[Any, Any, Any]:
     """(data module, retriever over float32 master params on the device,
-    model config)."""
+    model config); ``mesh``: the fit's data-parallel mesh, if any."""
     from reprover_tpu_torch.models.hf_import import load_hf_t5
     from reprover_tpu_torch.models.t5 import (
         T5Config,
@@ -117,8 +121,6 @@ def _build(cfg: RetrievalConfig) -> Tuple[Any, Any, Any]:
     if cfg.model.loss not in ("mse", "infonce"):
         raise ValueError(f"--model.loss must be 'mse' or 'infonce', got {cfg.model.loss!r}")
     device = resolve_device(cfg.device)
-    if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(DATA_PARALLEL_TODO.format(torch.cuda.device_count()))
     dtype = default_dtype(device)
     if cfg.model.tiny:
         model_cfg = T5Config(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2,
@@ -150,13 +152,15 @@ def _build(cfg: RetrievalConfig) -> Tuple[Any, Any, Any]:
     # Fused gate|up MLP layout: one wide matrix product per layer.
     params = place_master_params(fuse_mlp_params(params), device)
     retriever = PremiseRetriever(params, model_cfg, max_seq_len=cfg.model.max_seq_len,
-                                 num_retrieved=cfg.model.num_retrieved)
+                                 num_retrieved=cfg.model.num_retrieved, mesh=mesh)
     retriever.load_corpus(dm.corpus)
     return dm, retriever, model_cfg
 
 
 def run_fit(cfg: RetrievalConfig) -> Any:
-    """Train; returns the final ``TrainState``."""
+    """Train (data-parallel over this process's group, if it is a rank of
+    one); returns the final ``TrainState``."""
+    from reprover_tpu_torch.parallel.mesh import fit_mesh, is_first_rank
     from reprover_tpu_torch.retrieval.prediction import validation_metrics
     from reprover_tpu_torch.training.loop import Trainer
     from reprover_tpu_torch.training.tasks import (
@@ -166,25 +170,34 @@ def run_fit(cfg: RetrievalConfig) -> Any:
         retrieval_infonce_loss,
         retrieval_loss,
     )
-    from reprover_tpu_torch.utils.metrics import make_writer
+    from reprover_tpu_torch.utils.metrics import MultiWriter, make_writer
 
-    dm, retriever, model_cfg = _build(cfg)
+    mesh = fit_mesh(cfg.data_parallel, cfg.data.batch_size, cfg.device)
+    dm, retriever, model_cfg = _build(cfg, mesh)
     dm.setup("fit")
     state = init_train_state(retriever.params, cfg.model.lr, cfg.model.warmup_steps)
     if cfg.model.offload_optimizer:
-        state = offload_opt_state(state)
+        state = offload_opt_state(state, mesh)
     loss_fn = retrieval_loss if cfg.model.loss == "mse" else retrieval_infonce_loss
-    step_fn = make_train_step(loss_fn, model_cfg, offload_opt=cfg.model.offload_optimizer)
-    writer = make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval)
+    step_fn = make_train_step(loss_fn, model_cfg, mesh=mesh,
+                              offload_opt=cfg.model.offload_optimizer)
+    first = is_first_rank(mesh)
+    writer = (make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval) if first
+              else MultiWriter([]))
     writer.write_hparams(config_to_dict(cfg))
 
     def validate(train_state: Any, step: int) -> Any:
         retriever.params = train_state.params
         retriever.mark_stale()
-        return validation_metrics(retriever, dm.val_dataloader(), cfg.model.num_retrieved)
+        retriever.reindex_corpus(REINDEX_BATCH)  # under a mesh, every rank embeds its share
+        if not first:
+            return {}  # the first rank's metrics reach every rank (Trainer)
+        return validation_metrics(retriever, dm.val_dataloader(), cfg.model.num_retrieved,
+                                  REINDEX_BATCH)
 
     trainer = Trainer(cfg.trainer, step_fn, writer, validate_fn=validate,
-                      on_train_batch_end=retriever.mark_stale, device=retriever.device)
+                      on_train_batch_end=retriever.mark_stale, device=retriever.device,
+                      mesh=mesh)
     try:
         return trainer.fit(state, dm.train_dataloader())
     finally:
@@ -230,12 +243,16 @@ def run_predict(cfg: RetrievalConfig) -> List[Any]:
 
 def main(argv: Optional[List[str]] = None) -> Any:
     """Run a subcommand; returns what it returns."""
+    from reprover_tpu_torch.parallel.mesh import launch_count, launch_ranks
+
     logging.basicConfig(level=logging.INFO, force=True)
-    subcommand, cfg = parse_config(
-        RetrievalConfig, argv if argv is not None else sys.argv[1:], links=LINKS
-    )
+    argv = list(argv if argv is not None else sys.argv[1:])
+    subcommand, cfg = parse_config(RetrievalConfig, argv, links=LINKS)
     np.random.seed(cfg.seed)
     if subcommand == "fit":
+        ranks = launch_count(cfg.data_parallel, cfg.data.batch_size, cfg.device)
+        if ranks > 1:
+            return launch_ranks(main, argv, ranks, cfg.device)
         return run_fit(cfg)
     if subcommand == "validate":
         return run_validate(cfg)

@@ -8,7 +8,9 @@
 - ``retrieve_batch`` runs the masked cosine top-k on the device.
 
 Any parameter update marks the corpus embeddings stale; queries re-index
-lazily. Approximate top-k and mesh sharding are not ported.
+lazily. Under a data-parallel mesh (``mesh=``) each rank embeds every
+``data``-th batch of the re-index and the embeddings are gathered, so every
+rank holds the one-device index. Approximate top-k is not ported.
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ class PremiseRetriever:
         max_seq_len: int,
         num_retrieved: int = 100,
         bucket_multiple: int = 128,
+        mesh: Any = None,
     ) -> None:
         self.params = params
+        self.mesh = mesh if mesh is not None and mesh.spans("data") else None
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.num_retrieved = num_retrieved
@@ -167,11 +171,17 @@ class PremiseRetriever:
     def _embed_tokenized(self, batches: List[Batch], n: int) -> torch.Tensor:
         """Embed pre-tokenized batches into a device ``[n, D]`` fp32 matrix in
         corpus order. Launches are asynchronous; nothing waits on the device
-        until a caller reads the result."""
+        until a caller reads the result. Under a mesh this rank embeds every
+        ``data``-th batch and the rows are gathered (each is written by one
+        rank: the sum is exact)."""
+        from reprover_tpu_torch.parallel.collectives import global_sum
+
         out = torch.zeros((n, self.embedding_size), dtype=torch.float32, device=self.device)
-        for idxs, ids, mask in batches:
+        n_ranks = 1 if self.mesh is None else self.mesh.shape["data"]
+        mine = 0 if self.mesh is None else self.mesh.coord("data")
+        for idxs, ids, mask in batches[mine::n_ranks]:
             out[torch.from_numpy(idxs).to(self.device)] = self._encode(ids, mask)
-        return out
+        return out if self.mesh is None else global_sum(out, self.mesh)
 
     # -------------------------------------------------------------- #
     # Query

@@ -14,6 +14,13 @@ Same semantics as the JAX package's ``Trainer``:
 
 Batches are the collated numpy dicts of the data module; the loop moves
 their arrays to ``device`` (:func:`numeric_batch`).
+
+Under a data-parallel mesh every rank runs this loop on the same global
+batches (the train step takes each rank's rows). Every rank calls the
+validation callback (its collectives need them all) and takes the
+metrics of the rank at ``data`` coordinate 0, so every rank stops, early
+or at the time limit, at the same step; that rank alone writes the
+checkpoints, in the one-card layout.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import math
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
+from reprover_tpu_torch.parallel.collectives import broadcast_object
+from reprover_tpu_torch.parallel.mesh import is_first_rank
 from reprover_tpu_torch.training.tasks import TrainState, numeric_batch
 from reprover_tpu_torch.utils.checkpoint import CheckpointManager
 from reprover_tpu_torch.utils.metrics import MetricWriter
@@ -64,6 +73,7 @@ class Trainer:
         validate_fn: Optional[ValidateFn] = None,
         on_train_batch_end: Optional[Callable[[], None]] = None,
         device: Any = "cuda",
+        mesh: Any = None,
     ) -> None:
         self.config = config
         self.train_step = train_step
@@ -71,11 +81,17 @@ class Trainer:
         self.validate_fn = validate_fn
         self.on_train_batch_end = on_train_batch_end
         self.device = device
+        self.mesh = mesh if mesh is not None and mesh.spans("data") else None
         self.ckpt: Optional[CheckpointManager] = None
         if config.ckpt_dir:
             self.ckpt = CheckpointManager(
-                config.ckpt_dir, monitor=config.monitor, mode=config.monitor_mode
+                config.ckpt_dir, monitor=config.monitor, mode=config.monitor_mode,
+                writer=is_first_rank(self.mesh),
             )
+
+    def _agreed(self, value: Any) -> Any:
+        """``value`` of the rank at ``data`` coordinate 0, on every rank."""
+        return value if self.mesh is None else broadcast_object(value, self.mesh)
 
     def fit(self, state: TrainState, train_loader: Iterable) -> TrainState:
         cfg = self.config
@@ -143,7 +159,8 @@ class Trainer:
                 if step >= cfg.max_steps:
                     done = True
                     break
-                if cfg.time_limit_s is not None and time.monotonic() - t_start >= cfg.time_limit_s:
+                if cfg.time_limit_s is not None and self._agreed(
+                        time.monotonic() - t_start >= cfg.time_limit_s):
                     logger.info("time limit reached (%.0fs) at step %d — stopping",
                                 cfg.time_limit_s, step)
                     done = True
@@ -160,6 +177,6 @@ class Trainer:
         return state
 
     def _validate(self, state: TrainState, step: int) -> Dict[str, float]:
-        metrics = self.validate_fn(state, step)
+        metrics = self._agreed(self.validate_fn(state, step))
         self.writer.write(step, metrics)
         return metrics

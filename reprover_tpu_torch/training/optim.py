@@ -21,11 +21,20 @@ memory: each update streams them to the device one parameter leaf at a
 time, runs the same AdamW update there and copies them back, so the device
 holds one leaf's moments at a time instead of all of them. The update is
 the on-device one, leaf by leaf, so the parameters stay bit-equal to it.
+
+After :meth:`AdamWClip.shard` (ZeRO-2 over a mesh's ``data`` axis, the
+JAX package's ZeRO-sharded moments) each rank keeps the moments of its own
+shard of every leaf only: the axis :func:`~reprover_tpu_torch.parallel.
+sharding.zero_partition_specs` picks, the largest one the ``data`` size
+divides; a leaf with none stays whole on every rank. An update sums the
+gradients over ``data``, clips them by their global norm (the one-device
+clip, on the same whole gradients), updates this rank's shards in place and
+gathers the shards, so every rank ends with the whole new parameters.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,15 +84,51 @@ class AdamWClip:
         self.schedule = constant_warmup_schedule(lr, warmup_steps)
         self.grad_clip = grad_clip
         self.count = 0  # updates applied so far
-        self.adamw = torch.optim.AdamW(
-            self.params, lr=self.schedule(0), betas=(b1, b2), eps=eps, weight_decay=weight_decay
-        )
+        self._hyper = dict(betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+        # ZeRO (shard): the mesh, each leaf's shard axis (None: whole) and the
+        # tensors AdamW updates, this rank's shards as views of the leaves.
+        self.mesh: Any = None
+        self.shard_axes: List[Optional[int]] = [None] * len(self.params)
+        self.targets: List[torch.Tensor] = self.params
+        self.adamw = torch.optim.AdamW(self.targets, lr=self.schedule(0), **self._hyper)
+
+    def shard(self, mesh: Any) -> None:
+        """Keep only this rank's ZeRO shard of every leaf's moments from now
+        on (moments already made are sliced); a mesh whose ``data`` axis is
+        one rank changes nothing."""
+        from reprover_tpu_torch.parallel.sharding import shard_axis, zero_partition_specs
+
+        if mesh == self.mesh or not mesh.spans("data"):
+            return
+        if self.mesh is not None:
+            raise ValueError("the optimizer is already sharded over another mesh")
+        full = self.state_dict()
+        specs = zero_partition_specs(self.params, mesh)
+        self.mesh = mesh
+        self.shard_axes = [shard_axis(s) for s in specs]
+        self.targets = [self._shard_of(p.detach(), a) for p, a in zip(self.params, self.shard_axes)]
+        self.adamw = torch.optim.AdamW(self.targets, lr=self.schedule(self.count), **self._hyper)
+        self._host.clear()
+        self.load_state_dict(full)
+
+    def _shard_of(self, t: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+        """This rank's shard of a leaf-shaped ``t`` (a view; ``t`` when whole)."""
+        if axis is None:
+            return t
+        n = self.mesh.shape["data"]
+        size = t.shape[axis] // n
+        return t.narrow(axis, self.mesh.coord("data") * size, size)
+
+    def moment_bytes(self) -> int:
+        """Bytes of the moments this rank holds (host or device)."""
+        return sum(state[key].numel() * state[key].element_size()
+                   for state in self.adamw.state.values() for key in MOMENTS if key in state)
 
     def offload(self) -> None:
         """Keep the moments in host memory from now on (those already made
         move there now)."""
         self.offload_moments = True
-        for p in self.params:
+        for p in self.targets:
             self._moments_to_host(p)
 
     def _moments_to_host(self, p: torch.Tensor) -> None:
@@ -110,11 +155,11 @@ class AdamWClip:
         """One AdamW update per leaf: its moments in from host memory, the
         update (the others' gradients hidden, so AdamW skips them), its
         moments back out."""
-        grads = {id(p): p.grad for p in self.params}
-        for p in self.params:
+        grads = {id(p): p.grad for p in self.targets}
+        for p in self.targets:
             p.grad = None
         try:
-            for p in self.params:
+            for p in self.targets:
                 if grads[id(p)] is None:
                     continue
                 p.grad = grads[id(p)]
@@ -123,34 +168,91 @@ class AdamWClip:
                 self._moments_to_host(p)
                 p.grad = None
         finally:
-            for p in self.params:
+            for p in self.targets:
                 p.grad = grads[id(p)]
 
     def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        """One update from the parameters' ``.grad``."""
+        """One update from the parameters' ``.grad`` (under :meth:`shard`,
+        each rank's share of the global batch's gradient): its three parts
+        in turn."""
+        self.reduce_gradients()
+        self.update()
+        self.gather_shards()
+
+    def reduce_gradients(self) -> None:
+        """Under :meth:`shard`: sum the gradients over ``data`` in place."""
+        from reprover_tpu_torch.parallel.collectives import reduce_gradients_
+
+        if self.mesh is not None:
+            reduce_gradients_([p.grad for p in self.params if p.grad is not None], self.mesh)
+
+    def update(self) -> None:
+        """Clip by the global norm, then AdamW on this rank's shards (the
+        whole leaves without :meth:`shard`)."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.grad_clip is not None and self.grad_clip > 0 and grads:
             clip_by_global_norm_(grads, self.grad_clip)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
+        if self.mesh is not None:
+            for p, t, axis in zip(self.params, self.targets, self.shard_axes):
+                t.grad = None if p.grad is None else self._shard_of(p.grad, axis)
         if self.offload_moments:
             self._step_streamed()
         else:
             self.adamw.step()
         self.count += 1
 
+    def gather_shards(self) -> None:
+        """Under :meth:`shard`: every rank's updated shards, made whole on
+        every rank."""
+        from reprover_tpu_torch.parallel.collectives import gather_shards_
+
+        if self.mesh is not None:
+            for p, axis in zip(self.params, self.shard_axes):
+                if axis is not None and p.grad is not None:
+                    gather_shards_(p.detach(), axis, self.mesh)
+
     def state_dict(self) -> Dict[str, Any]:
+        """The one-device layout: under :meth:`shard` every rank's moment
+        shards are gathered (a collective: every rank calls it)."""
+        from reprover_tpu_torch.parallel.collectives import gather_shards_
+
         if self.offload_moments and any(p.is_cuda for p in self.params):
             torch.cuda.synchronize()  # the host moments' last copies have landed
-        return {"count": self.count, "adamw": self.adamw.state_dict()}
+        inner = self.adamw.state_dict()
+        if self.mesh is not None:
+            state = {}
+            for i, per in inner["state"].items():
+                p, axis = self.params[i], self.shard_axes[i]
+                per = dict(per)
+                for key in MOMENTS if axis is not None else ():
+                    whole = torch.zeros(p.shape, dtype=per[key].dtype, device=p.device)
+                    self._shard_of(whole, axis).copy_(per[key])
+                    per[key] = gather_shards_(whole, axis, self.mesh)
+                state[i] = per
+            inner = {"state": state, "param_groups": inner["param_groups"]}
+        return {"count": self.count, "adamw": inner}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Load a state dict of either placement; with ``offload_moments``
-        the moments go back to host memory."""
+        """Load a state dict of either placement (always the one-device
+        layout; under :meth:`shard` each rank keeps its shards); with
+        ``offload_moments`` the moments go back to host memory."""
         self.count = int(state["count"])
-        self.adamw.load_state_dict(state["adamw"])
+        inner = state["adamw"]
+        if self.mesh is not None:
+            sliced = {}
+            for i, per in inner["state"].items():
+                per = dict(per)
+                for key in MOMENTS if self.shard_axes[int(i)] is not None else ():
+                    per[key] = self._shard_of(per[key], self.shard_axes[int(i)]).contiguous()
+                sliced[i] = per
+            inner = {"state": sliced, "param_groups": inner["param_groups"]}
+        self.adamw.load_state_dict(inner)
         if self.offload_moments:
             self.offload()

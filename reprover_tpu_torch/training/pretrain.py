@@ -23,8 +23,10 @@ any geometry (they take any length and head width 64 or 128);
 ``--model.flash false`` runs the plain attention instead, the JAX package's
 A/B switch, never a fallback. ``--model.remat_policy`` (``full``, ``lite``,
 ``offload``; the JAX package's pretraining has only ``full``) and
-``--model.offload_optimizer`` are the other CLIs' options. Not ported
-(raises): data parallelism over more than one card.
+``--model.offload_optimizer`` are the other CLIs' options. ``fit`` is
+data-parallel by default, as ``retrieval.main fit`` is (``gcd(batch_size,
+cards)`` ranks, or the group ``torchrun`` gives it); the first rank alone
+probes, logs and exports.
 """
 
 from __future__ import annotations
@@ -301,7 +303,7 @@ def run_fit(cfg: PretrainConfig) -> Any:
         encoder_flash_attention,
     )
     from reprover_tpu_torch.ops.pooling import masked_mean_normalize
-    from reprover_tpu_torch.retrieval.main import DATA_PARALLEL_TODO
+    from reprover_tpu_torch.parallel.mesh import fit_mesh, is_first_rank
     from reprover_tpu_torch.training.health import embedding_anisotropy, embedding_eff_rank
     from reprover_tpu_torch.training.loop import Trainer
     from reprover_tpu_torch.training.tasks import (
@@ -313,11 +315,10 @@ def run_fit(cfg: PretrainConfig) -> Any:
         offload_opt_state,
     )
     from reprover_tpu_torch.utils.config import config_to_dict
-    from reprover_tpu_torch.utils.metrics import make_writer
+    from reprover_tpu_torch.utils.metrics import MultiWriter, make_writer
 
+    mesh = fit_mesh(cfg.data_parallel, cfg.data.batch_size, cfg.device)
     device = resolve_device(cfg.device)
-    if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(DATA_PARALLEL_TODO.format(torch.cuda.device_count()))
     dm = PretrainDataModule(
         data_path=cfg.data.data_path,
         batch_size=cfg.data.batch_size,
@@ -335,11 +336,14 @@ def run_fit(cfg: PretrainConfig) -> Any:
 
     state = init_train_state(params, cfg.model.lr, cfg.model.warmup_steps)
     if cfg.model.offload_optimizer:
-        state = offload_opt_state(state)
+        state = offload_opt_state(state, mesh)
     loss_fn = functools.partial(generation_loss, flash_attention=cfg.model.flash)
-    step_fn = make_train_step(loss_fn, model_cfg, offload_opt=cfg.model.offload_optimizer)
-    eval_step = make_eval_step(loss_fn, model_cfg)
-    writer = make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval)
+    step_fn = make_train_step(loss_fn, model_cfg, mesh=mesh,
+                              offload_opt=cfg.model.offload_optimizer)
+    eval_step = make_eval_step(loss_fn, model_cfg, mesh=mesh)
+    first = is_first_rank(mesh)
+    writer = (make_writer(cfg.log_dir, stdout_every=cfg.trainer.log_interval) if first
+              else MultiWriter([]))
     writer.write_hparams(config_to_dict(cfg))
     val_batches = [numeric_batch(b, device) for b in dm.val_batches()]
 
@@ -351,6 +355,8 @@ def run_fit(cfg: PretrainConfig) -> Any:
 
     def validate(train_state: Any, step: int) -> Dict[str, float]:
         losses = [float(eval_step(train_state.params, b)) for b in val_batches]
+        if not first:
+            return {}  # the first rank's metrics reach every rank (Trainer)
         metrics = {"loss_val": float(np.mean(losses))}
         if val_batches:
             probe = val_batches[0]
@@ -362,12 +368,13 @@ def run_fit(cfg: PretrainConfig) -> Any:
             metrics.update(embedding_anisotropy(emb))
         return metrics
 
-    trainer = Trainer(cfg.trainer, step_fn, writer, validate_fn=validate, device=device)
+    trainer = Trainer(cfg.trainer, step_fn, writer, validate_fn=validate, device=device,
+                      mesh=mesh)
     try:
         state = trainer.fit(state, dm.train_dataloader())
     finally:
         writer.close()
-    if cfg.export_dir:
+    if cfg.export_dir and first:
         export(state.params, model_cfg, cfg.export_dir)
     return state
 
@@ -385,10 +392,16 @@ def main(argv: Optional[List[str]] = None) -> Any:
     """Run a subcommand; returns what it returns."""
     from reprover_tpu_torch.utils.config import parse_config
 
+    from reprover_tpu_torch.parallel.mesh import launch_count, launch_ranks
+
     logging.basicConfig(level=logging.INFO, force=True)
-    subcommand, cfg = parse_config(PretrainConfig, argv if argv is not None else sys.argv[1:])
+    argv = list(argv if argv is not None else sys.argv[1:])
+    subcommand, cfg = parse_config(PretrainConfig, argv)
     np.random.seed(cfg.seed)
     if subcommand == "fit":
+        ranks = launch_count(cfg.data_parallel, cfg.data.batch_size, cfg.device)
+        if ranks > 1:
+            return launch_ranks(main, argv, ranks, cfg.device)
         return run_fit(cfg)
     raise SystemExit(f"unknown subcommand {subcommand!r} (fit)")
 

@@ -56,6 +56,7 @@ class CheckpointManager:
         monitor: Optional[str] = None,
         mode: str = "max",
         keep_last_n: int = 1,
+        writer: bool = True,
     ) -> None:
         if mode not in ("max", "min"):
             raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
@@ -63,6 +64,9 @@ class CheckpointManager:
         self.monitor = monitor
         self.mode = mode
         self.keep_last_n = keep_last_n
+        # A data-parallel fit's ranks all call save (the optimizer gathers its
+        # moment shards there); only the writer writes.
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
 
     def _steps(self) -> List[int]:
@@ -77,18 +81,19 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, metrics: Optional[Dict[str, float]] = None) -> None:
         """Write ``state`` (step, params, optimizer) as checkpoint ``step``,
-        then drop every checkpoint that is neither best nor latest."""
+        then drop every checkpoint that is neither best nor latest (a
+        manager that is not the ``writer`` only takes part in gathering the
+        optimizer's state)."""
+        optimizer = getattr(state, "optimizer", None)
+        opt_state = None if optimizer is None else optimizer.state_dict()
+        if not self.writer:
+            return
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".{step}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        optimizer = getattr(state, "optimizer", None)
         torch.save(
-            {
-                "step": int(state.step),
-                "params": _to_cpu(state.params),
-                "optimizer": None if optimizer is None else optimizer.state_dict(),
-            },
+            {"step": int(state.step), "params": _to_cpu(state.params), "optimizer": opt_state},
             os.path.join(tmp, "state.pt"),
         )
         with open(os.path.join(tmp, "metrics.json"), "w") as f:

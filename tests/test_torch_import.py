@@ -52,6 +52,13 @@ NEW_MODULES = (
     "reprover_tpu_torch.scripts",
     "reprover_tpu_torch.scripts.data_stats",
     "reprover_tpu_torch.scripts.convert_checkpoint",
+    # Data-parallel training: the mesh, the specs, the collectives, the dry run.
+    "reprover_tpu_torch.parallel",
+    "reprover_tpu_torch.parallel.mesh",
+    "reprover_tpu_torch.parallel.sharding",
+    "reprover_tpu_torch.parallel.collectives",
+    "reprover_tpu_torch.benchmarks.multichip_dryrun",
+    "reprover_tpu_torch.benchmarks.data_parallel_step",
 )
 
 

@@ -24,6 +24,7 @@ from reprover_tpu.training import tasks as jtasks
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
 from reprover_tpu_torch.ops import flash_attention as tfa
+from reprover_tpu_torch.parallel.mesh import Mesh
 from reprover_tpu_torch.training import optim as toptim
 from reprover_tpu_torch.training import tasks as ttasks
 from reprover_tpu_torch.utils.misc import cap_cpu_threads
@@ -243,7 +244,7 @@ def test_offload_opt_state_dict_round_trips():
     with pytest.raises(ValueError, match="offload_opt"):
         ttasks.make_train_step(ttasks.retrieval_loss, tcfg, offload_opt=True)(dev, batch)
     with pytest.raises(NotImplementedError):
-        ttasks.offload_opt_state(dev, mesh=object())
+        ttasks.offload_opt_state(dev, mesh=Mesh(2, 2))
 
 
 def test_eval_step_records_no_graph():
@@ -254,7 +255,7 @@ def test_eval_step_records_no_graph():
     assert loss.grad_fn is None and not loss.requires_grad
     assert torch.equal(loss, ttasks.retrieval_loss(state.params, tcfg, batch).detach())
     with pytest.raises(NotImplementedError):
-        ttasks.make_eval_step(ttasks.retrieval_loss, tcfg, mesh=object())
+        ttasks.make_eval_step(ttasks.retrieval_loss, tcfg, mesh=Mesh(2, 2))
 
 
 # ------------------------------------------------------------------ #

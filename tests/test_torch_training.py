@@ -26,6 +26,7 @@ from reprover_tpu.training import optim as joptim
 from reprover_tpu.training import tasks as jtasks
 from reprover_tpu_torch.models import t5 as tt5
 from reprover_tpu_torch.models.bridge import params_from_jax
+from reprover_tpu_torch.parallel.mesh import Mesh
 from reprover_tpu_torch.training import optim as toptim
 from reprover_tpu_torch.training import tasks as ttasks
 from reprover_tpu_torch.training.loop import Trainer, TrainerConfig
@@ -283,7 +284,7 @@ def test_cli_rejects_unported_options(toy_corpus_path, toy_dataset_dir, argv_ext
               "--data.data_path", toy_dataset_dir, "--data.corpus_path", toy_corpus_path]
              + argv_extra)
     with pytest.raises(NotImplementedError):
-        ttasks.make_train_step(ttasks.retrieval_loss, tt5.T5Config(**TINY), mesh=object())
+        ttasks.make_train_step(ttasks.retrieval_loss, tt5.T5Config(**TINY), mesh=Mesh(2, 2))
 
 
 def test_cli_fit_validate_predict(toy_corpus_path, toy_dataset_dir, tmp_path):
