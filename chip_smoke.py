@@ -116,7 +116,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     LSE within 1e-2; bf16 times beside the plain versions,
     ``scaled_dot_product_attention`` with a dense bias mask and the bounds;
 16. long serving: the phase-4 models behind ``InferenceService`` at
-    ``max_inp_seq_len`` 8192, 8 theorems x 2 expansions; every served
+    ``max_inp_seq_len`` 8192, 4 theorems x 2 expansions; every served
     source packs its 100 retrieved premises past 4096 bytes, at least two
     batches are served and kernel 2 must launch; s/request over all
     requests, the padded encoder shape of each batch and one source's
@@ -162,8 +162,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     sweep at [64, 1024] x 6 x 64, 12 layers;
 23. remat policies: the fixed steps of phases 11 and 18 ([8, 2304] ->
     [8, 512], [4, 8192] -> [4, 512]) and phase 8's retriever step at the
-    cap [40, 1024], from one seeded byt5-small init, 10 steps under each of
-    remat ``full``, ``lite`` and ``offload``, then 5 under ``full`` with
+    cap [40, 1024], from one seeded byt5-small init, 6 steps under each of
+    remat ``full``, ``lite`` and ``offload``, then 4 under ``full`` with
     Adam's moments in host memory (``offload_optimizer``): forward /
     backward / optimizer ms per step (CUDA events), peak GiB and each
     attention kernel's launches in the first step. Fails unless each
@@ -200,8 +200,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 27. the port's service load driver at byt5-small width, streaming, 16
     workers x 8 slots x 64 beams, input 512, output 128, 16 theorems, at
     environment latency 0 (5 expansions a search) and 2.0 s a tactic (1
-    expansion): expansions/s, the service's stats, the device-busy share of
-    a profiled window naming the encoder and reorder kernels, kernel 13
+    expansion, 8 beams): expansions/s, the service's stats, the device-busy
+    share of a profiled window naming the encoder and reorder kernels, kernel 13
     launched, every search at its expansions;
 28. data-parallel training, two ranks sharing the card over gloo (one
     spawn): ``dp_retriever`` (``retrieval.main fit`` at byt5-small width,
@@ -218,6 +218,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     every rank, with both runs' ms per step and the gradient reduction's
     ms; ``dp_dryrun``: ``benchmarks/multichip_dryrun.py``'s checks on the
     same two ranks, and which collectives gloo runs on CUDA tensors.
+29. tensor parallelism at TP 2, two ranks sharing the card over gloo (one
+    spawn, ``phase_tensor_parallel``): kernels 11/12 at each rank's shard of
+    every LLaMA-7B product (decode and admission rows) and kernel 13 at the
+    sharded caches against their plain versions (``[tp_kernel]``);
+    byt5-small served through ``serve_tensor_parallel`` (the leader's
+    ``StreamingInferenceService``, the other rank following): 4 requests,
+    64 beams, inputs <= 2048 bytes, decode cut to 64 tokens, both ranks'
+    beams bit-equal, and one fp32 request whose encoder output and first
+    log-probs are within 1e-4 of one rank's (the beams' equal share
+    printed); LLaMA-7B width at depth 4 in int4 and int8, each rank routing
+    as one card, every quantized product on a tensor-core body, half the
+    split weights' bytes; ``make_train_step`` tensor-parallel at (1, 2)
+    for the generator at [2, 1024] -> [2, 256] and the depth-4 LLaMA
+    fine-tuning at [2, 1024], 3 steps each, losses within the bf16 limit
+    of one rank's and the replicated leaves bit-equal across the ranks;
+    and the multichip dry run's tensor-parallel checks.
 
 The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
 their launches on the main paths: serving, retriever training, generator
@@ -233,6 +249,11 @@ for the serving kernels (kernels 11/12 also at the admission rows,
 the scaled causal kernels and [64, 1024] for kernel 14); the last
 line is ``{"ok": true, "device": {...}}``. Without a card the script exits
 2 and prints no result.
+
+The phases run in a child process; this process waits for it, and when it
+ends, however it ends (or this one is told to stop), kills every process
+that the run left behind (prover workers, ranks) and names them on
+standard error. The exit code is the child's.
 
 Rehearse the training phases on the CPU at tiny width (a minute)::
 
@@ -268,6 +289,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -321,12 +343,12 @@ LONG_MAIN = {"encoder_attn": (4, 8192, 8192), "causal_attn": (2, 4608, 4608),
 # premises up to 8192 bytes, batch 4, targets up to 512, 12 steps, one
 # validation batch of 8; the fixed step at [4, 8192] -> [4, 512] (the
 # geometry of benchmarks/genstep_profile.py's 8k run). Long serving: the
-# served sources packed up to 8192 bytes, 8 theorems, up to 2 expansions
-# each (phase 4's depth, twice the theorems), so several batches of
-# different padded lengths are served.
+# served sources packed up to 8192 bytes, 4 theorems (8 before phase 29
+# was added), up to 2 expansions each (phase 4's depth), so several batches
+# of different padded lengths are served.
 LONG_GEN = dict(GEN, batch_size=4, eval_batch_size=8, max_inp_seq_len=8192, steps=12,
                 log_interval=4, num_retrieved=100, shape=(4, 8192), tag="long_gen")
-LONG_SERVE = dict(max_inp_seq_len=8192, num_theorems=8, max_expansions=2)
+LONG_SERVE = dict(max_inp_seq_len=8192, num_theorems=4, max_expansions=2)
 # The KERNEL_LAUNCHES names of the full-row kernels (every one runs in
 # generator training at 2300 bytes) and of the long route's kernels that
 # generator training at 8192 bytes runs (the causal mode's only at T > 4096).
@@ -357,7 +379,7 @@ SLICE = dict(
     num_files=300,
     premises_per_file=43,
     num_theorems_made=200,
-    num_theorems=4,
+    num_theorems=2,  # 4 before phase 29 was added (the smoke's time)
     num_workers=2,
     num_sampled_tactics=64,
     max_inp_seq_len=2048,
@@ -1851,7 +1873,7 @@ def phase_long_serving(device, bench: str) -> dict:
 # the geometry of benchmarks/causal7b_serve.py (4 slots x 8 beams, prompts
 # of 512 tokens, 129 decode positions incl. the start token).
 STREAM = dict(num_slots=2, fp32_beams=8, fp32_max_len=64)
-LLAMA = dict(num_slots=4, num_beams=8, src=512, dec=129, seed=0, clients=2, requests_per_client=2,
+LLAMA = dict(num_slots=4, num_beams=8, src=512, dec=129, seed=0, clients=2, requests_per_client=1,
              bpe_vocab=4096)
 LLAMA_ADMIT_ROWS = LLAMA["num_slots"] * (LLAMA["src"] - 1)  # one admission wave's prefill rows
 # Every LLaMA-7B weight that routes to kernel 11/12: (K, N) of q/k/v/o,
@@ -1992,9 +2014,13 @@ def _weight_only_reading(bits: int, x, ws: list, copies: int, iters: int, ref) -
         return {"error": f"{type(ex).__name__}: {str(ex).splitlines()[0][:200]}"}
 
 
-def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
+def _quant_row(device, bits: int, m: int, k: int, n: int, gen, tp: int = 1,
+               column: bool = True) -> dict:
     """Kernel 11 (bits 8) or 12 (bits 4) at one LLaMA-7B weight shape in
-    bf16 (fp32 output for the lm_head): the body it launched (by
+    bf16 (fp32 output for the lm_head), or with ``tp`` > 1 at the first
+    rank's tensor-parallel shard of it (``column``: split by output
+    channels, else by the contraction; the whole weight quantized, its
+    group kept, as ``shard_for_model`` cuts it): the body it launched (by
     ``BODY_LAUNCHES``); its error against the plain version, globally
     (2e-2 * max(1, max|ref|)) and row by row (each output row within 2e-2
     of its own max|ref|), and a second launch bit-equal to the first; times
@@ -2002,6 +2028,8 @@ def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
     PyTorch's own weight-only kernel over weight copies that exceed the L2
     cache (``_time_cold_ms``), the kernel's device time and host us per
     call (``kernel_timing.queued_ms``); and the bound."""
+    import dataclasses
+
     import torch
 
     from reprover_tpu_torch.models import quantize as qz
@@ -2009,10 +2037,19 @@ def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
     from reprover_tpu_torch.ops.kernel_timing import queued_ms
 
     out_dtype = torch.float32 if n == 32000 else torch.bfloat16
-    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
     w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
     qw = qz.quantize_weight(w) if bits == 8 else qz.quantize_weight4(w)
     del w
+    if tp > 1:
+        from reprover_tpu_torch.parallel.mesh import Mesh
+        from reprover_tpu_torch.parallel.sharding import shard_pytree
+
+        spec = (None, "model") if column else ("model", None)
+        qw = shard_pytree(qw, dataclasses.replace(
+            qw, q=spec, scale=spec if bits == 4 or column else (None, None)), Mesh(1, tp, (0, 0)))
+        qw = dataclasses.replace(qw, q=qw.q.contiguous(), scale=qw.scale.contiguous())
+        k, n = (k, n // tp) if column else (k // tp, n)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
     copies = max(1, -(-3 * L2_BYTES // qw.nbytes))
     ws = [qw] + [qz.QuantWeight(q=qw.q.clone(), scale=qw.scale.clone()) if bits == 8 else
                  qz.Quant4Weight(q=qw.q.clone(), scale=qw.scale.clone(), group=qw.group)
@@ -2040,7 +2077,7 @@ def _quant_row(device, bits: int, m: int, k: int, n: int, gen) -> dict:
     rows = row_error(got[None], ref[None], 1)
     bit_equal = bool(torch.equal(got, again))
     iters = 30 if m <= 64 else 5
-    row = dict(kernel="quant_matmul" if bits == 8 else "quant4_matmul", M=m, K=k, N=n,
+    row = dict(kernel="quant_matmul" if bits == 8 else "quant4_matmul", M=m, K=k, N=n, tp=tp,
                group=getattr(qw, "group", None), out=str(out_dtype).replace("torch.", ""),
                body=bodies[0] if len(bodies) == 1 else bodies, max_abs_err=err, tol=tol,
                row_err=rows, bit_equal=bit_equal,
@@ -2835,7 +2872,7 @@ def phase_bisect(device) -> dict:
 # then remat full with Adam's moments in host memory. Phase 24:
 # span-corruption pretraining through its CLI at the JAX package's defaults
 # (byt5-small, [8, 1024] -> [8, 256]).
-REMAT = dict(steps=10, offload_opt_steps=5, policies=("full", "lite", "offload"))
+REMAT = dict(steps=6, offload_opt_steps=4, policies=("full", "lite", "offload"))
 OFFLOAD_OPT = "full+offload_optimizer"
 PRETRAIN = dict(steps=20, offload_steps=5, log_interval=5, finetune_steps=2)
 
@@ -3170,7 +3207,7 @@ def phase_pretrain(device, work: str, bench: str, tiny: bool = False) -> dict:
 
 EVAL = dict(num_retrieved=100, bm25_cpus=4, r10_tol=0.5, mrr_tol=0.005, embed_batch=16)
 LOAD = dict(workers=16, slots=8, chunk=8, beams=64, theorems=16, max_expansions=4,
-            latent_max_expansions=0, latencies=(0.0, 2.0), profile_window_s=3.0)
+            latent_max_expansions=0, latent_beams=8, latencies=(0.0, 2.0), profile_window_s=3.0)
 
 
 def _evaluate_cli(preds: str, data_path: str) -> dict:
@@ -3324,8 +3361,9 @@ def phase_evaluate(device, work: str, bench: str, validation: dict, tiny: bool =
 
 def phase_attribution(device, bench: str, cfg, gen_params, ret_params, failed: list) -> dict:
     """Phase 26: Pass@1 failure attribution of phase 4's failed theorems
-    (4 val theorems at full width, 64 samples) through the card's
-    ``RetrievalAugmentedTacticGenerator`` over phase 4's models and corpus;
+    (``SLICE["num_theorems"]`` val theorems at full width, 64 samples)
+    through the card's ``RetrievalAugmentedTacticGenerator`` over phase 4's
+    models and corpus;
     the bucket table; fails unless the counts sum to the failed theorems
     that have ``traced_tactics``, kernel 1 launched, and a second run gives
     identical records (the search is seeded, beam search deterministic)."""
@@ -3387,8 +3425,9 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
     ``2.0``. Cut to fit the smoke: 16 theorems (one per worker; the driver
     runs 24), ``max_expansions`` 4 at latency 0 and 0 at 2.0 (the driver
     runs 6; the search stops once it has passed the limit, so a search runs
-    5 and 1 expansions: at 2.0 s per tactic one expansion waits ~128 s on
-    the environment). Expansions/s by wall and over the serving window, the
+    5 and 1 expansions), and 8 beams at 2.0 (the environment waits 2.0 s a
+    tactic on average, so an expansion of 64 would wait ~128 s, of 8 ~16
+    s). Expansions/s by wall and over the serving window, the
     service's stats and the device-busy share of a 3 s profiled window
     (``utils/profiling.device_trace``); fails unless every search ran its
     expansions, kernel 13 launched and the trace names the encoder and
@@ -3405,7 +3444,8 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
         reset_all_launch_counts()
         row = sl.run_cell(model, data, LOAD["workers"], 0, 0.0, num_theorems=LOAD["theorems"],
                           streaming=True, num_slots=LOAD["slots"], chunk_size=LOAD["chunk"],
-                          num_beams=LOAD["beams"], env_latency_s=latency,
+                          num_beams=LOAD["beams"] if latency == 0 else LOAD["latent_beams"],
+                          env_latency_s=latency,
                           max_expansions=limit, device=device,
                           profile_window_s=LOAD["profile_window_s"])
         counts = all_launch_counts()
@@ -3667,6 +3707,453 @@ def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> di
                 dryrun=dry)
 
 
+# Tensor parallelism (phase 29): two ranks share the card over gloo, as in
+# phase 28. byt5-small served at TP 2 (3 heads a rank): 4 requests, 64
+# beams, inputs <= 2048 bytes, decode cut to 64 tokens, 2 slots; one fp32
+# request against one rank (8 beams, 16 tokens); LLaMA-7B width cut to
+# depth 4 of 32 in int4 and int8 (4 slots x 8 beams, prompts 512, decode
+# 129: int4 to the end, int8 two chunks); training at (1, 2): the generator
+# at [2, 1024] -> [2, 256] and the depth-4 LLaMA fine-tuning at [2, 1024], 3
+# steps each against one rank in this process.
+TP = dict(ranks=2, backend="gloo", requests=4, slots=2, beams=64, src=2048, dec=64, chunk=8,
+          fp32_beams=8, fp32_dec=16, fp32_rtol=1e-4, llama_layers=4, llama_src=512,
+          llama_dec=129, llama_slots=4, llama_beams=8, int8_chunks=2, steps=3, lr=1e-4,
+          gen=(2, 1024, 256), finetune=(2, 1024), seed=0, split_share=0.52)
+TP_TINY = dict(TP, beams=4, src=64, dec=8, fp32_beams=4, fp32_dec=6, llama_src=16, llama_dec=9,
+               llama_beams=4, gen=(2, 64, 16), finetune=(2, 128))
+
+
+def _tp_t5(device, tiny: bool, dtype):
+    """The byt5-small generator (tiny: 2 heads, so TP 2 splits them) with
+    seeded weights, fused MLP, in ``dtype`` on ``device`` -> (cfg, params)."""
+    import torch
+
+    from reprover_tpu_torch.models.t5 import (
+        T5Config, byt5_small, fuse_mlp_params, init_params, place_params,
+    )
+
+    cfg = (T5Config(d_model=32, d_kv=16, d_ff=64, num_heads=2, num_encoder_layers=2,
+                    num_decoder_layers=2, compute_dtype=dtype) if tiny
+           else byt5_small(compute_dtype=dtype))
+    params = fuse_mlp_params(init_params(cfg, torch.Generator().manual_seed(SLICE["seed"])))
+    return cfg, place_params(params, cfg, device)
+
+
+def _tp_llama_cfg(device, tiny: bool, flash: bool = False):
+    import torch
+
+    from reprover_tpu_torch.models.causal_lm import CausalLMConfig
+
+    if tiny:
+        return CausalLMConfig(vocab_size=512, d_model=64, num_layers=2, num_heads=4,
+                              num_kv_heads=2, d_ff=128, compute_dtype=torch.float32,
+                              flash_attention=flash)
+    return CausalLMConfig(num_layers=TP["llama_layers"], compute_dtype=torch.bfloat16,
+                          flash_attention=flash)
+
+
+def _tp_train(task: str, device, tiny: bool, mesh=None) -> tuple:
+    """``TP["steps"]`` steps of ``make_train_step`` (tensor-parallel under a
+    ``mesh``) on one seeded batch: the generator at ``TP["gen"]`` (remat
+    full) or the LLaMA fine-tuning at ``TP["finetune"]`` (fused attention),
+    float32 masters -> (losses, state)."""
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.models import causal_lm
+    from reprover_tpu_torch.models.t5 import fuse_mlp_params, init_params, place_master_params
+    from reprover_tpu_torch.training import tasks
+
+    tp = TP_TINY if tiny else TP
+    rng = np.random.default_rng(TP["seed"])
+    if task == "generator":
+        cfg = _generator_cfg(device, tiny)
+        params = place_master_params(fuse_mlp_params(init_params(
+            cfg, torch.Generator().manual_seed(GEN["seed"]))), device)
+        b, src, tgt = tp["gen"]
+        mask = (np.arange(src)[None, :] < np.array([src, src * 3 // 4])[:, None]).astype(np.int64)
+        tactic = rng.integers(3, 259, (b, tgt))
+        tactic[1, tgt // 2:] = -100
+        batch = {"state_ids": rng.integers(3, 259, (b, src)) * mask, "state_mask": mask,
+                 "tactic_ids": tactic}
+        loss_fn = tasks.generation_loss
+    else:
+        cfg = _tp_llama_cfg(device, tiny, flash=True)
+        params = causal_lm.init_params(cfg, torch.Generator(device=device).manual_seed(TP["seed"]))
+        b, t = tp["finetune"]
+        mask = (np.arange(t)[None, :] < np.array([t, t * 2 // 3])[:, None]).astype(np.int64)
+        batch = {"input_ids": rng.integers(3, cfg.vocab_size, (b, t)) * mask,
+                 "attention_mask": mask}
+        loss_fn = tasks.causal_loss
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    state = tasks.init_train_state(params, lr=TP["lr"], warmup_steps=0)
+    step = tasks.make_train_step(loss_fn, cfg, mesh=mesh)
+    losses = []
+    for _ in range(TP["steps"]):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    return losses, state
+
+
+def _beam_state(engine) -> dict:
+    """The engine's beam bookkeeping on the host (every rank's must match)."""
+    st = engine.state
+    return {f: getattr(st, f).detach().cpu() for f in ("fin_tokens", "fin_scores", "fin_lens",
+                                                         "tokens", "beam_scores", "n", "done")}
+
+
+def _tp_byt5(device, mesh, states: list, tiny: bool, out: dict, work: str) -> None:
+    """byt5-small bf16 at TP 2 behind the streaming service (the leader
+    serves ``TP["requests"]`` requests; the other rank follows), then one
+    fp32 request against one rank."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.generation import TacticGeneratorModel
+    from reprover_tpu_torch.models.t5 import decode_step, encode, init_decode_state
+    from reprover_tpu_torch.parallel.sharding import shard_for_model
+    from reprover_tpu_torch.data import Pos
+    from reprover_tpu_torch.prover import serve_tensor_parallel
+
+    tp = TP_TINY if tiny else TP
+    cfg, params = _tp_t5(device, tiny, torch.bfloat16 if device.type == "cuda" else torch.float32)
+    model = TacticGeneratorModel(params, cfg, tp["src"], tp["dec"])
+    opts = dict(num_slots=tp["slots"], num_beams=tp["beams"], chunk_size=tp["chunk"],
+                reorder_mode="gather")
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    svc = serve_tensor_parallel(model, mesh, **opts)  # a follower returns once it stops
+    if mesh.is_leader:
+        svc.start()
+        try:
+            clients = [svc.client() for _ in range(tp["requests"])]
+
+            async def ask():
+                return await asyncio.gather(*[c.agenerate(s, "a.lean", "t", Pos(1, 1),
+                                                          tp["beams"])
+                                              for c, s in zip(clients, states)])
+
+            answers = asyncio.run(ask())
+        finally:
+            svc.stop()
+        stats = svc.stats_snapshot()
+        out["byt5_served"] = dict(requests=int(stats["requests"]), steps=int(stats["steps"]),
+                                  answers=[len(a) for a in answers],
+                                  finite=all(np.isfinite(s) for a in answers for _, s in a))
+    engine = svc.engine
+    _sync(device)
+    out["byt5_s"] = time.perf_counter() - t0
+    out["byt5_launches"] = {k: n for k, n in all_launch_counts().items() if n}
+    out["byt5_cache"] = list(engine.state.self_k.shape)
+    torch.save(_beam_state(engine), os.path.join(work, f"beams{mesh.coord('model')}.pt"))
+    del svc, engine, model, params
+    _empty_cache(device)
+
+    # One fp32 request: the encoder output and the first step's log-probs
+    # through the sharded forward against one rank, then the beams.
+    cfg32, params32 = _tp_t5(device, tiny, torch.float32)
+    local32, _ = shard_for_model(params32, cfg32, mesh)
+    model32 = TacticGeneratorModel(params32, cfg32, tp["src"], tp["fp32_dec"])
+    ids, mask = (torch.from_numpy(x).to(device) for x in model32.tokenize_for_engine(states[:1]))
+    ids = ids.long()
+    start = torch.full((1,), cfg32.decoder_start_token_id, dtype=torch.long, device=device)
+    with torch.no_grad():
+        enc = encode(local32, cfg32, ids, mask, mesh=mesh)
+        logits, _ = decode_step(local32, cfg32, init_decode_state(local32, cfg32, enc, mask, 1),
+                                start, mesh=mesh)
+        if mesh.is_leader:
+            enc1 = encode(params32, cfg32, ids, mask)
+            logits1, _ = decode_step(params32, cfg32, init_decode_state(params32, cfg32, enc1,
+                                                                        mask, 1), start)
+            logp, logp1 = (torch.log_softmax(x, -1) for x in (logits, logits1))
+            out["fp32_encoder_rel"] = ((enc - enc1).abs().max() / enc1.abs().max()).item()
+            out["fp32_logprob_rel"] = ((logp - logp1).abs().max() / logp1.abs().max()).item()
+    engine = model32.make_stepwise_engine(1, tp["fp32_beams"], mesh=mesh, reorder_mode="gather")
+    if mesh.is_leader:
+        try:
+            engine.admit_batch_tokens([0], *model32.tokenize_for_engine(states[:1]))
+            while not engine.finished_slots():
+                engine.run_chunk()
+            got = model32.decode_candidates(*engine.finalize(0))
+        finally:
+            engine.release_followers()
+        one = model32.make_stepwise_engine(1, tp["fp32_beams"], reorder_mode="gather")
+        one.admit_batch_tokens([0], *model32.tokenize_for_engine(states[:1]))
+        while not one.finished_slots():
+            one.run_chunk()
+        want = model32.decode_candidates(*one.finalize(0))
+        out["fp32_beams_equal_share"] = sum(a[0] == b[0] for a, b in zip(got, want)) / len(want)
+        out["fp32_score_gap"] = max(abs(a[1] - b[1]) for a, b in zip(got, want))
+    else:
+        engine.follow()
+    del engine, model32, params32, local32
+    _empty_cache(device)
+
+
+def _tp_llama(device, mesh, tiny: bool, out: dict) -> None:
+    """LLaMA-7B width at depth 4, int4 and int8, at TP 2: each rank's
+    routes against one card's, the tensor-core bodies, weight bytes, and an
+    admission wave (int4 to the end, int8 two chunks)."""
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.generation.causal_engine import CausalStepwiseEngine
+    from reprover_tpu_torch.models.causal_lm import init_serving_params
+    from reprover_tpu_torch.models.quantize import routing_report, weight_bytes
+
+    tp = TP_TINY if tiny else TP
+    cfg = _tp_llama_cfg(device, tiny)
+    rows = {"decode": tp["llama_slots"] * tp["llama_beams"],
+            "admission": tp["llama_slots"] * (tp["llama_src"] - 1)}
+    rng = np.random.default_rng(TP["seed"])
+    ids = rng.integers(3, cfg.vocab_size, (tp["llama_slots"], tp["llama_src"]))
+    for bits in (4, 8):
+        params = init_serving_params(cfg, TP["seed"], device, bits=bits)
+
+        def routes(p):
+            return {k: routing_report({**p["layers"], "lm_head": p["lm_head"]}, m,
+                                      cfg.compute_dtype, device) for k, m in rows.items()}
+
+        whole_routes, whole_bytes = routes(params), weight_bytes(params)
+        split_bytes = weight_bytes({"layers": params["layers"], "lm_head": params["lm_head"]})
+        engine = CausalStepwiseEngine(params, cfg, tp["llama_slots"], tp["llama_beams"],
+                                      tp["llama_src"], tp["llama_dec"], chunk_size=8, mesh=mesh,
+                                      reorder_mode="gather")
+        del params
+        _empty_cache(device)
+        local = engine.params
+        row = dict(routes_equal=routes(local) == whole_routes, routes=whole_routes["decode"],
+                   weight_bytes=weight_bytes(local), weight_bytes_one_rank=whole_bytes,
+                   split_bytes=weight_bytes({"layers": local["layers"],
+                                             "lm_head": local["lm_head"]}),
+                   split_bytes_one_rank=split_bytes, cache=list(engine.state.dec_k.shape))
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        if mesh.is_leader:
+            try:
+                engine.admit_batch_tokens(list(range(tp["llama_slots"])), ids, np.ones_like(ids))
+                chunks = 0
+                while engine.has_active() and (bits == 4 or chunks < TP["int8_chunks"]):
+                    engine.unpack_status(engine.dispatch_run(8))
+                    chunks += 1
+                    for slot in engine.finished_slots():
+                        engine.finalize(slot)
+                row["steps"] = int(engine.state.n.max().item())
+            finally:
+                engine.release_followers()
+        else:
+            engine.follow()
+        _sync(device)
+        from reprover_tpu_torch.ops import quant_matmul as qm
+
+        row.update(seconds=time.perf_counter() - t0, bodies=dict(qm.BODY_LAUNCHES),
+                   launches={k: n for k, n in all_launch_counts().items() if n})
+        out[f"llama_int{bits}"] = row
+        del engine, local
+        _empty_cache(device)
+
+
+def _tp_rank(rank: int, device_type: str, tiny: bool, states: list, work: str) -> None:
+    """One rank of phase 29: joins the ranks' gloo group, serves byt5-small
+    and LLaMA-7B at TP 2, trains the generator and the fine-tuning step at
+    (1, 2), runs the multichip dry run's tensor-parallel checks; writes one
+    JSON file."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from reprover_tpu_torch.benchmarks import multichip_dryrun
+    from reprover_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from reprover_tpu_torch.parallel.sharding import shard_axis
+    from reprover_tpu_torch.training.tasks import param_leaves
+
+    device = torch.device(device_type)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    init_distributed(device, backend=TP["backend"], init_method=f"file://{work}/rendezvous",
+                     rank=rank, world_size=TP["ranks"])
+    mesh = make_mesh(data=1, model=TP["ranks"])
+    out: dict = {"coords": list(mesh.coords)}
+    seconds = {}
+    t0 = time.perf_counter()
+    _tp_byt5(device, mesh, states, tiny, out, work)
+    seconds["byt5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _tp_llama(device, mesh, tiny, out)
+    seconds["llama"] = time.perf_counter() - t0
+    for task in ("generator", "finetune"):
+        t0 = time.perf_counter()
+        reset_all_launch_counts()
+        losses, state = _tp_train(task, device, tiny, mesh)
+        _sync(device)
+        leaves = zip(param_leaves(state.params), param_leaves(state.param_specs, spec=True))
+        digest = hashlib.sha256()
+        replicated = 0
+        for t, spec in leaves:
+            if shard_axis(spec, "model") is None:
+                digest.update(t.detach().cpu().numpy().tobytes())
+                replicated += 1
+        out[task] = dict(losses=losses, replicated_leaves=replicated,
+                         replicated_sha256=digest.hexdigest(),
+                         launches={k: n for k, n in all_launch_counts().items() if n})
+        if device.type == "cuda":
+            out[task]["peak_GiB"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        del state
+        _empty_cache(device)
+        seconds[task] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = multichip_dryrun.run_rank(mesh, device)
+    seconds["dryrun"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_tensor_parallel(device, work: str, bench: str, tiny: bool = False) -> dict:
+    """Phase 29: tensor parallelism at TP 2, two ranks sharing the card over
+    gloo (one spawn). Before it, in this process: kernels 11/12 at the first
+    rank's shard of every LLaMA-7B product at decode and admission rows and
+    kernel 13 at the sharded byt5-small and LLaMA-7B caches, against their
+    plain versions (``[tp_kernel]``); and the two training steps on one
+    rank. The ranks' results are held to: the served requests answered with
+    finite scores, both ranks' beams bit-equal, the fp32 encoder output and
+    first log-probs within 1e-4 of one rank's (the beams' share equal to
+    one rank's printed); each rank's LLaMA-7B routes equal to one card's,
+    every quantized product on a tensor-core body, the split weights' bytes
+    half of one card's; the training losses within the bf16 limit of one
+    rank's and the replicated leaves bit-equal across the ranks; the dry
+    run's tensor-parallel checks; every kernel of each path launched on
+    every rank."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    tp = TP_TINY if tiny else TP
+    root = os.path.join(work, "tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    seconds, failures, kernel_rows = {}, [], []
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        gen = torch.Generator(device=device).manual_seed(29)
+        m_decode = tp["llama_slots"] * tp["llama_beams"]
+        m_admit = tp["llama_slots"] * (tp["llama_src"] - 1)
+        for bits in (8, 4):
+            for (k, n), column in zip(LLAMA_WEIGHT_SHAPES, (True, True, False, True)):
+                for m in (m_decode, m_admit):
+                    kernel_rows.append(_quant_row(device, bits, m, k, n, gen, TP["ranks"], column))
+                    log(f"[tp_kernel] {json.dumps(kernel_rows[-1])}")
+                    torch.cuda.empty_cache()
+            # o: the row split of a [4096, 4096] weight (q/k/v are its column split)
+            for m in (m_decode, m_admit):
+                kernel_rows.append(_quant_row(device, bits, m, 4096, 4096, gen, TP["ranks"],
+                                              False))
+                log(f"[tp_kernel] {json.dumps(kernel_rows[-1])}")
+        for shape in ([4, tp["slots"], tp["beams"], 6 // TP["ranks"], tp["dec"], 64],
+                      [32, tp["llama_slots"], tp["llama_beams"], 32 // TP["ranks"],
+                       tp["llama_dec"], 128]):
+            kernel_rows.append(_reorder_row(device, tuple(shape), shape[4], gen))
+            log(f"[tp_kernel] {json.dumps(kernel_rows[-1])}")
+            torch.cuda.empty_cache()
+        _check_rows(kernel_rows, "the tensor-parallel shard shapes' kernels do")
+        off = [(r["kernel"], r["M"], r["K"], r["N"], r["body"]) for r in kernel_rows
+               if "body" in r and r["body"] != "tma"]
+        if off:
+            failures.append(f"shard products off the tensor-core bodies: {off}")
+    seconds["tp_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = {task: _tp_train(task, device, tiny)[0] for task in ("generator", "finetune")}
+    _empty_cache(device)
+    seconds["tp_one_rank_train"] = time.perf_counter() - t0
+    with open(os.path.join(bench, "random", "val.json")) as f:
+        states = [t["traced_tactics"][0]["state_before"] for t in json.load(f)][: tp["requests"]]
+    t0 = time.perf_counter()
+    mp.spawn(_tp_rank, args=(device.type, tiny, states, root), nprocs=TP["ranks"], join=True)
+    seconds["tp_ranks"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP["ranks"]):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    lead = ranks[0]
+    beams = [torch.load(os.path.join(root, f"beams{r}.pt")) for r in range(TP["ranks"])]
+    beams_equal = all(torch.equal(beams[0][k], b[k]) for b in beams[1:] for k in beams[0])
+    served = lead["byt5_served"]
+    byt5 = dict(served=served, seconds=[round(r["byt5_s"], 1) for r in ranks],
+                cache_per_rank=lead["byt5_cache"], ranks_beams_equal=beams_equal,
+                fp32_encoder_rel=lead["fp32_encoder_rel"],
+                fp32_logprob_rel=lead["fp32_logprob_rel"],
+                fp32_beams_equal_share=lead["fp32_beams_equal_share"],
+                fp32_score_gap=lead["fp32_score_gap"])
+    log(f"[tp_byt5] {json.dumps(byt5)}")
+    if served["requests"] != tp["requests"] or served["answers"] != [tp["beams"]] * tp[
+            "requests"] or not served["finite"]:
+        failures.append(f"byt5 TP serving answered {served}")
+    if not beams_equal:
+        failures.append("the byt5 ranks' beams differ")
+    for key in ("fp32_encoder_rel", "fp32_logprob_rel"):
+        if not lead[key] <= TP["fp32_rtol"]:
+            failures.append(f"byt5 fp32 {key} {lead[key]} against one rank")
+    for bits in (4, 8):
+        rows = [r[f"llama_int{bits}"] for r in ranks]
+        log(f"[tp_llama] int{bits} per rank: {json.dumps(rows)}")
+        kernel = "quant4_matmul" if bits == 4 else "quant_matmul"
+        for r, row in enumerate(rows):
+            if not row["routes_equal"]:
+                failures.append(f"LLaMA int{bits} rank {r}: routes differ from one card's")
+            # The split weights' bytes halve but for the replicated scales of
+            # int8's row-split products.
+            if row["split_bytes"] > TP["split_share"] * row["split_bytes_one_rank"]:
+                failures.append(f"LLaMA int{bits} rank {r}: split weights {row['split_bytes']} B "
+                                f"of {row['split_bytes_one_rank']}")
+            if device.type == "cuda" and (row["bodies"]["simple"] or
+                                          row["launches"].get(kernel, 0) < 1
+                                          or row["launches"].get("beam_reorder", 0) < 1):
+                failures.append(f"LLaMA int{bits} rank {r}: kernels {row['launches']} bodies "
+                                f"{row['bodies']}")
+    for task in ("generator", "finetune"):
+        rows = [r[task] for r in ranks]
+        res = dict(losses_one_rank=one[task], losses=[row["losses"] for row in rows],
+                   replicated_equal=len({row["replicated_sha256"] for row in rows}) == 1,
+                   replicated_leaves=rows[0]["replicated_leaves"],
+                   peak_GiB=[row.get("peak_GiB") for row in rows])
+        log(f"[tp_{task}] {json.dumps(res)}")
+        for row in rows:
+            for a, b in zip(one[task], row["losses"]):
+                if not abs(a - b) <= DP["loss_rtol"] * abs(a) + DP["loss_atol"] * max(1.0, abs(a)):
+                    failures.append(f"{task}: loss {b} at TP 2 against {a} on one rank")
+        if not res["replicated_equal"]:
+            failures.append(f"{task}: replicated leaves differ across the ranks")
+    required = {"byt5": ("encoder_attn", "beam_reorder"),
+                "generator": FULL_ROW_KERNELS,
+                "finetune": tuple("scaled_causal_attn" + p for p in ("", "_bwd_dq", "_bwd_dkv"))}
+    launches = {r: {"byt5": ranks[r]["byt5_launches"],
+                    **{t: ranks[r][t]["launches"] for t in ("generator", "finetune")},
+                    **{f"llama_int{b}": ranks[r][f"llama_int{b}"]["launches"] for b in (4, 8)}}
+                for r in range(TP["ranks"])}
+    if device.type == "cuda":
+        for r, per in launches.items():
+            for path, names in required.items():
+                missing = [k for k in names if per[path].get(k, 0) < 1]
+                if missing:
+                    failures.append(f"rank {r} {path}: no launch of {missing}")
+    dry = [r["dryrun"] for r in ranks]
+    log(f"[tp_dryrun] {json.dumps(dry)}")
+    for d in dry:
+        if not d["ok"]:
+            failures.append(f"dryrun: rank {d['coords']} disagrees with one rank")
+    seconds.update({f"tp_{k}": round(max(r["seconds"][k] for r in ranks), 1)
+                    for k in ranks[0]["seconds"]})
+    if failures:
+        raise AssertionError("tensor-parallel phase failed: " + "; ".join(failures))
+    return dict(seconds={k: round(v, 1) for k, v in seconds.items()}, kernel_rows=kernel_rows,
+                launches=launches, byt5=byt5)
+
+
 REPLACES = {
     "encoder_attn": "reprover_tpu/ops/flash_attention.py:176",
     "encoder_attn_bwd_dq": "reprover_tpu/ops/flash_attention.py:607",
@@ -3911,6 +4398,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp = phase("data_parallel", phase_data_parallel, device, work, bench)
         seconds.update(dp["seconds"])
+        tpr = phase("tensor_parallel", phase_tensor_parallel, device, work, bench)
+        seconds.update(tpr["seconds"])
     log(f"[smoke] phase seconds {json.dumps(seconds)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f}s")
 
@@ -3930,6 +4419,8 @@ def main() -> int:
     log(f"[smoke] phase-28 (data parallel) launches per rank: "
         f"{json.dumps({t: r['launches_per_rank'] for t, r in dp['results'].items()})}; the "
         f"kernels line counts the one-card main paths only")
+    log(f"[smoke] phase-29 (tensor parallel) launches per rank: {json.dumps(tpr['launches'])}; "
+        f"the kernels line counts the one-card main paths only")
     log(f"[smoke] phase-23 (remat) launches "
         f"{json.dumps({k: n for k, n in rm['launches'].items() if n})}; phase-24 (pretraining) "
         f"launches {json.dumps({k: n for k, n in pt['launches'].items() if n})}")
@@ -3966,5 +4457,96 @@ def main() -> int:
     return 0
 
 
+_CHILD_ENV = "CHIP_SMOKE_PHASES"
+
+
+def _prctl(option: int, arg: int) -> None:
+    import ctypes
+
+    ctypes.CDLL(None, use_errno=True).prctl(option, arg, 0, 0, 0)
+
+
+def _left_behind() -> list:
+    """The live processes handed to this one, a subreaper, when their parent
+    died: ``[(pid, command line)]``."""
+    me, found = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            # The fields after the command's closing parenthesis: state, ppid.
+            state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+            if int(ppid) == me:
+                with open(f"/proc/{name}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode()[:120]
+                found.append((int(name), cmd if state != "Z" else None))
+        except (OSError, ValueError):
+            continue  # ended meanwhile
+    return found
+
+
+def _stop_left_behind(grace_s: float = 0.0) -> None:
+    """Kill and reap every process handed to this one, until none is left
+    (a killed process's children are handed over in turn); for the first
+    ``grace_s`` seconds only reap those that end by themselves
+    (multiprocessing's resource tracker ends once its owner has)."""
+    stopped: dict = {}
+    grace_end = time.monotonic() + grace_s
+    for _ in range(400):
+        procs = _left_behind()
+        if not procs:
+            break
+        for pid, cmd in procs:
+            if cmd is not None and time.monotonic() >= grace_end:
+                stopped.setdefault(pid, cmd)
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        time.sleep(0.05)
+        while True:
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+    if stopped:
+        print(f"[smoke] stopped {len(stopped)} processes the run left behind: "
+              f"{json.dumps(sorted(stopped.items()))}", file=sys.stderr, flush=True)
+
+
+def supervise(argv: list) -> int:
+    """Run ``main`` in a child process and stop every process the run leaves
+    behind once the child has ended, however it ended. This process is the
+    run's subreaper: a process whose parent dies is handed to it, not to
+    init, so none escapes. The child dies with this process
+    (``PR_SET_PDEATHSIG``), and SIGTERM, SIGINT and SIGHUP stop the child
+    and what it left before this process exits; every process stays in the
+    caller's process group."""
+    _prctl(36, 1)  # PR_SET_CHILD_SUBREAPER
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *argv],
+        env={**os.environ, _CHILD_ENV: "1"},
+        preexec_fn=lambda: _prctl(1, signal.SIGKILL))  # PR_SET_PDEATHSIG
+
+    def stop(signum, frame):
+        # Not child.wait(): the interrupted wait holds its lock. The child is
+        # reaped with the rest.
+        try:
+            os.kill(child.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        _stop_left_behind()
+        sys.exit(128 + signum)
+
+    for signum in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(signum, stop)
+    rc = child.wait()
+    _stop_left_behind(grace_s=2.0)
+    return rc if rc >= 0 else 128 - rc  # killed by a signal: 128 + its number
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main() if os.environ.get(_CHILD_ENV) else supervise(sys.argv[1:]))

@@ -1,8 +1,8 @@
-"""Data-parallel dry run on ``n`` ranks: the counterpart of the data-parallel
-parts of the JAX package's ``__graft_entry__.py::dryrun_multichip``, at
-``model = 1``.
+"""Data- and tensor-parallel dry run on ``n`` ranks: the counterpart of the
+JAX package's ``__graft_entry__.py::dryrun_multichip`` but its
+sequence-parallel encoder.
 
-    python -m reprover_tpu_torch.benchmarks.multichip_dryrun [--ranks N]
+    python -m reprover_tpu_torch.benchmarks.multichip_dryrun [--ranks N] [--model M]
         [--device cuda|cpu] [--backend nccl|gloo]
 
 Spawns ``--ranks`` ranks (default: one per card) in a process group of its
@@ -21,11 +21,18 @@ heads widened to 64, the kernels' width) in float32 with seeded random
 weights, and holds each against the same step on
 one rank (every rank also runs it alone on the global batch): the loss
 within ``RTOL`` and every parameter within ``RTOL`` of its leaf's largest
-magnitude, each rank's moments a ``1/N`` shard. It also reports which
+magnitude (a tensor-parallel rank's shard against the one-rank leaf's
+slice), each rank's moments a ``1/N`` shard. With ``--model M`` (default 2
+on an even count of ranks) the same three steps run again on the ``(N / M,
+M)`` mesh, tensor-parallel (the JAX dry run's ``(data, model)``
+causal step), and the T5 streaming engine runs sharded over ``model``
+(the JAX dry run's tensor-parallel serving: one wave of two slots, the
+first rank leading the others), held against the one-rank engine: the
+same beams, the largest score gap printed. It also reports which
 collectives the group's backend runs on the ranks' device. The JAX dry
-run's tensor-parallel serving and sequence-parallel encoder are not ported
-(ROADMAP.md Queue 1 item 4): they are listed as waiting and not run. Each
-rank prints one JSON line; the run exits non-zero if any step disagrees.
+run's sequence-parallel encoder is not ported (ROADMAP.md Queue 1 item 4):
+it is listed as waiting and not run. Each rank prints one JSON line; the
+run exits non-zero if any step or engine disagrees.
 """
 
 from __future__ import annotations
@@ -43,23 +50,24 @@ import torch
 from reprover_tpu_torch.models import causal_lm
 from reprover_tpu_torch.models.t5 import T5Config, init_params
 from reprover_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
+from reprover_tpu_torch.parallel.sharding import FUSED_BLOCKS, model_part, shard_axis
 from reprover_tpu_torch.training.tasks import (
-    Batch,
+    causal_loss,
     generation_loss,
     init_train_state,
     make_train_step,
     retrieval_loss,
-    token_share,
 )
 
 RTOL = 1e-4  # float32 on both sides; the sums run in another order
 LR = 1e-4
 WAITING = (
-    "tensor-parallel serving (StepwiseBeamEngine over the model axis): not ported, "
-    "ROADMAP.md Queue 1 item 4",
     "sequence-parallel encoder (ring attention over a seq axis): not ported, "
     "ROADMAP.md Queue 1 item 4",
 )
+# The tensor-parallel engine's wave (the JAX dry run's: 2 slots x 4 beams,
+# sources of 16, decode 8, chunks of 4).
+ENGINE = dict(num_slots=2, num_beams=4, src=16, dec=8, chunk=4)
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
                "all_gather", "all_to_all_single", "barrier")
 
@@ -74,17 +82,6 @@ def t5_config() -> T5Config:
 def causal_config() -> causal_lm.CausalLMConfig:
     return causal_lm.CausalLMConfig(vocab_size=96, d_model=64, num_layers=2, num_heads=4,
                                     num_kv_heads=2, d_ff=128, compute_dtype=torch.float32)
-
-
-def causal_loss(params: Any, cfg: causal_lm.CausalLMConfig, batch: Batch,
-                mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Next-token cross-entropy over ``input_ids``/``attention_mask``
-    (labels the ids, -100 on padding); under a mesh, this rank's share of
-    the global token mean."""
-    labels = torch.where(batch["attention_mask"] > 0, batch["input_ids"], -100)
-    loss = causal_lm.causal_lm_loss(params, cfg, batch["input_ids"], batch["attention_mask"],
-                                    labels)
-    return token_share(loss, (labels[:, 1:] != -100).sum(), mesh)
 
 
 def tasks(n: int, device: torch.device) -> Dict[str, Dict[str, Any]]:
@@ -144,22 +141,37 @@ def _flat(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def one_step(task: Dict[str, Any], device: torch.device, mesh: Optional[Mesh]) -> Dict[str, Any]:
-    """One train step of ``task`` (on one rank with ``mesh=None``) -> loss,
-    parameters after the step and this rank's moment bytes."""
+    """One train step of ``task`` (on one rank with ``mesh=None``; tensor
+    parallel when the mesh's ``model`` axis spans ranks) -> loss,
+    parameters after the step (this rank's shards), their specs and this
+    rank's moment bytes."""
     state = init_train_state(_to(task["params"](), device), lr=LR, warmup_steps=0)
     step: Callable = make_train_step(task["loss"], task["cfg"], mesh=mesh)
     state, loss = step(state, task["batch"])
     params = {k: v.detach().clone() for k, v in _flat(state.params).items()}
     return dict(loss=float(loss), params=params, moment_bytes=state.optimizer.moment_bytes(),
+                specs=_flat(state.param_specs) if state.param_specs is not None else None,
                 param_bytes=sum(t.numel() * t.element_size() for t in params.values()))
 
 
-def compare(dp: Dict[str, Any], one: Dict[str, Any], n: int) -> Dict[str, Any]:
-    """The data-parallel step against one rank's: loss and parameter gaps
-    relative to ``RTOL``, and whether the moments are a ``1/n`` shard."""
+def _one_rank_part(w: torch.Tensor, path: str, dp: Dict[str, Any], mesh: Mesh) -> torch.Tensor:
+    """The one-rank leaf ``w``'s part that this rank holds under ``dp``'s
+    tensor-parallel specs (``w`` itself off tensor parallelism)."""
+    axis = None if dp["specs"] is None else shard_axis(dp["specs"][path], "model")
+    if axis is None:
+        return w
+    return model_part(w, axis, mesh, FUSED_BLOCKS.get(path.rsplit("/", 1)[-1], 1))
+
+
+def compare(dp: Dict[str, Any], one: Dict[str, Any], n: int,
+            mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+    """The data- (or tensor-) parallel step against one rank's: loss and
+    parameter gaps relative to ``RTOL``, and whether the moments are a
+    ``1/n`` shard."""
     loss_gap = abs(dp["loss"] - one["loss"]) / max(abs(one["loss"]), 1e-30)
-    param_gap = max(float((dp["params"][k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-                    for k, w in one["params"].items())
+    param_gap = max(
+        float((dp["params"][k] - _one_rank_part(w, k, dp, mesh)).abs().max())
+        / max(float(w.abs().max()), 1e-30) for k, w in one["params"].items())
     sharded = dp["moment_bytes"] < one["moment_bytes"] * (1.5 / n if n > 1 else 1.01)
     return dict(loss=dp["loss"], loss_one_rank=one["loss"], loss_rel_gap=loss_gap,
                 param_rel_gap=param_gap, moment_bytes=dp["moment_bytes"],
@@ -199,22 +211,73 @@ def probe_collectives(mesh: Mesh, device: torch.device) -> Dict[str, str]:
     return out
 
 
+def tp_engine(mesh: Mesh, device: torch.device) -> Optional[Dict[str, Any]]:
+    """The T5 streaming engine sharded over ``model`` (the first rank leads,
+    the others follow) against the one-rank engine on the same weights and
+    wave: on the leader, whether every slot's beams are the same tokens and
+    the largest score gap; None on the others."""
+    from reprover_tpu_torch.generation.engine import StepwiseBeamEngine
+
+    cfg, e = t5_config(), ENGINE
+    params = _to(init_params(cfg, torch.Generator().manual_seed(4)), device)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(3, cfg.vocab_size, (e["num_slots"], e["src"]))
+    mask = np.ones_like(ids)
+    mask[1, e["src"] // 2:] = 0
+
+    def beams(engine: Any) -> Dict[int, Any]:
+        engine.admit_batch_tokens(list(range(e["num_slots"])), ids, mask)
+        out = {}
+        while engine.has_active():
+            engine.run_chunk()
+            for slot in engine.finished_slots():
+                out[slot] = engine.finalize(slot)
+        return out
+
+    def build(m: Optional[Mesh]) -> Any:
+        return StepwiseBeamEngine(params, cfg, e["num_slots"], e["num_beams"], e["src"], e["dec"],
+                                  chunk_size=e["chunk"], mesh=m)
+
+    engine = build(mesh)
+    if not mesh.is_leader:
+        engine.follow()
+        return None
+    try:
+        got = beams(engine)
+    finally:
+        engine.release_followers()
+    want = beams(build(None))
+    same = all(np.array_equal(got[s][0], want[s][0]) for s in want) and set(got) == set(want)
+    gap = max(float(np.abs(got[s][1] - want[s][1]).max()) for s in want) if same else None
+    return dict(same_tokens=bool(same), score_gap=gap, local_heads=engine.state.self_k.shape[3],
+                ok=bool(same and gap is not None and gap <= RTOL * 10))
+
+
 def run_rank(mesh: Mesh, device: torch.device) -> Dict[str, Any]:
-    """This rank's dry run: every task's data-parallel step against its
-    one-rank step, and the collectives probe."""
-    n = mesh.shape["data"]
-    report: Dict[str, Any] = {"rank": mesh.coord("data"), "ranks": n, "device": str(device)}
+    """This rank's dry run: every task's data-parallel step, or on a mesh
+    whose ``model`` axis spans ranks its tensor-parallel step and the
+    tensor-parallel engine, against the one-rank step; the collectives
+    probe."""
+    n, tensor_parallel = mesh.shape["data"], mesh.spans("model")
+    report: Dict[str, Any] = {"rank": mesh.coord("data"), "ranks": n, "model": mesh.model,
+                              "coords": list(mesh.coords), "device": str(device)}
     for name, task in tasks(n, device).items():
         one = one_step(task, device, None)
-        report[name] = compare(one_step(task, device, mesh), one, n)
-    report["collectives"] = probe_collectives(mesh, device)
+        report[name] = compare(one_step(task, device, mesh), one, mesh.size, mesh)
+    checks = ["generation", "retrieval", "causal"]
+    if tensor_parallel:
+        report["engine"] = tp_engine(mesh, device)
+        if report["engine"] is not None:
+            checks.append("engine")
+    else:
+        report["collectives"] = probe_collectives(mesh, device)
     report["waiting"] = list(WAITING)
-    report["ok"] = all(report[name]["ok"] for name in ("generation", "retrieval", "causal"))
+    report["ok"] = all(report[name]["ok"] for name in checks)
     return report
 
 
 def _rank_main(rank: int, n: int, init_method: str, device: str, backend: Optional[str],
-               out_dir: str) -> None:
+               out_dir: str, model: int) -> None:
     if device == "cpu":
         torch.set_num_threads(1)
     init_distributed(device, backend=backend, init_method=init_method, rank=rank, world_size=n)
@@ -224,6 +287,9 @@ def _rank_main(rank: int, n: int, init_method: str, device: str, backend: Option
         dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
             torch.device("cpu")
         report = run_rank(make_mesh(data=n), dev)
+        if model > 1:
+            report["tensor_parallel"] = run_rank(make_mesh(data=n // model, model=model), dev)
+            report["ok"] = report["ok"] and report["tensor_parallel"]["ok"]
         print(json.dumps(report), flush=True)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(report, f)
@@ -231,17 +297,21 @@ def _rank_main(rank: int, n: int, init_method: str, device: str, backend: Option
         dist.destroy_process_group()
 
 
-def run(n: int, device: str = "cuda", backend: Optional[str] = None) -> List[Dict[str, Any]]:
-    """Spawn ``n`` ranks and run the dry run on each -> their reports."""
+def run(n: int, device: str = "cuda", backend: Optional[str] = None,
+        model: int = 1) -> List[Dict[str, Any]]:
+    """Spawn ``n`` ranks and run the dry run on each (with ``model`` > 1 the
+    tensor-parallel one too) -> their reports."""
     import torch.multiprocessing as mp
 
     if n < 2:
         raise ValueError(f"a data-parallel dry run needs at least 2 ranks, got {n}")
+    if n % model:
+        raise ValueError(f"--model {model} must divide the {n} ranks")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda.is_available() is False")
     with tempfile.TemporaryDirectory(prefix="reprover_dryrun_") as tmp:
         mp.spawn(_rank_main, args=(n, "file://" + os.path.join(tmp, "store"), device, backend,
-                                   tmp), nprocs=n, join=True)
+                                   tmp, model), nprocs=n, join=True)
         reports = []
         for r in range(n):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -256,10 +326,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="default: nccl on cards, gloo on the CPU")
+    ap.add_argument("--model", type=int, default=None,
+                    help="tensor-parallel degree of the second mesh (default 2 on an even "
+                         "count of ranks; 1 skips it)")
     args = ap.parse_args(argv)
     n = args.ranks if args.ranks is not None else (
         torch.cuda.device_count() if args.device == "cuda" else 2)
-    reports = run(n, args.device, args.backend)
+    model = args.model if args.model is not None else (2 if n % 2 == 0 else 1)
+    reports = run(n, args.device, args.backend, model)
+    for r in reports:
+        tp = r.get("tensor_parallel")
+        if tp is not None:
+            gaps = {k: (tp[k]["loss_rel_gap"], tp[k]["param_rel_gap"])
+                    for k in ("generation", "retrieval", "causal")}
+            print(f"[dryrun] rank {tp['coords']} of ({tp['ranks']}, {tp['model']}): loss and "
+                  f"parameter gaps against one rank {json.dumps(gaps)}; engine "
+                  f"{json.dumps(tp.get('engine'))}")
     for line in WAITING:
         print(f"[dryrun] waiting: {line}")
     ok = all(r["ok"] for r in reports)

@@ -21,8 +21,9 @@ Prints one JSON line per cell with the JAX driver's keys (``:154-176``) plus
 
 Differences from the JAX driver: there is no compile pass, so ``--quick``
 and ``--llama7b`` run each cell once (the kernels are built before the first
-cell); ``--tp1`` raises (``MESH_TODO``: tensor-parallel serving waits for the
-multi-GPU slice); ``--device`` (default ``cuda``), ``--work`` (the synthetic
+cell); ``--tp1`` serves the streaming cells through a 1 x 1 mesh, as the JAX
+driver does (the tensor-parallel engine's code path on one card);
+``--device`` (default ``cuda``), ``--work`` (the synthetic
 benchmark's directory, default ``build/service_load`` in the checkout),
 ``--max-expansions`` (default 6), ``--workers N`` (one streaming cell with N
 workers, 8 slots, chunk 8), ``--tiny`` (a narrow T5 for CPU checks) and
@@ -37,6 +38,7 @@ tiny width (a seconds-long check): ``--device cpu --tiny --num-theorems 2
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -44,7 +46,7 @@ import sys
 import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -156,7 +158,10 @@ def _profiled_window(service: Any, device: torch.device, window_s: float, done: 
                     ) -> Dict[str, Any]:
     """On this (the main) thread, while the searches run on another: wait for
     the service's first request, profile ``window_s`` seconds of the process
-    (or until ``done``), then read the trace's busy share and kernels."""
+    (or until ``done``), then read the trace's busy share and kernels. The
+    service is held quiet while the profiler starts and while it stops; the
+    window runs from the end of the first hold to the start of the second,
+    once the work in flight has drained, so it covers every kernel traced."""
     from reprover_tpu_torch.utils.profiling import device_trace
 
     while not done.is_set() and not service.stats_snapshot().get("requests"):
@@ -164,12 +169,19 @@ def _profiled_window(service: Any, device: torch.device, window_s: float, done: 
     if done.is_set():
         return dict(profiler="not measured: the searches ended before the first request")
     log_dir = tempfile.mkdtemp(prefix="service_load_trace_")
+    marks = []  # quiet (before start), released, quiet (before stop), released
+
+    @contextlib.contextmanager
+    def hold() -> Iterator[None]:
+        with service.quiesced():
+            marks.append(time.perf_counter())
+            yield
+        marks.append(time.perf_counter())
+
     try:
-        with device_trace(log_dir, device):
-            t0 = time.perf_counter()
+        with device_trace(log_dir, device, hold=hold):
             done.wait(window_s)
-            window = time.perf_counter() - t0
-        return busy_share(os.path.join(log_dir, "trace.json"), window)
+        return busy_share(os.path.join(log_dir, "trace.json"), marks[2] - marks[1])
     except Exception as ex:  # surfaced in the cell's line; the caller decides
         return dict(profiler=f"not measured: {ex!r}")
 
@@ -197,14 +209,10 @@ def run_cell(
     from reprover_tpu_torch.prover.distributed import DistributedProver
     from reprover_tpu_torch.prover.evaluate import get_theorems
 
-    if mesh is not None:
-        from reprover_tpu_torch.generation.engine import MESH_TODO
-
-        raise NotImplementedError(MESH_TODO)
     if streaming:
         service = StreamingInferenceService(
             model, num_slots=num_slots, num_beams=num_beams, chunk_size=chunk_size,
-            step_buckets=step_buckets, quantize=quantize, reorder_mode="gather",
+            mesh=mesh, step_buckets=step_buckets, quantize=quantize, reorder_mode="gather",
         )
     else:
         service = InferenceService(model, max_batch=max_batch, batch_window_s=window_ms / 1000.0)
@@ -255,7 +263,7 @@ def run_cell(
         mode="streaming" if streaming else "coalescing",
         beams=num_beams,
         env_latency_s=env_latency_s,
-        tp=0,
+        tp=mesh.size if mesh is not None else 0,
         quantize=quantize,
         buckets=list(step_buckets) if streaming and step_buckets else None,
         slots=num_slots if streaming else None,
@@ -368,10 +376,11 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA card (pass --device cpu to run on the CPU)")
+    mesh = None
     if args.tp1:
-        from reprover_tpu_torch.generation.engine import MESH_TODO
+        from reprover_tpu_torch.parallel.mesh import local_mesh
 
-        raise NotImplementedError(MESH_TODO)
+        mesh = local_mesh()
     data = make_data(args.work)
     if device.type == "cuda":
         from reprover_tpu_torch.ops.native import load_library
@@ -391,7 +400,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         # geometry), 16 workers so admission waves and the coalescer meet
         # the prefill.
         rows.append(run_cell(model, data, 16, 0, 0.0, streaming=True, num_slots=4, chunk_size=8,
-                             num_beams=8, step_buckets=(32, 64, 96, 129), **common))
+                             num_beams=8, step_buckets=(32, 64, 96, 129), mesh=mesh, **common))
         return rows
     coalescing = () if args.streaming_only else (
         QUICK_COALESCING_CELLS if args.quick else COALESCING_CELLS)
@@ -408,7 +417,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         rows.append(run_cell(model, data, num_workers, 0, 0.0, streaming=True,
                              num_slots=num_slots, chunk_size=chunk,
                              step_buckets=buckets if args.buckets else None,
-                             quantize=quantize, **common))
+                             quantize=quantize, mesh=mesh, **common))
     return rows
 
 

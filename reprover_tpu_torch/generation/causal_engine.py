@@ -13,6 +13,10 @@ decoder-only cache layout:
 - RoPE positions and cache columns are per slot: prompts are LEFT-padded to
   the engine's ``max_src_len`` bucket.
 
+Under a tensor-parallel ``mesh`` the caches hold this rank's KV heads (GQA
+groups stay whole on a rank), o and down are summed over ``model`` and the
+logits gathered; the leader/follower protocol is the T5 engine's.
+
 Beam semantics are those of the classic
 :class:`~reprover_tpu_torch.generation.causal_generator.CausalTacticGeneratorModel`
 path: decoding starts from each prompt's last real token.
@@ -42,10 +46,13 @@ from reprover_tpu_torch.models.causal_lm import (
     _rms_norm,
     _rope,
     _split,
+    local_heads,
     prefill,
 )
 from reprover_tpu_torch.models.quantize import quantize_causal_params, resolve_quantize_bits
 from reprover_tpu_torch.models.t5 import layer_params
+from reprover_tpu_torch.parallel.collectives import reduce_from_model
+from reprover_tpu_torch.parallel.sharding import shard_for_model
 
 
 @dataclasses.dataclass
@@ -74,10 +81,11 @@ class CausalEngineState:
 
 def init_causal_engine_state(
     cfg: CausalLMConfig, num_slots: int, num_beams: int, max_src_len: int,
-    max_decode_len: int, device: Any,
+    max_decode_len: int, device: Any, kv_heads: Any = None,
 ) -> CausalEngineState:
+    """A blank state; ``kv_heads`` this rank's KV heads (default all)."""
     S, K, T = num_slots, num_beams, max_decode_len
-    ld, hkv, d = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    ld, hkv, d = cfg.num_layers, kv_heads or cfg.num_kv_heads, cfg.head_dim
     cp = max_src_len - 1
     dt, dev = cfg.compute_dtype, torch.device(device)
     return CausalEngineState(
@@ -92,7 +100,8 @@ def init_causal_engine_state(
 
 
 def _causal_decode_step(
-    params: Params, cfg: CausalLMConfig, state: CausalEngineState, t_live: int
+    params: Params, cfg: CausalLMConfig, state: CausalEngineState, t_live: int,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder step for every (slot, beam) over the first ``t_live``
     decode-cache columns -> (logits ``[S, K, V]`` fp32, k_news, v_news
@@ -102,7 +111,7 @@ def _causal_decode_step(
     dt = cfg.compute_dtype
     S, K = state.last_token.shape
     T = t_live
-    H, Hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    (H, Hkv), d = local_heads(params["layers"], cfg), cfg.head_dim
     G = H // Hkv
     scale = d ** -0.5
     dev = state.n.device
@@ -150,25 +159,25 @@ def _causal_decode_step(
             + probs[..., cp + T:].float() * vd.float()
         ).to(dt)  # [S, K, Hkv, G, d]
 
-        h = h + _dense(_merge(out.reshape(S * K, H, 1, d)), lp["o"], dt)
-        h = h + _mlp(h, lp, cfg)
+        h = h + reduce_from_model(_dense(_merge(out.reshape(S * K, H, 1, d)), lp["o"], dt), mesh)
+        h = h + _mlp(h, lp, cfg, mesh)
         k_news.append(kd.to(state.dec_k.dtype))
         v_news.append(vd.to(state.dec_v.dtype))
 
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    logits = _lm_logits(params, cfg, h[:, 0, :])  # [S*K, V] fp32
+    logits = _lm_logits(params, cfg, h[:, 0, :], mesh)  # [S*K, V] fp32
     return logits.reshape(S, K, -1), torch.stack(k_news), torch.stack(v_news)
 
 
 def causal_engine_step(
     params: Params, cfg: CausalLMConfig, state: CausalEngineState, length_penalty: float,
-    reorder_mode: str = "auto", t_live: Any = None, spare: Any = None,
+    reorder_mode: str = "auto", t_live: Any = None, spare: Any = None, mesh: Any = None,
 ) -> CausalEngineState:
     """Advance every active, unfinished slot by one token, in place (the
     state is returned); ``reorder_mode`` as in
     :func:`reprover_tpu_torch.generation.engine.engine_step`."""
     t_live = t_live or state.dec_k.shape[4]
-    logits, k_news, v_news = _causal_decode_step(params, cfg, state, t_live)
+    logits, k_news, v_news = _causal_decode_step(params, cfg, state, t_live, mesh)
     apply_step(state, ("dec_k", "dec_v"), logits, k_news, v_news, length_penalty,
                cfg.eos_token_id, reorder_mode, t_live, spare)
     return state
@@ -176,14 +185,14 @@ def causal_engine_step(
 
 def causal_admit_program(
     params: Params, cfg: CausalLMConfig, state: CausalEngineState, slots: List[int],
-    ids: torch.Tensor, mask: torch.Tensor,
+    ids: torch.Tensor, mask: torch.Tensor, mesh: Any = None,
 ) -> None:
     """Wave admission, in place: prefill all prompts but their last column
     (``[A, max_src_len-1]``), install the per-slot prompt K/V, bias and RoPE
     start, and arm the beams with each prompt's last token as the start
     token (also written to column 0 of the tokens, as the classic path
     seeds it)."""
-    _, cache = prefill(params, cfg, ids[:, :-1], mask[:, :-1], max_decode_len=0)
+    _, cache = prefill(params, cfg, ids[:, :-1], mask[:, :-1], max_decode_len=0, mesh=mesh)
     idx = torch.tensor(slots, dtype=torch.long, device=state.n.device)
     state.prompt_k[:, idx] = cache.k
     state.prompt_v[:, idx] = cache.v
@@ -221,6 +230,8 @@ class CausalStepwiseEngine(StepwiseEngineBase):
         self.cfg = cfg
         if quantize:
             params = quantize_causal_params(params, bits=resolve_quantize_bits(quantize))
+        if mesh is not None:
+            params, _ = shard_for_model(params, cfg, mesh)
         super().__init__(
             params, num_slots, num_beams, max_src_len, max_decode_len, length_penalty,
             chunk_size, mesh=mesh, step_buckets=step_buckets, reorder_mode=reorder_mode,
@@ -229,12 +240,14 @@ class CausalStepwiseEngine(StepwiseEngineBase):
     def _init_state(self) -> CausalEngineState:
         return init_causal_engine_state(self.cfg, self.num_slots, self.num_beams,
                                         self.max_src_len, self.max_decode_len,
-                                        self.params["final_norm"].device)
+                                        self.params["final_norm"].device,
+                                        local_heads(self.params["layers"], self.cfg)[1])
 
     def _step_program(self, state: CausalEngineState, t_live: int) -> None:
         causal_engine_step(self.params, self.cfg, state, self.length_penalty,
-                           reorder_mode=self.reorder_mode, t_live=t_live, spare=self._spare)
+                           reorder_mode=self.reorder_mode, t_live=t_live, spare=self._spare,
+                           mesh=self.mesh)
 
     def _admit_program(self, state: CausalEngineState, slots: List[int], ids: torch.Tensor,
                        mask: torch.Tensor) -> None:
-        causal_admit_program(self.params, self.cfg, state, slots, ids, mask)
+        causal_admit_program(self.params, self.cfg, state, slots, ids, mask, self.mesh)

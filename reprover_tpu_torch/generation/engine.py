@@ -31,12 +31,34 @@ JAX package. Length buckets (``step_buckets``) are views of the full
 buffers, so nothing is sliced or restored. Each status vector is copied to
 pinned host memory without blocking, with a CUDA event that
 :meth:`StepwiseEngineBase.unpack_status` waits on.
+
+Tensor parallelism (``mesh`` with ``model`` > 1, the reference's vLLM
+``tensor_parallel_size``): each rank holds its Megatron part of the
+parameters (bridged or quantized, ``kernel_ok`` kept) and the KV caches at
+its local heads; the beam bookkeeping is replicated and the same on every
+rank, since every rank sees the gathered logits. JAX has one controller for
+all devices; here every rank is a process, so the grid's first rank owns
+the host API and, before each call that changes the state (admission,
+dispatch, finalize, release, reset), sends the call and its host inputs
+over the mesh's gloo ``control`` group; the other ranks run :meth:`follow`,
+which executes the same calls in the same order on their shards. After
+each such call the ranks exchange whether it raised, so a call that fails
+on any rank raises on every rank; at the end of each chunk they exchange
+their steps, ``n`` and ``done``, and a disagreement raises on every rank
+instead of diverging silently. Each rank reads its own loop flag per step:
+the flags agree because the bookkeeping they read is bit-identical. A rank
+that fails between two of a call's collectives leaves the others waiting
+in the next one until the process group's timeout. Unlike the JAX package, which turns its Pallas kernels off under
+a mesh, each rank runs the kernels on its shards as one card does, the
+``gather`` reorder (kernel 13) included.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import functools
+import logging
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,19 +73,20 @@ from reprover_tpu_torch.models.t5 import (
     _mlp_block,
     _split_heads,
     encode,
+    head_bias,
     layer_params,
+    local_heads,
     relative_position_bucket,
     rms_norm,
 )
 from reprover_tpu_torch.ops.beam_reorder import parent_effective, reorder_append_gather
 from reprover_tpu_torch.ops.topk import stable_topk
+from reprover_tpu_torch.parallel.collectives import reduce_from_model
+from reprover_tpu_torch.parallel.sharding import shard_for_model
+
+logger = logging.getLogger(__name__)
 
 NEG_INF = -1e9
-
-MESH_TODO = (
-    "tensor-parallel engines over a mesh are not ported: one card per engine "
-    "(ROADMAP.md, multi-GPU serving)"
-)
 
 
 class HostCopy:
@@ -136,7 +159,8 @@ def init_engine_state(
     max_decode_len: int,
 ) -> EngineState:
     S, K, T = num_slots, num_beams, max_decode_len
-    ld, h, d = cfg.num_decoder_layers, cfg.num_heads, cfg.d_kv
+    ld, d = cfg.num_decoder_layers, cfg.d_kv
+    h = local_heads(params["decoder"]["layers"]["self_attn"]["q"], cfg)
     dt, dev = cfg.compute_dtype, params["decoder"]["final_norm"].device
     return EngineState(
         self_k=torch.zeros((ld, S, K, h, T, d), dtype=dt, device=dev),
@@ -186,11 +210,12 @@ def _grouped_attention(
 
 
 def _engine_decode_step(
-    params: Params, cfg: T5Config, state: EngineState, t_live: int
+    params: Params, cfg: T5Config, state: EngineState, t_live: int, mesh: Any = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder step for every (slot, beam) over the first ``t_live``
     cache columns -> (logits ``[S, K, V]`` fp32, k_news, v_news
-    ``[Ld, S, K, H, 1, d]``).
+    ``[Ld, S, K, H, 1, d]``; H this rank's heads under tensor parallelism,
+    whose row-parallel products are summed over ``model``).
 
     Lazy append: the current token's K/V are not written into the cache;
     attention runs over the old cache (columns strictly before the
@@ -200,7 +225,8 @@ def _engine_decode_step(
     dec = params["decoder"]
     S, K = state.last_token.shape
     T = t_live
-    H, d = cfg.num_heads, cfg.d_kv
+    H, d = local_heads(dec["layers"]["self_attn"]["q"], cfg), cfg.d_kv
+    rel_bias = head_bias(dec["rel_bias"], H, mesh)
     eps = cfg.layer_norm_epsilon
     dev = state.n.device
     pos = state.n - 1  # position of the token being fed
@@ -211,13 +237,13 @@ def _engine_decode_step(
     rel = key_positions[None, :] - pos[:, None]  # [S, T]
     buckets = relative_position_bucket(
         rel, False, cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance)
-    self_bias = dec["rel_bias"].float()[buckets.long()].permute(0, 2, 1)[:, None, :, None, :]
+    self_bias = rel_bias.float()[buckets.long()].permute(0, 2, 1)[:, None, :, None, :]
     valid = (key_positions[None, :] < pos[:, None])[:, None, None, None, :]
     self_bias = torch.where(valid, self_bias, torch.full_like(self_bias, -1e10))  # [S,1,H,1,T]
     bucket0 = relative_position_bucket(
         torch.zeros((1, 1), dtype=torch.long, device=dev), False,
         cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance)[0, 0]
-    bias0 = dec["rel_bias"][bucket0].float().reshape(1, 1, H, 1, 1)
+    bias0 = rel_bias[bucket0].float().reshape(1, 1, H, 1, 1)
 
     def proj(x: torch.Tensor, w: Any) -> torch.Tensor:  # [S,K,1,D] -> [S,K,H,1,d]
         y = _dense(x.reshape(S * K, 1, -1), w, dt)
@@ -243,19 +269,21 @@ def _engine_decode_step(
             torch.matmul(probs[..., :T], v_cache.to(dt)).float()
             + probs[..., T:].float() * v_new.float()
         ).to(dt)
-        h = h + _dense(merge(attn), lp["self_attn"]["o"], dt).reshape(S, K, 1, -1)
+        h = h + reduce_from_model(_dense(merge(attn), lp["self_attn"]["o"], dt),
+                                  mesh).reshape(S, K, 1, -1)
 
         nrm = rms_norm(h, lp["cross_norm"], eps)
         q = proj(nrm, lp["cross_attn"]["q"])
         attn = _grouped_attention(q, state.cross_k[i], state.cross_v[i], state.cross_bias, dt)
-        h = h + _dense(merge(attn), lp["cross_attn"]["o"], dt).reshape(S, K, 1, -1)
+        h = h + reduce_from_model(_dense(merge(attn), lp["cross_attn"]["o"], dt),
+                                  mesh).reshape(S, K, 1, -1)
 
-        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
         k_news.append(k_new.to(state.self_k.dtype))
         v_news.append(v_new.to(state.self_v.dtype))
 
     h = rms_norm(h, dec["final_norm"], eps)
-    logits = _lm_logits(params, cfg, h.reshape(S * K, 1, -1))[:, 0, :]
+    logits = _lm_logits(params, cfg, h.reshape(S * K, 1, -1), mesh)[:, 0, :]
     return logits.reshape(S, K, -1), torch.stack(k_news), torch.stack(v_news)
 
 
@@ -454,14 +482,14 @@ def apply_step(
 def engine_step(
     params: Params, cfg: T5Config, state: EngineState, length_penalty: float,
     reorder_mode: str = "auto", t_live: Optional[int] = None,
-    spare: Optional[Dict[str, torch.Tensor]] = None,
+    spare: Optional[Dict[str, torch.Tensor]] = None, mesh: Any = None,
 ) -> EngineState:
     """Advance every active, unfinished slot by one token (in place; the
     state is returned). ``reorder_mode``: ``"auto"`` (einsum below
     :data:`AUTO_SCAN_CACHE_BYTES` of KV cache, scan at or above it),
     ``"einsum"``, ``"scan"`` or ``"gather"`` (kernel 13)."""
     t_live = t_live or state.self_k.shape[4]
-    logits, k_news, v_news = _engine_decode_step(params, cfg, state, t_live)
+    logits, k_news, v_news = _engine_decode_step(params, cfg, state, t_live, mesh)
     apply_step(state, ("self_k", "self_v"), logits, k_news, v_news, length_penalty,
                cfg.eos_token_id, reorder_mode, t_live, spare)
     return state
@@ -470,6 +498,46 @@ def engine_step(
 # ------------------------------------------------------------------ #
 # Host-facing engine
 # ------------------------------------------------------------------ #
+
+
+def _to_host(x: Any) -> Any:
+    """A call's argument as the control group carries it: tensors on the
+    CPU, sequences item by item."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_host(v) for v in x)
+    return x
+
+
+def replicated(method: Callable[..., Any]) -> Callable[..., Any]:
+    """A host call that changes a tensor-parallel engine's state: the
+    leader sends it to the followers before running it; a follower runs it
+    only from :meth:`StepwiseEngineBase.follow`. Calls it makes itself are
+    not sent again. Afterwards every rank learns whether it raised on any
+    rank, and raises if it did."""
+
+    @functools.wraps(method)
+    def call(self: "StepwiseEngineBase", *args: Any, **kwargs: Any) -> Any:
+        if self._control is None or self._in_call:
+            return method(self, *args, **kwargs)
+        if self.mesh.is_leader:
+            self._send((method.__name__, _to_host(args), _to_host(kwargs)))
+        elif not self._following:
+            raise RuntimeError(f"{method.__name__}: rank {self.mesh.coords} of a "
+                               "tensor-parallel engine runs the leader's calls (follow())")
+        self._in_call = True
+        try:
+            result = method(self, *args, **kwargs)
+        except Exception:
+            self._raise_everywhere(method.__name__, failed=True)
+            raise
+        finally:
+            self._in_call = False
+        self._raise_everywhere(method.__name__, failed=False)
+        return result
+
+    return call
 
 
 class StepwiseEngineBase:
@@ -502,8 +570,6 @@ class StepwiseEngineBase:
         covers the deepest slot that may step in it (chosen on the host from
         a conservative fill bound): exact, since untouched columns are never
         read."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
         if reorder_mode not in REORDER_MODES:
             raise ValueError(f"reorder_mode must be one of {REORDER_MODES}: {reorder_mode!r}")
         self.params = params
@@ -529,6 +595,11 @@ class StepwiseEngineBase:
         self._n_ub = np.zeros(num_slots, np.int64)
         # The second buffer of each per-beam cache ("gather" reorder).
         self._spare: Dict[str, torch.Tensor] = {}
+        # The leader/follower protocol's group (None: one rank), whether a
+        # replicated call is running (its nested calls are not sent) and
+        # whether this follower is in follow().
+        self._control = mesh.group("control") if mesh is not None and mesh.size > 1 else None
+        self._in_call = self._following = self._released = False
         self.state = self._init_state()
 
     # -- subclass hooks ------------------------------------------------ #
@@ -549,8 +620,79 @@ class StepwiseEngineBase:
     def device(self) -> torch.device:
         return self.state.n.device
 
+    # -- leader / follower (tensor parallelism) ------------------------ #
+
+    def _leader_rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_global_rank(self._control, 0)
+
+    def _send(self, message: Tuple[str, Any, Any]) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([message], src=self._leader_rank(), group=self._control)
+
+    def follow(self) -> None:
+        """On a follower rank: run the leader's calls, in its order, until
+        it calls :meth:`release_followers`. A call that raised on any rank
+        raised on every rank: it is logged here and the loop goes on, since
+        the leader decides what follows (a service resets the engine)."""
+        import torch.distributed as dist
+
+        if self._control is None or self.mesh.is_leader:
+            raise RuntimeError("follow() runs on the follower ranks of a tensor-parallel engine")
+        self._following = True
+        try:
+            while True:
+                box: List[Any] = [None]
+                dist.broadcast_object_list(box, src=self._leader_rank(), group=self._control)
+                name, args, kwargs = box[0]
+                if name == "stop":
+                    return
+                try:
+                    getattr(self, name)(*args, **kwargs)
+                except Exception:  # noqa: BLE001 - the leader's call raised as well
+                    logger.exception("follower rank %s: %s failed", self.mesh.coords, name)
+        finally:
+            self._following = False
+
+    def release_followers(self) -> None:
+        """On the leader: end the followers' :meth:`follow` loops (no-op on
+        one rank). A driving script calls it in a ``finally``: a follower
+        waits for the leader's next call until it comes."""
+        if self._control is not None and self.mesh.is_leader and not self._released:
+            self._send(("stop", (), {}))
+            self._released = True
+
+    def _raise_everywhere(self, name: str, failed: bool) -> None:
+        """After a replicated call: one all-reduce over the control group of
+        the ranks that raised in it. Raise on a rank that did not, if any
+        did (a rank that did re-raises its own error)."""
+        import torch.distributed as dist
+
+        flags = torch.zeros(dist.get_world_size(self._control), dtype=torch.long)
+        flags[dist.get_rank(self._control)] = int(failed)
+        dist.all_reduce(flags, group=self._control)
+        if flags.any() and not failed:
+            ranks = [dist.get_global_rank(self._control, i)
+                     for i in flags.nonzero().flatten().tolist()]
+            raise RuntimeError(f"{name} raised on rank(s) {ranks} of the tensor-parallel engine")
+
+    def _agree(self, values: List[int], what: str) -> None:
+        """Raise on every rank unless every rank of the grid holds the same
+        ``values`` (one small all-reduce over the control group)."""
+        import torch.distributed as dist
+
+        t = torch.tensor(list(values) + [-v for v in values], dtype=torch.long)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._control)
+        n = len(values)
+        if not torch.equal(t[:n], -t[n:]):
+            raise RuntimeError(f"tensor-parallel ranks disagree on {what}: the largest "
+                               f"{t[:n].tolist()}, the smallest {(-t[n:]).tolist()}")
+
     # -- host API ------------------------------------------------------ #
 
+    @replicated
     def reset(self) -> None:
         """Reinstall a blank state (all slots vacant); the serving loop's
         crash containment."""
@@ -560,6 +702,7 @@ class StepwiseEngineBase:
     def _finished(self, s: Any) -> torch.Tensor:
         return s.active & (s.done | (s.n >= self.max_decode_len))
 
+    @replicated
     @torch.no_grad()
     def dispatch_run(self, max_steps: int, release: Optional[np.ndarray] = None) -> HostCopy:
         """Run one run-until-event chunk and return the flat status+payload
@@ -570,7 +713,9 @@ class StepwiseEngineBase:
         slots are frozen and must not stall the others while the host emits
         them): one device flag is read per step. ``release`` marks slots
         whose results were emitted from a ride-along payload; their flags
-        are cleared before stepping."""
+        are cleared before stepping. Under tensor parallelism the ranks
+        check at the chunk's end that they ran as many steps and hold the
+        same ``n`` and ``done``."""
         S, T = self.num_slots, self.max_decode_len
         st = self.state
         if release is None:
@@ -594,6 +739,8 @@ class StepwiseEngineBase:
                 break
             self._step_program(st, t_live)
             steps += 1
+        if self._control is not None:
+            self._agree([steps] + st.n.tolist() + st.done.long().tolist(), "steps, n and done")
         # ONE packed int32 vector [3S+2+...]: the exit reason's finalize
         # payload rides along with the status.
         fin_new = self._finished(st) & ~fin0
@@ -627,6 +774,7 @@ class StepwiseEngineBase:
         return (arr[:S] != 0, arr[S: 2 * S] != 0, arr[2 * S: 3 * S], int(arr[3 * S]),
                 int(arr[3 * S + 1]), (ints, toks, scores))
 
+    @replicated
     @torch.no_grad()
     def admit_batch_tokens(self, slots: List[int], ids: Any, mask: Any) -> None:
         """Admit a wave of tokenized requests: ``ids``/``mask`` are
@@ -672,6 +820,7 @@ class StepwiseEngineBase:
         return [i for i in range(self.num_slots)
                 if active[i] and (done[i] or n[i] >= self.max_decode_len)]
 
+    @replicated
     @torch.no_grad()
     def prefetch_finalize(self, slot: int) -> Tuple[HostCopy, HostCopy, HostCopy]:
         """Gather everything :meth:`finalize_prefetched` needs for ``slot``
@@ -744,6 +893,8 @@ class StepwiseBeamEngine(StepwiseEngineBase):
         self.cfg = cfg
         if quantize:
             params = quantize_t5_params(params, bits=resolve_quantize_bits(quantize))
+        if mesh is not None:
+            params, _ = shard_for_model(params, cfg, mesh)
         super().__init__(
             params, num_slots, num_beams, max_src_len, max_decode_len, length_penalty,
             chunk_size, mesh=mesh, step_buckets=step_buckets, reorder_mode=reorder_mode,
@@ -755,16 +906,18 @@ class StepwiseBeamEngine(StepwiseEngineBase):
 
     def _step_program(self, state: EngineState, t_live: int) -> None:
         engine_step(self.params, self.cfg, state, self.length_penalty,
-                    reorder_mode=self.reorder_mode, t_live=t_live, spare=self._spare)
+                    reorder_mode=self.reorder_mode, t_live=t_live, spare=self._spare,
+                    mesh=self.mesh)
 
     def _install(self, state: EngineState, slots: List[int], enc: torch.Tensor,
                  mask: torch.Tensor) -> None:
         """Cross K/V of encoder outputs ``enc`` ``[A, L, D]`` into ``slots``."""
         cfg = self.cfg
-        dt, H, d = cfg.compute_dtype, cfg.num_heads, cfg.d_kv
+        layers = self.params["decoder"]["layers"]
+        dt, H, d = cfg.compute_dtype, local_heads(layers["self_attn"]["q"], cfg), cfg.d_kv
         idx = torch.tensor(slots, dtype=torch.long, device=state.n.device)
         for i in range(cfg.num_decoder_layers):
-            ca = layer_params(self.params["decoder"]["layers"], i)["cross_attn"]
+            ca = layer_params(layers, i)["cross_attn"]
             state.cross_k[i, idx] = _split_heads(_dense(enc.to(dt), ca["k"], dt), H, d)
             state.cross_v[i, idx] = _split_heads(_dense(enc.to(dt), ca["v"], dt), H, d)
         state.cross_bias[idx] = torch.where(
@@ -775,8 +928,9 @@ class StepwiseBeamEngine(StepwiseEngineBase):
                        mask: torch.Tensor) -> None:
         """Whole-wave admission: T5-encode the rows, project cross K/V, and
         install every arrival into its slot."""
-        self._install(state, slots, encode(self.params, self.cfg, ids, mask), mask)
+        self._install(state, slots, encode(self.params, self.cfg, ids, mask, mesh=self.mesh), mask)
 
+    @replicated
     @torch.no_grad()
     def admit(self, slot: int, enc_hidden: torch.Tensor, enc_mask: torch.Tensor) -> None:
         """Install one pre-encoded request: ``enc_hidden`` ``[1, Smax, D]``

@@ -19,6 +19,13 @@ forward (plain attention, or with ``flash_attention=True`` and ``T % 128 ==
 the CUDA kernels on a card, their plain version on the CPU),
 ``causal_lm_loss`` (decoder-only fine-tuning), ``prefill`` and the in-place
 incremental ``decode_step``.
+
+Under a tensor-parallel ``mesh`` (``model`` > 1) each rank holds its
+Megatron part (:func:`~reprover_tpu_torch.parallel.sharding.shard_for_model`):
+q/k/v/gate/up split by columns, o/down by rows, ``lm_head`` by the
+vocabulary. The forward takes its query and KV head counts from the shards'
+widths (GQA on the local KV heads), sums o and down over ``model`` and
+gathers the logits.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ from reprover_tpu_torch.models.quantize import (
     stack_quantized,
 )
 from reprover_tpu_torch.models.t5 import layer_params
+from reprover_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    model_parallel,
+    reduce_from_model,
+)
 from reprover_tpu_torch.ops.flash_attention import scaled_causal_flash_attention
 
 Params = Dict[str, Any]
@@ -178,13 +191,26 @@ def _dense(x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
-def _lm_logits(params: Params, cfg: CausalLMConfig, h: torch.Tensor) -> torch.Tensor:
-    """Final vocabulary projection -> fp32 logits ``[..., V]``."""
+def local_heads(lp: Params, cfg: CausalLMConfig) -> Tuple[int, int]:
+    """(query heads, KV heads) of a layer's q/k weights or their
+    tensor-parallel shards: their output widths over ``head_dim``."""
+    return lp["q"].shape[-1] // cfg.head_dim, lp["k"].shape[-1] // cfg.head_dim
+
+
+def _lm_logits(params: Params, cfg: CausalLMConfig, h: torch.Tensor, mesh: Any = None
+               ) -> torch.Tensor:
+    """Final vocabulary projection -> fp32 logits ``[..., V]`` (a
+    vocabulary-split ``lm_head``'s columns gathered over ``model``)."""
     w = params["embedding"].t() if cfg.tie_word_embeddings else params["lm_head"]
+    split = model_parallel(mesh) and w.shape[-1] != cfg.vocab_size
+    if split:
+        h = copy_to_model(h, mesh)
     if isinstance(w, QuantWeight):
-        return quantized_logits(h, w, cfg.compute_dtype)
-    dt = cfg.compute_dtype
-    return torch.matmul(h.to(dt).float(), w.to(dt).float())
+        logits = quantized_logits(h, w, cfg.compute_dtype)
+    else:
+        dt = cfg.compute_dtype
+        logits = torch.matmul(h.to(dt).float(), w.to(dt).float())
+    return gather_from_model(logits, mesh) if split else logits
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -232,37 +258,36 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
-def _mlp(h: torch.Tensor, lp: Params, cfg: CausalLMConfig) -> torch.Tensor:
+def _mlp(h: torch.Tensor, lp: Params, cfg: CausalLMConfig, mesh: Any = None) -> torch.Tensor:
     """SwiGLU: ``down(silu(gate(n)) * up(n))`` on the post-attention norm."""
     dt = cfg.compute_dtype
-    n = _rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
+    n = copy_to_model(_rms_norm(h, lp["post_norm"], cfg.rms_norm_eps), mesh)
     gate = torch.nn.functional.silu(_dense(n, lp["gate"], dt).float()).to(dt)
-    return _dense(gate * _dense(n, lp["up"], dt), lp["down"], dt)
+    return reduce_from_model(_dense(gate * _dense(n, lp["up"], dt), lp["down"], dt), mesh)
 
 
 def _block(
     h: torch.Tensor, lp: Params, cfg: CausalLMConfig, positions: torch.Tensor,
-    bias: torch.Tensor,
+    bias: torch.Tensor, mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer over a full sequence -> (h, k, v); k and v ``[B, Hkv, T,
-    d]`` after RoPE (the prompt's cache)."""
+    d]`` after RoPE (the prompt's cache; this rank's KV heads)."""
     dt = cfg.compute_dtype
-    groups = cfg.num_heads // cfg.num_kv_heads
-    n = _rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-    q = _rope(_split(_dense(n, lp["q"], dt), cfg.num_heads, cfg.head_dim), positions,
-              cfg.rope_theta)
-    k = _rope(_split(_dense(n, lp["k"], dt), cfg.num_kv_heads, cfg.head_dim), positions,
-              cfg.rope_theta)
-    v = _split(_dense(n, lp["v"], dt), cfg.num_kv_heads, cfg.head_dim)
+    hh, hkv = local_heads(lp, cfg)
+    groups = hh // hkv
+    n = copy_to_model(_rms_norm(h, lp["input_norm"], cfg.rms_norm_eps), mesh)
+    q = _rope(_split(_dense(n, lp["q"], dt), hh, cfg.head_dim), positions, cfg.rope_theta)
+    k = _rope(_split(_dense(n, lp["k"], dt), hkv, cfg.head_dim), positions, cfg.rope_theta)
+    v = _split(_dense(n, lp["v"], dt), hkv, cfg.head_dim)
     attn = _attention(q, _repeat_kv(k, groups), _repeat_kv(v, groups), bias,
                       cfg.head_dim ** -0.5, dt)
-    h = h + _dense(_merge(attn), lp["o"], dt)
-    return h + _mlp(h, lp, cfg), k, v
+    h = h + reduce_from_model(_dense(_merge(attn), lp["o"], dt), mesh)
+    return h + _mlp(h, lp, cfg, mesh), k, v
 
 
 def _flash_block(
     h: torch.Tensor, lp: Params, cfg: CausalLMConfig, positions: torch.Tensor,
-    key_mask: torch.Tensor,
+    key_mask: torch.Tensor, mesh: Any = None,
 ) -> torch.Tensor:
     """One layer over a full sequence through the fused scaled causal
     attention (the JAX package's flash layer): RoPE in ``[B, T, H, d]``, the
@@ -270,8 +295,8 @@ def _flash_block(
     kernel."""
     dt = cfg.compute_dtype
     b, t, _ = h.shape
-    hh, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    n = _rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+    (hh, hkv), dh = local_heads(lp, cfg), cfg.head_dim
+    n = copy_to_model(_rms_norm(h, lp["input_norm"], cfg.rms_norm_eps), mesh)
     q = _rope(_dense(n, lp["q"], dt).view(b, t, hh, dh), positions, cfg.rope_theta, 2)
     k = _rope(_dense(n, lp["k"], dt).view(b, t, hkv, dh), positions, cfg.rope_theta, 2)
     v = _dense(n, lp["v"], dt).view(b, t, hkv, dh)
@@ -280,8 +305,8 @@ def _flash_block(
     attn = scaled_causal_flash_attention(
         q.reshape(b, t, hh * dh), k.reshape(b, t, hh * dh), v.reshape(b, t, hh * dh), key_mask,
         hh, dh ** -0.5)
-    h = h + _dense(attn, lp["o"], dt)
-    return h + _mlp(h, lp, cfg)
+    h = h + reduce_from_model(_dense(attn, lp["o"], dt), mesh)
+    return h + _mlp(h, lp, cfg, mesh)
 
 
 def _prompt_bias(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -306,6 +331,7 @@ def forward_logits(
     cfg: CausalLMConfig,
     input_ids: torch.Tensor,  # [B, T]
     attention_mask: Optional[torch.Tensor] = None,  # [B, T]; None = all real
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Causal forward -> fp32 logits ``[B, T, vocab]``; left or right
     padding (positions come from the mask, padded keys are masked).
@@ -323,24 +349,25 @@ def forward_logits(
         positions = (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp_min(0)
         for i in range(cfg.num_layers):
             h = _flash_block(h, layer_params(params["layers"], i), cfg, positions,
-                             attention_mask)
+                             attention_mask, mesh)
     else:
         positions, bias = _prompt_bias(attention_mask)
         for i in range(cfg.num_layers):
-            h, _, _ = _block(h, layer_params(params["layers"], i), cfg, positions, bias)
+            h, _, _ = _block(h, layer_params(params["layers"], i), cfg, positions, bias, mesh)
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    return _lm_logits(params, cfg, h)
+    return _lm_logits(params, cfg, h, mesh)
 
 
 def causal_lm_loss(
     params: Params, cfg: CausalLMConfig, input_ids: torch.Tensor,
-    attention_mask: torch.Tensor, labels: torch.Tensor,
+    attention_mask: torch.Tensor, labels: torch.Tensor, mesh: Any = None,
 ) -> torch.Tensor:
     """Next-token cross entropy with -100 ignored (the HF convention),
     summed and divided by max(valid targets, 1): the in-framework
     decoder-only fine-tuning loss on the ``[GOAL]/[PROOFSTEP]`` pairs
-    (:mod:`~reprover_tpu_torch.generation.causal_datamodule`)."""
-    logits = forward_logits(params, cfg, input_ids, attention_mask)[:, :-1]
+    (:mod:`~reprover_tpu_torch.generation.causal_datamodule`); over the
+    gathered logits under a tensor-parallel ``mesh``."""
+    logits = forward_logits(params, cfg, input_ids, attention_mask, mesh)[:, :-1]
     targets = labels[:, 1:].long()
     nll = torch.nn.functional.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), ignore_index=-100,
@@ -372,21 +399,25 @@ def prefill(
     input_ids: torch.Tensor,  # [B, P] LEFT-padded prompts
     attention_mask: torch.Tensor,  # [B, P]
     max_decode_len: int,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, CausalDecodeState]:
     """Process the prompt -> (next-token fp32 logits ``[B, V]``, state with
-    the prompt's K/V in columns ``[0, P)``; writes continue at ``P``)."""
+    the prompt's K/V in columns ``[0, P)``; writes continue at ``P``; this
+    rank's KV heads under tensor parallelism)."""
     dt = cfg.compute_dtype
     b, p = input_ids.shape
     positions, bias = _prompt_bias(attention_mask)
     h = params["embedding"].to(dt)[input_ids.long()]
-    shape = (cfg.num_layers, b, cfg.num_kv_heads, p + max_decode_len, cfg.head_dim)
+    _, hkv = local_heads(params["layers"], cfg)
+    shape = (cfg.num_layers, b, hkv, p + max_decode_len, cfg.head_dim)
     ks = torch.zeros(shape, dtype=dt, device=h.device)
     vs = torch.zeros(shape, dtype=dt, device=h.device)
     for i in range(cfg.num_layers):
-        h, k, v = _block(h, layer_params(params["layers"], i), cfg, positions, bias)
+        h, k, v = _block(h, layer_params(params["layers"], i), cfg, positions, bias, mesh)
         ks[i, :, :, :p] = k
         vs[i, :, :, :p] = v
-    logits = _lm_logits(params, cfg, _rms_norm(h[:, -1], params["final_norm"], cfg.rms_norm_eps))
+    logits = _lm_logits(params, cfg, _rms_norm(h[:, -1], params["final_norm"], cfg.rms_norm_eps),
+                        mesh)
     key_mask = torch.zeros((b, p + max_decode_len), dtype=torch.long, device=h.device)
     key_mask[:, :p] = attention_mask.long()
     return logits, CausalDecodeState(k=ks, v=vs, key_mask=key_mask, step=p,
@@ -394,14 +425,16 @@ def prefill(
 
 
 def decode_step(
-    params: Params, cfg: CausalLMConfig, state: CausalDecodeState, token: torch.Tensor
+    params: Params, cfg: CausalLMConfig, state: CausalDecodeState, token: torch.Tensor,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, CausalDecodeState]:
     """One incremental step -> (fp32 logits ``[B, V]``, state). The cache is
     written in place; attention reads the ``step + 1`` filled columns (the
     JAX package's masked full-length read gives the same sums)."""
     dt = cfg.compute_dtype
     pos = state.step
-    groups = cfg.num_heads // cfg.num_kv_heads
+    hh, hkv = local_heads(params["layers"], cfg)
+    groups = hh // hkv
     h = params["embedding"].to(dt)[token.long()][:, None, :]
     rope_pos = state.position[:, None]
     state.key_mask[:, pos] = 1
@@ -409,20 +442,19 @@ def decode_step(
     bias = torch.where(state.key_mask[:, None, None, : pos + 1].bool(), zero, NEG_INF)
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
-        n = _rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-        q = _rope(_split(_dense(n, lp["q"], dt), cfg.num_heads, cfg.head_dim), rope_pos,
-                  cfg.rope_theta)
-        k = _rope(_split(_dense(n, lp["k"], dt), cfg.num_kv_heads, cfg.head_dim), rope_pos,
-                  cfg.rope_theta)
-        v = _split(_dense(n, lp["v"], dt), cfg.num_kv_heads, cfg.head_dim)
+        n = copy_to_model(_rms_norm(h, lp["input_norm"], cfg.rms_norm_eps), mesh)
+        q = _rope(_split(_dense(n, lp["q"], dt), hh, cfg.head_dim), rope_pos, cfg.rope_theta)
+        k = _rope(_split(_dense(n, lp["k"], dt), hkv, cfg.head_dim), rope_pos, cfg.rope_theta)
+        v = _split(_dense(n, lp["v"], dt), hkv, cfg.head_dim)
         state.k[i, :, :, pos] = k[:, :, 0]
         state.v[i, :, :, pos] = v[:, :, 0]
         attn = _attention(q, _repeat_kv(state.k[i, :, :, : pos + 1], groups),
                           _repeat_kv(state.v[i, :, :, : pos + 1], groups), bias,
                           cfg.head_dim ** -0.5, dt)
-        h = h + _dense(_merge(attn), lp["o"], dt)
-        h = h + _mlp(h, lp, cfg)
-    logits = _lm_logits(params, cfg, _rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps))
+        h = h + reduce_from_model(_dense(_merge(attn), lp["o"], dt), mesh)
+        h = h + _mlp(h, lp, cfg, mesh)
+    logits = _lm_logits(params, cfg, _rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps),
+                        mesh)
     return logits, dataclasses.replace(state, step=pos + 1, position=state.position + 1)
 
 

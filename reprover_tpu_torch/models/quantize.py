@@ -22,7 +22,7 @@ the lm_head do in decode.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -39,12 +39,16 @@ class QuantWeight:
     """int8 weight ``[..., I, O]`` + fp32 per-output-channel scale ``[..., 1, O]``.
 
     ``kernel_ok`` gates the kernel routing (the JAX package clears it for
-    weights sharded over a mesh). Indexing and ``unbind`` slice the stacked
-    layer axis, so the models' per-layer views work on quantized trees."""
+    weights sharded over a mesh; the port keeps it, and each rank runs the
+    kernels on its shard). ``logical_shape`` is a tensor-parallel shard's
+    whole per-layer weight ``[K, N]`` (None: the weight is whole), which the
+    routing reads. Indexing and ``unbind`` slice the stacked layer axis, so
+    the models' per-layer views work on quantized trees."""
 
     q: torch.Tensor
     scale: torch.Tensor
     kernel_ok: bool = True
+    logical_shape: Optional[Tuple[int, int]] = None
 
     @property
     def shape(self) -> torch.Size:
@@ -160,13 +164,18 @@ def _rows(x: torch.Tensor) -> int:
 def _routes(rows: int, w: QuantWeight, dtype: torch.dtype, on_card: bool) -> bool:
     """The JAX package's routing rule (``quantize.py:195-258``) for an
     activation of ``rows`` rows; ``on_card`` takes the place of "the backend
-    is a TPU": a bf16 activation on a CUDA card."""
+    is a TPU": a bf16 activation on a CUDA card. A tensor-parallel shard is
+    judged by its whole weight (``logical_shape``), so it routes as one card
+    routes that weight; the kernel then runs on the shard."""
     if not w.kernel_ok or w.q.dim() != 2:
         return False
-    k_in, n = w.q.shape
     int4 = isinstance(w, Quant4Weight)
-    if int4:
-        k_in *= 2
+    if w.logical_shape is not None:
+        k_in, n = w.logical_shape
+    else:
+        k_in, n = w.q.shape
+        if int4:
+            k_in *= 2
     itemsize = torch.finfo(dtype).bits // 8
     if not (k_in * n >= _KERNEL_MIN_WEIGHT_BYTES and rows * k_in * itemsize <= _KERNEL_MAX_X_BYTES):
         return False

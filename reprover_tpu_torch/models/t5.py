@@ -23,6 +23,16 @@ The incremental decoder, and ``decode`` with a ``decoder_mask`` or with
 it to XLA. Their attention scores are the matrix product's output in
 ``compute_dtype`` before the float32 softmax.
 
+Under a mesh whose ``model`` axis spans ranks (``mesh=``), each rank holds
+its Megatron part of the parameters
+(:func:`~reprover_tpu_torch.parallel.sharding.shard_for_model`): q/k/v and
+the MLP's input projections split by columns (heads, hidden units), o and
+the MLP's output split by rows, ``lm_head`` by the vocabulary. The forward
+takes its head count from the shard's width, reads its heads' columns of
+the replicated ``rel_bias``, sums the row-parallel products over ``model``
+and gathers the logits (:mod:`reprover_tpu_torch.parallel.collectives`);
+the attention kernels run on the local heads.
+
 Training rematerializes each layer (``cfg.remat``) with one of the JAX
 package's three policies: ``full`` recomputes the whole layer in backward;
 ``lite`` keeps the products the JAX package names ``qkv`` and
@@ -46,6 +56,12 @@ import torch.utils.checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from reprover_tpu_torch.models.quantize import QuantWeight, quantized_dense, quantized_logits
+from reprover_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    model_parallel,
+    reduce_from_model,
+)
 from reprover_tpu_torch.ops.flash_attention import (
     ATTENTION_OPS,
     causal_flash_attention,
@@ -331,6 +347,21 @@ def compute_position_bias(
     return bias.permute(2, 0, 1)[None]
 
 
+def local_heads(w: Any, cfg: T5Config) -> int:
+    """Heads of a q/k/v weight (or its tensor-parallel shard): its output
+    width over ``d_kv``."""
+    return w.shape[-1] // cfg.d_kv
+
+
+def head_bias(rel_bias: torch.Tensor, heads: int, mesh: Any = None) -> torch.Tensor:
+    """The columns of the replicated ``rel_bias`` ``[buckets, H]`` that this
+    rank's ``heads`` read (all of them off a mesh); its gradient, disjoint
+    columns per rank, is summed over ``model``."""
+    if heads == rel_bias.shape[-1]:
+        return rel_bias
+    return copy_to_model(rel_bias, mesh).narrow(-1, mesh.coord("model") * heads, heads)
+
+
 def _split_heads(x: torch.Tensor, num_heads: int, d_kv: int) -> torch.Tensor:
     b, l, _ = x.shape
     return x.view(b, l, num_heads, d_kv).transpose(1, 2)
@@ -356,14 +387,15 @@ def attention(
     return torch.matmul(probs, v.to(dtype))
 
 
-def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config) -> torch.Tensor:
+def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config, mesh: Any = None) -> torch.Tensor:
     dtype = cfg.compute_dtype
+    x = copy_to_model(x, mesh)
     if "wi" in p:
         gate, up = _dense(x, p["wi"], dtype, "mlp_hidden").chunk(2, dim=-1)
     else:
         gate, up = _dense(x, p["wi_0"], dtype, "mlp_hidden"), _dense(x, p["wi_1"], dtype,
                                                                       "mlp_hidden")
-    return _dense(gelu_new(gate) * up, p["wo"], dtype)
+    return reduce_from_model(_dense(gelu_new(gate) * up, p["wo"], dtype), mesh)
 
 
 def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -372,18 +404,25 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None, None, :].bool(), zero, NEG_INF)
 
 
-def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor) -> torch.Tensor:
+def _lm_logits(params: Params, cfg: T5Config, h: torch.Tensor, mesh: Any = None
+               ) -> torch.Tensor:
     """Logits in float32 from ``compute_dtype`` operands, as the JAX
-    package's ``preferred_element_type=float32`` gives them."""
+    package's ``preferred_element_type=float32`` gives them; a
+    vocabulary-split ``lm_head`` gives this rank's columns, gathered."""
     dtype = cfg.compute_dtype
     if cfg.tie_word_embeddings:
         h = h * (cfg.d_model ** -0.5)
         w = params["shared_embedding"].t()
     else:
         w = params["lm_head"]
+    split = model_parallel(mesh) and w.shape[-1] != cfg.vocab_size
+    if split:
+        h = copy_to_model(h, mesh)
     if isinstance(w, QuantWeight):
-        return quantized_logits(h, w, dtype)
-    return torch.matmul(h.to(dtype).float(), w.to(dtype).float())
+        logits = quantized_logits(h, w, dtype)
+    else:
+        logits = torch.matmul(h.to(dtype).float(), w.to(dtype).float())
+    return gather_from_model(logits, mesh) if split else logits
 
 
 # ------------------------------------------------------------------ #
@@ -510,8 +549,10 @@ def encode(
     input_ids: torch.Tensor,  # int [B, L]
     attention_mask: torch.Tensor,  # int [B, L]
     attention_fn: Callable[..., torch.Tensor] = encoder_flash_attention,
+    mesh: Any = None,
 ) -> torch.Tensor:
-    """Encoder forward -> last hidden states ``[B, L, d_model]``.
+    """Encoder forward -> last hidden states ``[B, L, d_model]`` (under a
+    tensor-parallel ``mesh``, the same on every ``model`` rank).
 
     Self-attention runs through ``encoder_flash_attention`` at any ``L``:
     the kernels mask their own ragged tile, so no length condition applies
@@ -528,22 +569,24 @@ def encode(
     eps = cfg.layer_norm_epsilon
     route = {"block_kv": cfg.flash_block_kv} if cfg.flash_block_kv else {}
 
+    heads = local_heads(enc["layers"]["attn"]["q"], cfg)
+
     def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
         p = lp["attn"]
-        n = rms_norm(h, lp["attn_norm"], eps)
+        n = copy_to_model(rms_norm(h, lp["attn_norm"], eps), mesh)
         attn = attention_fn(
             _dense(n, p["q"], dtype, "qkv"),
             _dense(n, p["k"], dtype, "qkv"),
             _dense(n, p["v"], dtype, "qkv"),
             attention_mask,
-            enc["rel_bias"],
-            num_heads=cfg.num_heads,
+            head_bias(enc["rel_bias"], heads, mesh),
+            num_heads=heads,
             num_buckets=cfg.relative_attention_num_buckets,
             max_distance=cfg.relative_attention_max_distance,
             **route,
         )
-        h = h + _dense(attn, p["o"], dtype)
-        return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+        h = h + reduce_from_model(_dense(attn, p["o"], dtype), mesh)
+        return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
 
     if cfg.remat and torch.is_grad_enabled():
         layer = _rematerialized(layer, cfg)
@@ -567,15 +610,19 @@ def shift_right(ids: torch.Tensor, cfg: T5Config) -> torch.Tensor:
 
 
 def _attn_block(
-    x: torch.Tensor, kv_src: torch.Tensor, p: Params, bias: torch.Tensor, cfg: T5Config
+    x: torch.Tensor, kv_src: torch.Tensor, p: Params, bias: torch.Tensor, cfg: T5Config,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Plain multi-head attention of ``x`` over ``kv_src`` plus the output
-    projection (the naive path of :func:`decode`)."""
+    projection (the naive path of :func:`decode`); ``x`` and ``kv_src``
+    already passed :func:`copy_to_model`."""
     dtype = cfg.compute_dtype
-    q = _split_heads(_dense(x, p["q"], dtype, "qkv"), cfg.num_heads, cfg.d_kv)
-    k = _split_heads(_dense(kv_src, p["k"], dtype, "qkv"), cfg.num_heads, cfg.d_kv)
-    v = _split_heads(_dense(kv_src, p["v"], dtype, "qkv"), cfg.num_heads, cfg.d_kv)
-    return _dense(_merge_heads(attention(q, k, v, bias, dtype)), p["o"], dtype)
+    h = local_heads(p["q"], cfg)
+    q = _split_heads(_dense(x, p["q"], dtype, "qkv"), h, cfg.d_kv)
+    k = _split_heads(_dense(kv_src, p["k"], dtype, "qkv"), h, cfg.d_kv)
+    v = _split_heads(_dense(kv_src, p["v"], dtype, "qkv"), h, cfg.d_kv)
+    return reduce_from_model(_dense(_merge_heads(attention(q, k, v, bias, dtype)), p["o"], dtype),
+                             mesh)
 
 
 def decode(
@@ -586,6 +633,7 @@ def decode(
     decoder_input_ids: torch.Tensor,  # int [B, T]
     decoder_mask: Optional[torch.Tensor] = None,  # [B, T] or None (causal only)
     flash_attention: bool = True,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Teacher-forced decoder forward -> logits ``[B, T, vocab]`` fp32.
 
@@ -603,39 +651,41 @@ def decode(
     dtype = cfg.compute_dtype
     dec = params["decoder"]
     eps = cfg.layer_norm_epsilon
-    enc_h = encoder_hidden.to(dtype)
+    enc_h = copy_to_model(encoder_hidden.to(dtype), mesh)
+    heads = local_heads(dec["layers"]["self_attn"]["q"], cfg)
+    rel_bias = head_bias(dec["rel_bias"], heads, mesh)
 
     if decoder_mask is None and flash_attention:
 
         def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
-            n = rms_norm(h, lp["self_norm"], eps)
+            n = copy_to_model(rms_norm(h, lp["self_norm"], eps), mesh)
             p = lp["self_attn"]
             # Flat [B, T, H*d] projection layout straight into the kernels.
             attn = causal_flash_attention(
                 _dense(n, p["q"], dtype, "qkv"),
                 _dense(n, p["k"], dtype, "qkv"),
                 _dense(n, p["v"], dtype, "qkv"),
-                dec["rel_bias"],
-                num_heads=cfg.num_heads,
+                rel_bias,
+                num_heads=heads,
                 num_buckets=cfg.relative_attention_num_buckets,
                 max_distance=cfg.relative_attention_max_distance,
             )
-            h = h + _dense(attn, p["o"], dtype)
+            h = h + reduce_from_model(_dense(attn, p["o"], dtype), mesh)
             pc = lp["cross_attn"]
-            n = rms_norm(h, lp["cross_norm"], eps)
+            n = copy_to_model(rms_norm(h, lp["cross_norm"], eps), mesh)
             attn = cross_flash_attention(
                 _dense(n, pc["q"], dtype, "qkv"),
                 _dense(enc_h, pc["k"], dtype, "qkv"),
                 _dense(enc_h, pc["v"], dtype, "qkv"),
                 encoder_mask,
-                num_heads=cfg.num_heads,
+                num_heads=heads,
             )
-            h = h + _dense(attn, pc["o"], dtype)
-            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+            h = h + reduce_from_model(_dense(attn, pc["o"], dtype), mesh)
+            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
 
     else:
         positions = torch.arange(decoder_input_ids.shape[1], device=decoder_input_ids.device)
-        self_bias = compute_position_bias(dec["rel_bias"], positions, positions, False, cfg)
+        self_bias = compute_position_bias(rel_bias, positions, positions, False, cfg)
         causal = (positions[None, :] <= positions[:, None])[None, None]
         self_bias = torch.where(causal, self_bias, torch.full_like(self_bias, NEG_INF))
         if decoder_mask is not None:
@@ -643,18 +693,18 @@ def decode(
         cross_bias = _mask_bias(encoder_mask)
 
         def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
-            n = rms_norm(h, lp["self_norm"], eps)
-            h = h + _attn_block(n, n, lp["self_attn"], self_bias, cfg)
-            n = rms_norm(h, lp["cross_norm"], eps)
-            h = h + _attn_block(n, enc_h, lp["cross_attn"], cross_bias, cfg)
-            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+            n = copy_to_model(rms_norm(h, lp["self_norm"], eps), mesh)
+            h = h + _attn_block(n, n, lp["self_attn"], self_bias, cfg, mesh)
+            n = copy_to_model(rms_norm(h, lp["cross_norm"], eps), mesh)
+            h = h + _attn_block(n, enc_h, lp["cross_attn"], cross_bias, cfg, mesh)
+            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
 
     if cfg.remat and torch.is_grad_enabled():
         layer = _rematerialized(layer, cfg)
     h = params["shared_embedding"].to(dtype)[decoder_input_ids]
     for lp in unbind_layers(dec["layers"], cfg.num_decoder_layers):
         h = layer(h, lp)
-    return _lm_logits(params, cfg, rms_norm(h, dec["final_norm"], eps))
+    return _lm_logits(params, cfg, rms_norm(h, dec["final_norm"], eps), mesh)
 
 
 def cross_entropy_loss(
@@ -678,15 +728,17 @@ def forward_loss(
     attention_mask: torch.Tensor,
     labels: torch.Tensor,
     flash_attention: bool = True,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Seq2seq CE loss with HF ``labels`` semantics (shift-right inside).
     ``flash_attention=False`` runs the plain attention in the encoder and the
     decoder instead of the kernels: the JAX package's naive path, an A/B
-    switch (pretraining's ``--model.flash false``), never a fallback."""
+    switch (pretraining's ``--model.flash false``), never a fallback. Under
+    a tensor-parallel ``mesh`` the loss is taken over the gathered logits."""
     attention_fn = encoder_flash_attention if flash_attention else encoder_attention_reference
-    enc = encode(params, cfg, input_ids, attention_mask, attention_fn)
+    enc = encode(params, cfg, input_ids, attention_mask, attention_fn, mesh)
     logits = decode(params, cfg, enc, attention_mask, shift_right(labels, cfg),
-                    flash_attention=flash_attention)
+                    flash_attention=flash_attention, mesh=mesh)
     return cross_entropy_loss(logits, labels)
 
 
@@ -726,20 +778,22 @@ def init_decode_state(
     max_decode_len: int,
     num_beams: int = 1,
 ) -> DecodeState:
-    """Allocate the KV cache and precompute cross-attention keys/values."""
+    """Allocate the KV cache and precompute cross-attention keys/values (at
+    this rank's heads under tensor parallelism)."""
     dtype = cfg.compute_dtype
     b = encoder_hidden.shape[0]
     dec_layers = params["decoder"]["layers"]
+    heads = local_heads(dec_layers["self_attn"]["q"], cfg)
     enc_h = encoder_hidden.to(dtype)
     ks, vs = [], []
     for i in range(cfg.num_decoder_layers):
         ca = layer_params(dec_layers, i)["cross_attn"]
-        ks.append(_split_heads(_dense(enc_h, ca["k"], dtype), cfg.num_heads, cfg.d_kv))
-        vs.append(_split_heads(_dense(enc_h, ca["v"], dtype), cfg.num_heads, cfg.d_kv))
+        ks.append(_split_heads(_dense(enc_h, ca["k"], dtype), heads, cfg.d_kv))
+        vs.append(_split_heads(_dense(enc_h, ca["v"], dtype), heads, cfg.d_kv))
     shape = (
         cfg.num_decoder_layers,
         b * num_beams,
-        cfg.num_heads,
+        heads,
         max_decode_len,
         cfg.d_kv,
     )
@@ -775,6 +829,7 @@ def decode_step(
     cfg: T5Config,
     state: DecodeState,
     token: torch.Tensor,  # int [N] — token at position ``state.step``
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One incremental decoder step -> (logits ``[N, vocab]`` fp32, state).
 
@@ -787,10 +842,11 @@ def decode_step(
     eps = cfg.layer_norm_epsilon
     pos = state.step
     dev = token.device
+    heads = local_heads(dec["layers"]["self_attn"]["q"], cfg)
 
     h = params["shared_embedding"].to(dtype)[token][:, None, :]  # [N, 1, D]
     self_bias = compute_position_bias(
-        dec["rel_bias"],
+        head_bias(dec["rel_bias"], heads, mesh),
         torch.tensor([pos], device=dev),
         torch.arange(pos + 1, device=dev),
         False,
@@ -801,10 +857,10 @@ def decode_step(
         lp = layer_params(dec["layers"], i)
         sa, ca = lp["self_attn"], lp["cross_attn"]
 
-        n = rms_norm(h, lp["self_norm"], eps)
-        q = _split_heads(_dense(n, sa["q"], dtype), cfg.num_heads, cfg.d_kv)
-        k_new = _split_heads(_dense(n, sa["k"], dtype), cfg.num_heads, cfg.d_kv)
-        v_new = _split_heads(_dense(n, sa["v"], dtype), cfg.num_heads, cfg.d_kv)
+        n = copy_to_model(rms_norm(h, lp["self_norm"], eps), mesh)
+        q = _split_heads(_dense(n, sa["q"], dtype), heads, cfg.d_kv)
+        k_new = _split_heads(_dense(n, sa["k"], dtype), heads, cfg.d_kv)
+        v_new = _split_heads(_dense(n, sa["v"], dtype), heads, cfg.d_kv)
         state.self_k[i, :, :, pos] = k_new[:, :, 0]
         state.self_v[i, :, :, pos] = v_new[:, :, 0]
         attn = attention(
@@ -814,19 +870,19 @@ def decode_step(
             self_bias,
             dtype,
         )
-        h = h + _dense(_merge_heads(attn), sa["o"], dtype)
+        h = h + reduce_from_model(_dense(_merge_heads(attn), sa["o"], dtype), mesh)
 
-        n = rms_norm(h, lp["cross_norm"], eps)
-        q = _split_heads(_dense(n, ca["q"], dtype), cfg.num_heads, cfg.d_kv)
+        n = copy_to_model(rms_norm(h, lp["cross_norm"], eps), mesh)
+        q = _split_heads(_dense(n, ca["q"], dtype), heads, cfg.d_kv)
         attn = _cross_attention(
             q, state.cross_k[i], state.cross_v[i], state.cross_bias, state.num_beams, dtype
         )
-        h = h + _dense(_merge_heads(attn), ca["o"], dtype)
+        h = h + reduce_from_model(_dense(_merge_heads(attn), ca["o"], dtype), mesh)
 
-        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
 
     h = rms_norm(h, dec["final_norm"], eps)
-    logits = _lm_logits(params, cfg, h)[:, 0, :]
+    logits = _lm_logits(params, cfg, h, mesh)[:, 0, :]
     return logits, dataclasses.replace(state, step=pos + 1)
 
 

@@ -1,5 +1,5 @@
-"""The collectives of data-parallel training over a mesh's ``data`` axis
-(the JAX package gets them implied by GSPMD from its shardings).
+"""The collectives of data- and tensor-parallel training and serving over a
+mesh (the JAX package gets them implied by GSPMD from its shardings).
 
 Every one is built on ``all_reduce``, so NCCL between cards and gloo
 between ranks sharing one card run one algorithm (PyTorch's backend table
@@ -17,8 +17,25 @@ the bytes of an ``all_gather``; ``PERF.md`` has its time.
 - :func:`gather_rows`: every rank's rows, in rank order, with gradient (the
   in-batch negatives of the retrieval losses).
 - :func:`gather_shards_`: a tensor whose ranks each updated their own shard
-  along one axis made whole on every rank (the parameters after the ZeRO
-  update, the moments for a checkpoint).
+  along one axis of ``data`` made whole on every rank (the parameters
+  after the ZeRO update, the moments for a checkpoint).
+- :func:`gather_model`: the whole tensor of which each rank holds its
+  ``model`` shard (a tensor-parallel leaf for a checkpoint in the one-card
+  layout, a vocabulary split's logits).
+
+Megatron's conjugate operators on the ``model`` axis (tensor parallelism),
+each the identity when the mesh is None or its ``model`` axis one rank:
+
+- :func:`copy_to_model`: identity forward, the gradient summed over
+  ``model`` backward. It goes at the input of every column-parallel product
+  (and before a replicated leaf of which each rank reads a slice, T5's
+  ``rel_bias``): without it the replicated leaves upstream get each rank's
+  partial gradient and the ranks drift apart silently.
+- :func:`reduce_from_model`: the partial outputs summed over ``model``
+  forward, identity backward; after every row-parallel product.
+- :func:`gather_from_model`: every rank's slice of the last axis (a
+  vocabulary-split ``lm_head``'s logits) concatenated forward, the rank's
+  slice of the gradient backward.
 """
 
 from __future__ import annotations
@@ -30,10 +47,10 @@ import torch
 from reprover_tpu_torch.parallel.mesh import Mesh
 
 
-def _all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
     import torch.distributed as dist
 
-    dist.all_reduce(t, group=mesh.group("data"))
+    dist.all_reduce(t, group=mesh.group(axis))
     return t
 
 
@@ -91,6 +108,18 @@ def gather_shards_(full: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
         return _all_reduce_(full, mesh)
 
 
+def gather_model(local: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which ``local`` is this rank's ``model`` shard
+    along ``axis`` (a new tensor on every rank, no gradient)."""
+    n = mesh.shape["model"]
+    shape = list(local.shape)
+    shape[axis] *= n
+    full = local.new_zeros(shape)
+    size = local.shape[axis]
+    full.narrow(axis, mesh.coord("model") * size, size).copy_(local.detach())
+    return _all_reduce_(full, mesh, "model")
+
+
 def broadcast_object(obj: Any, mesh: Mesh, src: int = 0) -> Any:
     """``obj`` of the ``data`` group's rank ``src`` on every rank (the
     mesh's coordinate ``src`` when it lists its ranks in order, as
@@ -104,3 +133,65 @@ def broadcast_object(obj: Any, mesh: Mesh, src: int = 0) -> Any:
     box = [obj]
     dist.broadcast_object_list(box, src=dist.get_global_rank(group, src), group=group)
     return box[0]
+
+
+# ------------------------------------------------------------------ #
+# Tensor parallelism: Megatron's operators on the ``model`` axis
+# ------------------------------------------------------------------ #
+
+
+def model_parallel(mesh: Any) -> bool:
+    """Whether a forward under ``mesh`` is tensor-parallel (``model`` > 1)."""
+    return mesh is not None and mesh.spans("model")
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Any:
+        return _all_reduce_(grad.contiguous().clone(), ctx.mesh, "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        return _all_reduce_(x.contiguous().clone(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Any:
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return gather_model(x, x.dim() - 1, mesh)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Any:
+        w = ctx.width
+        return grad.narrow(-1, ctx.mesh.coord("model") * w, w).contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over ``model`` (the input of a
+    column-parallel product)."""
+    return _CopyToModel.apply(x, mesh) if model_parallel(mesh) else x
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """``x`` summed over ``model`` (the partial outputs of a row-parallel
+    product); the gradient passes unchanged."""
+    return _ReduceFromModel.apply(x, mesh) if model_parallel(mesh) else x
+
+
+def gather_from_model(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """Every ``model`` rank's ``x`` concatenated along the last axis in rank
+    order (a vocabulary-split projection's logits); the gradient of this
+    rank's slice passes back."""
+    return _GatherFromModel.apply(x, mesh) if model_parallel(mesh) else x

@@ -5,14 +5,15 @@ Axes, as in the JAX package:
 
 - ``data``: data parallelism and ZeRO-style sharding of Adam's moments
   (the reference's DeepSpeed ZeRO-2 role);
-- ``model``: tensor parallelism (its consumers, the tensor-parallel engines
-  and ``model_parallel=True`` training, are not ported yet: ROADMAP.md
-  Queue 1 item 4).
+- ``model``: tensor parallelism (Megatron column/row splits: the
+  tensor-parallel streaming engines and ``model_parallel=True`` training).
 
 Each process is one rank and drives one device. A mesh is a ``(data,
 model)`` grid of ranks with ``model`` innermost, so the rank at mesh
 position ``i`` sits at coordinate ``(i // model, i % model)``; it carries
-the process group of this rank's line along each axis.
+the process group of this rank's line along each axis, and a host
+``control`` group (gloo, CPU tensors) over the whole grid, in which the
+first rank of a tensor-parallel engine sends its calls to the others.
 
 Process groups are joined or formed by :func:`init_distributed`: one that
 ``torchrun`` describes in the environment (``RANK``, ``WORLD_SIZE``,
@@ -37,19 +38,14 @@ logger = logging.getLogger(__name__)
 
 AXES = ("data", "model")
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-TENSOR_PARALLEL_TODO = (
-    "tensor parallelism (a mesh with model > 1, model_parallel=True) is not ported: "
-    "the tensor-parallel engines and training are the next multi-device slice "
-    "(ROADMAP.md Queue 1 item 4)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``(data, model)`` grid of ranks; ``coords`` is this rank's position
     and ``groups`` the process group of its line along each axis of more
-    than one rank (empty for a mesh of one rank, or one built only to
-    compute sharding specs)."""
+    than one rank, and ``control`` over the grid (empty for a mesh of one
+    rank, or one built only to compute sharding specs)."""
 
     data: int
     model: int = 1
@@ -66,11 +62,23 @@ class Mesh:
         return self.coords[AXES.index(axis)]
 
     def group(self, axis: str) -> Any:
-        """The process group of this rank's line along ``axis``."""
-        if self.shape[axis] > 1 and axis not in self.groups:
+        """The process group of this rank's line along ``axis`` (or the
+        ``control`` group over the grid)."""
+        size = self.data * self.model if axis == "control" else self.shape[axis]
+        if size > 1 and axis not in self.groups:
             raise RuntimeError(f"this mesh has no process group for axis {axis!r}: build it "
                                "with make_mesh inside an initialized process group")
         return self.groups.get(axis)
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank is the grid's first: the one that owns a
+        tensor-parallel engine's host API."""
+        return self.coords == (0, 0)
 
     def spans(self, axis: str = "data") -> bool:
         """Whether ``axis`` has more than one rank (collectives to run)."""
@@ -169,6 +177,13 @@ def make_mesh(
                      else dist.new_group(line))  # every rank of the group calls new_group
             if me in line:
                 groups[axis] = group
+    if len(grid) > 1:
+        # Host messages between a tensor-parallel engine's ranks: gloo, so
+        # they travel as CPU tensors whatever the ranks' backend.
+        control = (dist.group.WORLD if sorted(grid) == list(range(world))
+                   and dist.get_backend() == "gloo" else dist.new_group(grid, backend="gloo"))
+        if me in grid:
+            groups["control"] = control
     if me not in grid:
         raise ValueError(f"rank {me} is not in the {data}x{model} mesh over ranks {grid}")
     i = grid.index(me)
@@ -177,8 +192,8 @@ def make_mesh(
 
 def is_first_rank(mesh: Optional[Mesh]) -> bool:
     """Whether this rank writes a fit's logs and checkpoints: no mesh, or
-    ``data`` coordinate 0."""
-    return mesh is None or mesh.coord("data") == 0
+    the grid's first rank (coordinates 0 on ``data`` and ``model``)."""
+    return mesh is None or mesh.is_leader
 
 
 def local_mesh() -> Mesh:

@@ -50,6 +50,7 @@ from reprover_tpu_torch.prover.service import (
     InferenceService,
     ServiceClient,
     StreamingInferenceService,
+    serve_tensor_parallel,
 )
 
 __all__ = [
@@ -91,5 +92,6 @@ __all__ = [
     "get_theorems",
     "InferenceService",
     "StreamingInferenceService",
+    "serve_tensor_parallel",
     "ServiceClient",
 ]

@@ -22,11 +22,12 @@ hops (the reference ships state across Ray actors instead).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import multiprocessing as mp
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from reprover_tpu_torch.data import Pos
 
@@ -93,6 +94,11 @@ class InferenceService:
         # Guards read-modify-write stats updates made off the serve thread
         # (streaming-service reaper threads) and snapshot reads.
         self._stats_lock = threading.Lock()
+        # Set by :meth:`quiesced`; the serving loop answers with ``_held``
+        # once it has no device work in flight, and dispatches none until
+        # ``_hold`` clears.
+        self._hold = threading.Event()
+        self._held = threading.Event()
 
     def stats_snapshot(self) -> Dict[str, float]:
         """Serving counters + derived rates (observability, SURVEY.md §5):
@@ -129,6 +135,32 @@ class InferenceService:
             self._thread.join(timeout=30)
             self._thread = None
 
+    @contextlib.contextmanager
+    def quiesced(self, timeout_s: float = 120.0) -> Iterator[None]:
+        """Inside the block the serving loop has no device work in flight
+        and dispatches none; requests keep queueing and are served after
+        it. For starting and stopping a device profiler, whose activity
+        buffers are not safe to switch while other threads launch work.
+        Requests of another beam width than a streaming engine's are served
+        on a side thread that this does not hold."""
+        self._held.clear()
+        self._hold.set()
+        try:
+            if not self._held.wait(timeout_s):
+                raise TimeoutError(f"the serving loop did not go quiet in {timeout_s} s")
+            yield
+        finally:
+            self._hold.clear()
+
+    def _holding(self) -> bool:
+        """At a point of the serving loop with nothing in flight: whether
+        :meth:`quiesced` holds it (then it says so and idles briefly)."""
+        if not self._hold.is_set():
+            return False
+        self._held.set()
+        time.sleep(0.005)
+        return True
+
     # -- serving loop -------------------------------------------------- #
 
     def _drain(self) -> List[GenerateRequest]:
@@ -154,6 +186,8 @@ class InferenceService:
 
     def _serve(self) -> None:
         while not self._stop.is_set():
+            if self._holding():
+                continue
             reqs = self._drain()
             if not reqs:
                 continue
@@ -233,6 +267,12 @@ class StreamingInferenceService(InferenceService):
     Requests whose ``num_samples`` differs from the engine's beam width fall
     back to the classic one-shot path (the prover uses one width,
     `reference/prover/evaluate.py:218`).
+
+    Under a tensor-parallel ``mesh`` the service runs on the grid's first
+    rank as it runs on one card, and its engine sends each state-changing
+    call to the other ranks, which follow it
+    (:func:`serve_tensor_parallel` starts either side); :meth:`stop`
+    releases them.
     """
 
     def __init__(
@@ -265,7 +305,8 @@ class StreamingInferenceService(InferenceService):
         # per-beam cache reorder/attention traffic scales with the deepest
         # working slot's decode depth instead of max_decode_len.
         self.step_buckets = step_buckets
-        # Tensor-parallel serving is not ported: the engine raises on a mesh.
+        # Tensor-parallel serving: the engine is sharded over the mesh's
+        # `model` axis and this rank leads the others (serve_tensor_parallel).
         self.mesh = mesh
         # Step horizon per dispatch while every slot is occupied:
         # chunk_size * chunk_burst decoder steps (the device stops early the
@@ -299,6 +340,16 @@ class StreamingInferenceService(InferenceService):
                 "emit_time": 0.0,
             }
         )
+
+    @property
+    def engine(self) -> Any:
+        """The stepwise engine (None until the service has built it)."""
+        return self._engine
+
+    def stop(self) -> None:
+        super().stop()
+        if self._engine is not None:
+            self._engine.release_followers()
 
     def _build_engine(self) -> Any:
         # Model-agnostic: the generator wrapper (T5 seq2seq OR decoder-only
@@ -535,6 +586,12 @@ class StreamingInferenceService(InferenceService):
 
                 if fault is not None:
                     raise fault
+                # Held: dispatch nothing, and go quiet once the statuses and
+                # finalize copies in flight have come back.
+                if self._hold.is_set():
+                    if in_flight == 0 and not awaiting_fin:
+                        self._holding()
+                    continue
 
                 # 2. Admit a wave into free slots (one fused dispatch).
                 free = [s for s in range(S) if not occupied[s]]
@@ -625,6 +682,23 @@ class StreamingInferenceService(InferenceService):
             except _q.Empty:
                 pass
 
+
+
+def serve_tensor_parallel(generator: Any, mesh: Any, **service_kwargs: Any
+                          ) -> StreamingInferenceService:
+    """Tensor-parallel serving of ``generator`` over ``mesh`` (every rank of
+    the grid calls this with the same arguments). The first rank gets a
+    :class:`StreamingInferenceService` to start, serve and stop as on one
+    card. Every other rank builds the same sharded engine, follows the
+    leader's calls until the service stops, and then gets its own service
+    back, never started, whose :attr:`~StreamingInferenceService.engine`
+    holds the followed state. The service's keyword arguments are
+    :class:`StreamingInferenceService`'s."""
+    service = StreamingInferenceService(generator, mesh=mesh, **service_kwargs)
+    if not mesh.is_leader:
+        service._build_engine()  # the leader's engine, built from the same arguments
+        service.engine.follow()
+    return service
 
 
 class ServiceClient:

@@ -30,6 +30,14 @@ divides; a leaf with none stays whole on every rank. An update sums the
 gradients over ``data``, clips them by their global norm (the one-device
 clip, on the same whole gradients), updates this rank's shards in place and
 gathers the shards, so every rank ends with the whole new parameters.
+
+After :meth:`AdamWClip.split_model` (tensor parallelism over a mesh's
+``model`` axis) the optimizer holds each rank's Megatron shards of the
+parameters: the global-norm clip sums the split leaves' squares over
+``model`` (the replicated leaves' gradients are the same on every rank and
+count once), ZeRO adds ``data`` on an axis the ``model`` split leaves whole,
+and :meth:`AdamWClip.state_dict` gathers the moments over both axes into
+the one-card layout.
 """
 
 from __future__ import annotations
@@ -48,10 +56,24 @@ def constant_warmup_schedule(lr: float, warmup_steps: int) -> Schedule:
     return lambda count: lr * min(1.0, count / warmup_steps)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         split: Optional[Sequence[bool]] = None, mesh: Any = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place by ``min(1, max_norm / norm)`` of their global
-    L2 norm; returns the norm (a device tensor: nothing syncs)."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    L2 norm; returns the norm (a device tensor: nothing syncs). Under a
+    tensor-parallel ``mesh``, the gradients marked ``split`` are this rank's
+    shards: their squares are summed over ``model``."""
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    if mesh is None or not mesh.spans("model") or split is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        import torch.distributed as dist
+
+        mask = torch.tensor(list(split), device=norms.device)
+        parts = torch.stack([norms[~mask].square().sum(), norms[mask].square().sum()])
+        shards = parts[1:].clone()
+        dist.all_reduce(shards, group=mesh.group("model"))
+        norm = torch.sqrt(parts[0] + shards[0])
     scale = torch.clamp(max_norm / norm, max=1.0)
     for g in grads:
         g.mul_(scale)
@@ -79,6 +101,12 @@ class AdamWClip:
     ) -> None:
         self.params: List[torch.Tensor] = list(params)
         self.offload_moments = False
+        # Tensor parallelism (split_model): the mesh, and each leaf's spec
+        # and the axis it splits over ``model`` (None: replicated).
+        self.model_mesh: Any = None
+        self.model_specs: Optional[List[Any]] = None
+        self.model_axes: List[Optional[int]] = [None] * len(self.params)
+        self.model_blocks: List[int] = [1] * len(self.params)
         # Each leaf's pinned host buffers, written back in place every update.
         self._host: Dict[Tuple[int, str], torch.Tensor] = {}
         self.schedule = constant_warmup_schedule(lr, warmup_steps)
@@ -103,13 +131,43 @@ class AdamWClip:
         if self.mesh is not None:
             raise ValueError("the optimizer is already sharded over another mesh")
         full = self.state_dict()
-        specs = zero_partition_specs(self.params, mesh)
+        specs = zero_partition_specs(self.params, mesh, param_specs=self.model_specs)
         self.mesh = mesh
         self.shard_axes = [shard_axis(s) for s in specs]
         self.targets = [self._shard_of(p.detach(), a) for p, a in zip(self.params, self.shard_axes)]
         self.adamw = torch.optim.AdamW(self.targets, lr=self.schedule(self.count), **self._hyper)
         self._host.clear()
         self.load_state_dict(full)
+
+    def split_model(self, params: Sequence[torch.Tensor], specs: Sequence[Any],
+                    mesh: Any, blocks: Optional[Sequence[int]] = None) -> None:
+        """Rebind to ``params``, this rank's tensor-parallel shards of the
+        leaves (same order; ``specs`` their legalized specs, ``blocks`` their
+        part counts, :func:`~reprover_tpu_torch.parallel.sharding.model_part`),
+        keeping the update count, the moments (sliced) and where they live;
+        a ZeRO split over ``data`` is made again around the ``model`` one."""
+        from reprover_tpu_torch.parallel.sharding import shard_axis
+
+        full, data_mesh = self.state_dict(), self.mesh
+        self.params = list(params)
+        self.model_mesh, self.model_specs = mesh, list(specs)
+        self.model_axes = [shard_axis(s, "model") for s in self.model_specs]
+        self.model_blocks = list(blocks) if blocks is not None else [1] * len(self.params)
+        self.mesh, self.shard_axes, self.targets = None, [None] * len(self.params), self.params
+        self.adamw = torch.optim.AdamW(self.targets, lr=self.schedule(self.count), **self._hyper)
+        self._host.clear()
+        if data_mesh is not None:
+            self.shard(data_mesh)
+        self.load_state_dict(full)
+
+    def _model_shard_of(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's ``model`` shard of a whole leaf-shaped ``t`` (leaf ``i``)."""
+        from reprover_tpu_torch.parallel.sharding import model_part
+
+        axis = self.model_axes[i]
+        if axis is None:
+            return t
+        return model_part(t, axis, self.model_mesh, self.model_blocks[i])
 
     def _shard_of(self, t: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
         """This rank's shard of a leaf-shaped ``t`` (a view; ``t`` when whole)."""
@@ -194,9 +252,11 @@ class AdamWClip:
     def update(self) -> None:
         """Clip by the global norm, then AdamW on this rank's shards (the
         whole leaves without :meth:`shard`)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        have = [i for i, p in enumerate(self.params) if p.grad is not None]
+        grads = [self.params[i].grad for i in have]
         if self.grad_clip is not None and self.grad_clip > 0 and grads:
-            clip_by_global_norm_(grads, self.grad_clip)
+            clip_by_global_norm_(grads, self.grad_clip,
+                                 [self.model_axes[i] is not None for i in have], self.model_mesh)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         if self.mesh is not None:
@@ -220,8 +280,10 @@ class AdamWClip:
 
     def state_dict(self) -> Dict[str, Any]:
         """The one-device layout: under :meth:`shard` every rank's moment
-        shards are gathered (a collective: every rank calls it)."""
+        shards are gathered, under :meth:`split_model` over ``model`` too (a
+        collective: every rank calls it)."""
         from reprover_tpu_torch.parallel.collectives import gather_shards_
+        from reprover_tpu_torch.parallel.sharding import model_whole
 
         if self.offload_moments and any(p.is_cuda for p in self.params):
             torch.cuda.synchronize()  # the host moments' last copies have landed
@@ -237,6 +299,15 @@ class AdamWClip:
                     per[key] = gather_shards_(whole, axis, self.mesh)
                 state[i] = per
             inner = {"state": state, "param_groups": inner["param_groups"]}
+        if self.model_mesh is not None:
+            state = {}
+            for i, per in inner["state"].items():
+                per = dict(per)
+                for key in MOMENTS if self.model_axes[i] is not None else ():
+                    per[key] = model_whole(per[key], self.model_axes[i], self.model_mesh,
+                                           self.model_blocks[i])
+                state[i] = per
+            inner = {"state": state, "param_groups": inner["param_groups"]}
         return {"count": self.count, "adamw": inner}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -245,6 +316,11 @@ class AdamWClip:
         ``offload_moments`` the moments go back to host memory."""
         self.count = int(state["count"])
         inner = state["adamw"]
+        if self.model_mesh is not None:
+            inner = {"state": {i: {k: self._model_shard_of(v, int(i)).contiguous()
+                                   if k in MOMENTS else v for k, v in per.items()}
+                               for i, per in inner["state"].items()},
+                     "param_groups": inner["param_groups"]}
         if self.mesh is not None:
             sliced = {}
             for i, per in inner["state"].items():

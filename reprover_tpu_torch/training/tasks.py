@@ -21,8 +21,14 @@ count of valid tokens. The optimizer sums the shares' gradients over
 (:meth:`~reprover_tpu_torch.training.optim.AdamWClip.shard`). Every rank
 runs the port's CUDA kernels as one card does; the JAX package turns its
 Pallas kernels off under a mesh (a ``pallas_call`` is not
-SPMD-partitionable). Not ported: tensor parallelism (a mesh with
-``model > 1``, ``model_parallel=True``).
+SPMD-partitionable).
+
+Over a ``(data, model)`` mesh with ``model`` > 1, the first step
+cuts the state into each rank's Megatron part (:func:`shard_train_state`:
+the T5 or causal specs, checked for divisibility), the loss is taken over
+the gathered logits, gradients are summed over ``data`` only (the
+replicated leaves' are already whole and equal on every ``model`` rank),
+and a checkpoint is written in the one-card layout.
 """
 
 from __future__ import annotations
@@ -37,8 +43,13 @@ import torch
 from reprover_tpu_torch.models.t5 import Params, T5Config, encode, forward_loss
 from reprover_tpu_torch.ops.pooling import masked_mean_normalize
 from reprover_tpu_torch.parallel.collectives import gather_rows, global_sum
-from reprover_tpu_torch.parallel.mesh import TENSOR_PARALLEL_TODO, Mesh
-from reprover_tpu_torch.parallel.sharding import local_rows
+from reprover_tpu_torch.parallel.mesh import Mesh
+from reprover_tpu_torch.parallel.sharding import (
+    check_model_divides,
+    local_rows,
+    model_blocks,
+    shard_for_model,
+)
 from reprover_tpu_torch.training.optim import AdamWClip
 
 Batch = Dict[str, torch.Tensor]
@@ -47,17 +58,22 @@ LossFn = Callable[[Params, T5Config, Batch], torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    """Step counter, parameters (float32 leaves) and their optimizer."""
+    """Step counter, parameters (float32 leaves) and their optimizer; after
+    :func:`shard_train_state`, the tensor-parallel ``mesh`` and the specs
+    the parameters (this rank's shards) were cut by."""
 
     step: int
     params: Params
     optimizer: Optional[AdamWClip] = None
+    mesh: Optional[Mesh] = None
+    param_specs: Any = None
 
 
-def param_leaves(params: Params) -> List[torch.Tensor]:
-    """The tensors of a parameter tree, in its key order."""
+def param_leaves(params: Params, spec: bool = False) -> List[Any]:
+    """The tensors of a parameter tree, in its key order (with ``spec``, the
+    specs of a spec tree, whose leaves are tuples)."""
     if isinstance(params, dict):
-        return [t for v in params.values() for t in param_leaves(v)]
+        return [t for v in params.values() for t in param_leaves(v, spec)]
     return [params]
 
 
@@ -81,7 +97,8 @@ def _spans(mesh: Optional[Mesh]) -> bool:
 def offload_opt_state(state: TrainState, mesh: Optional[Mesh] = None) -> TrainState:
     """Keep the optimizer's moments in host memory (pinned on a card) from
     now on; pair with ``make_train_step(..., offload_opt=True)``. Under a
-    mesh each rank keeps only its ZeRO shard of them."""
+    mesh each rank keeps only its ZeRO shard of them (of its tensor-parallel
+    shards, once the first step has cut them)."""
     if state.optimizer is None:
         raise ValueError("the train state has no optimizer (use init_train_state)")
     if mesh is not None:
@@ -91,18 +108,50 @@ def offload_opt_state(state: TrainState, mesh: Optional[Mesh] = None) -> TrainSt
     return state
 
 
-def _check_mesh(mesh: Optional[Mesh], cfg: Any = None, model_parallel: bool = False) -> None:
-    """Raise for what the port's steps do not run: tensor parallelism, and
+def shard_train_state(state: TrainState, cfg: Any, mesh: Mesh) -> TrainState:
+    """Cut a one-card train state into this rank's tensor-parallel part, in
+    place: each parameter becomes its Megatron shard (the T5 or causal
+    specs, a new float32 leaf) and the optimizer is rebound to them, its
+    moments sliced. A state already cut, or a mesh whose ``model`` axis is
+    one rank, is left as it is."""
+    if state.param_specs is not None or not mesh.spans("model"):
+        return state
+    with torch.no_grad():
+        whole = _map_leaves(lambda t: t.detach(), state.params)
+        local, specs = shard_for_model(whole, cfg, mesh)
+        local = _map_leaves(lambda t: t.clone().requires_grad_(True), local)
+    state.params, state.param_specs, state.mesh = local, specs, mesh
+    if state.optimizer is not None:
+        state.optimizer.split_model(param_leaves(local), param_leaves(specs, spec=True), mesh,
+                                    param_leaves(model_blocks(whole), spec=True))
+    return state
+
+
+def _map_leaves(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _check_mesh(mesh: Optional[Mesh], cfg: Any = None) -> None:
+    """Raise for what the port's steps do not run: a ``model`` axis whose
+    degree does not divide the heads and hidden units (``ValueError``), a
+    mesh without the process groups its axes need, and
     ``remat_policy='offload'`` under a mesh."""
-    if model_parallel or (mesh is not None and mesh.shape["model"] > 1):
-        raise NotImplementedError(TENSOR_PARALLEL_TODO)
-    if mesh is not None and getattr(cfg, "remat", False) and cfg.remat_policy == "offload":
+    if mesh is None:
+        return
+    if mesh.spans("model") and cfg is not None:
+        check_model_divides(cfg, mesh.shape["model"])
+    if getattr(cfg, "remat", False) and cfg.remat_policy == "offload":
         # The JAX package's rule (XLA's partitioner rejects the policy's
         # placement calls); activation offload is a per-device memory knob.
         raise ValueError(
             "remat_policy='offload' is single-device only; use remat_policy='lite' under "
             "a mesh, or disable data_parallel"
         )
+    for axis in ("data", "model"):
+        if mesh.spans(axis):
+            mesh.group(axis)  # raises for a mesh built without process groups
 
 
 # ------------------------------------------------------------------ #
@@ -110,7 +159,8 @@ def _check_mesh(mesh: Optional[Mesh], cfg: Any = None, model_parallel: bool = Fa
 # ------------------------------------------------------------------ #
 
 
-def _embed_pair(params: Params, cfg: T5Config, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+def _embed_pair(params: Params, cfg: T5Config, batch: Batch, mesh: Optional[Mesh] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Context and premise embeddings. The encoder runs once over the
     stacked ``[B + B*(1+n), L]`` tensor when both sides share a length,
     else twice (the JAX package's rule)."""
@@ -119,10 +169,11 @@ def _embed_pair(params: Params, cfg: T5Config, batch: Batch) -> Tuple[torch.Tens
     if ctx_ids.shape[1] == prem_ids.shape[1]:
         ids = torch.cat([ctx_ids, prem_ids], dim=0)
         mask = torch.cat([ctx_mask, prem_mask], dim=0)
-        emb = masked_mean_normalize(encode(params, cfg, ids, mask), mask)
+        emb = masked_mean_normalize(encode(params, cfg, ids, mask, mesh=mesh), mask)
         return emb[: ctx_ids.shape[0]], emb[ctx_ids.shape[0] :]
-    ctx_emb = masked_mean_normalize(encode(params, cfg, ctx_ids, ctx_mask), ctx_mask)
-    prem_emb = masked_mean_normalize(encode(params, cfg, prem_ids, prem_mask), prem_mask)
+    ctx_emb = masked_mean_normalize(encode(params, cfg, ctx_ids, ctx_mask, mesh=mesh), ctx_mask)
+    prem_emb = masked_mean_normalize(encode(params, cfg, prem_ids, prem_mask, mesh=mesh),
+                                     prem_mask)
     return ctx_emb, prem_emb
 
 
@@ -130,7 +181,7 @@ def _similarity(params: Params, cfg: T5Config, batch: Batch,
                 mesh: Optional[Mesh]) -> torch.Tensor:
     """fp32 cosine similarity of this rank's contexts with every premise
     of the global batch ``[b, B*(1+n)]`` (its rows of the label matrix)."""
-    ctx_emb, prem_emb = _embed_pair(params, cfg, batch)
+    ctx_emb, prem_emb = _embed_pair(params, cfg, batch, mesh)
     prem = prem_emb.float()
     if _spans(mesh):
         prem = gather_rows(prem, mesh)
@@ -190,9 +241,22 @@ def generation_loss(
     Under a mesh, this rank's share of the global batch's token mean."""
     loss = forward_loss(
         params, cfg, batch["state_ids"], batch["state_mask"], batch["tactic_ids"],
-        flash_attention,
+        flash_attention, mesh=mesh,
     )
     return token_share(loss, (batch["tactic_ids"] != -100).sum(), mesh)
+
+
+def causal_loss(params: Params, cfg: Any, batch: Batch, mesh: Optional[Mesh] = None
+                ) -> torch.Tensor:
+    """Decoder-only next-token cross-entropy over ``input_ids`` /
+    ``attention_mask`` (labels the ids, -100 on padding); under a mesh, this
+    rank's share of the global token mean."""
+    from reprover_tpu_torch.models.causal_lm import causal_lm_loss
+
+    labels = torch.where(batch["attention_mask"] > 0, batch["input_ids"], -100)
+    loss = causal_lm_loss(params, cfg, batch["input_ids"], batch["attention_mask"], labels,
+                          mesh=mesh)
+    return token_share(loss, (labels[:, 1:] != -100).sum(), mesh)
 
 
 # ------------------------------------------------------------------ #
@@ -203,8 +267,9 @@ def generation_loss(
 def rank_loss(loss_fn: LossFn, cfg: Any, mesh: Optional[Mesh]) -> Callable:
     """``(params, global batch) -> this rank's loss``: the loss itself on
     one device; under a mesh, this rank's share over its rows (the loss
-    functions take the mesh by keyword)."""
-    if not _spans(mesh):
+    functions take the mesh by keyword, and run a tensor-parallel forward
+    when its ``model`` axis spans ranks)."""
+    if mesh is None or not (mesh.spans("data") or mesh.spans("model")):
         return lambda params, batch: loss_fn(params, cfg, batch)
     return lambda params, batch: loss_fn(params, cfg, local_rows(batch, mesh), mesh=mesh)
 
@@ -223,16 +288,23 @@ def make_train_step(
 
     Under a ``data`` mesh every rank passes the same global batch and gets
     the global batch's loss; the first step shards the optimizer's moments
-    (ZeRO-2). A mesh with ``model > 1``, ``model_parallel=True`` and
-    ``remat_policy='offload'`` under a mesh raise."""
-    _check_mesh(mesh, cfg, model_parallel)
+    (ZeRO-2). Over a ``model`` axis of more than one rank the first step
+    also cuts the state into this rank's tensor-parallel part
+    (:func:`shard_train_state`); ``model_parallel`` is the JAX package's
+    flag for it, accepted and not needed, since the mesh says it. A degree
+    that does not divide the heads and hidden units and
+    ``remat_policy='offload'`` under a mesh raise ``ValueError``."""
+    _check_mesh(mesh, cfg)
     local_loss = rank_loss(loss_fn, cfg, mesh)
+    tensor_parallel = mesh is not None and mesh.spans("model")
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         if state.optimizer is None:
             raise ValueError("the train state has no optimizer (use init_train_state)")
         if offload_opt and not state.optimizer.offload_moments:
             raise ValueError("offload_opt needs the moments in host memory (offload_opt_state)")
+        if tensor_parallel:
+            shard_train_state(state, cfg, mesh)
         if mesh is not None:
             state.optimizer.shard(mesh)
         state.optimizer.zero_grad()
@@ -250,8 +322,9 @@ def make_eval_step(
 ) -> Callable[[Params, Batch], torch.Tensor]:
     """Build ``(params, batch) -> loss`` under ``torch.no_grad()`` (the loss
     a detached device tensor); under a mesh every rank passes the same
-    global batch and gets its loss."""
-    _check_mesh(mesh)
+    global batch and gets its loss. Over a ``model`` axis of more than one
+    rank the params are a tensor-parallel state's (its shards)."""
+    _check_mesh(mesh, cfg if mesh is not None and mesh.spans("model") else None)
     local_loss = rank_loss(loss_fn, cfg, mesh)
 
     def step(params: Params, batch: Batch) -> torch.Tensor:

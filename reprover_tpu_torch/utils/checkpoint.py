@@ -14,6 +14,12 @@ Each checkpoint is a directory ``<step>/`` holding ``state.pt`` (a
 optimizer's state dict) and ``metrics.json``. A save is written under a
 temporary name and renamed, so a reader never sees half a checkpoint; it is
 synchronous, so :meth:`wait` has nothing to wait for.
+
+A tensor-parallel state (``state.param_specs`` set by
+``training.tasks.shard_train_state``) is saved in the one-card layout: its
+parameters and moments are gathered over ``model`` first (every rank calls
+:meth:`CheckpointManager.save`), so the checkpoint reloads on one card; a
+restore into such a state cuts each rank's shards from it.
 """
 
 from __future__ import annotations
@@ -86,6 +92,11 @@ class CheckpointManager:
         optimizer's state)."""
         optimizer = getattr(state, "optimizer", None)
         opt_state = None if optimizer is None else optimizer.state_dict()
+        params = state.params
+        if getattr(state, "param_specs", None) is not None:
+            from reprover_tpu_torch.parallel.sharding import gather_for_model
+
+            params = gather_for_model(params, state.param_specs, state.mesh)
         if not self.writer:
             return
         final = os.path.join(self.directory, str(step))
@@ -93,7 +104,7 @@ class CheckpointManager:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         torch.save(
-            {"step": int(state.step), "params": _to_cpu(state.params), "optimizer": opt_state},
+            {"step": int(state.step), "params": _to_cpu(params), "optimizer": opt_state},
             os.path.join(tmp, "state.pt"),
         )
         with open(os.path.join(tmp, "metrics.json"), "w") as f:
@@ -122,7 +133,12 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint to restore in {self.directory}")
         saved = torch.load(os.path.join(self.directory, str(step), "state.pt"),
                            map_location="cpu", weights_only=True)
-        _copy_into(state_like.params, saved["params"])
+        params = saved["params"]
+        if getattr(state_like, "param_specs", None) is not None:
+            from reprover_tpu_torch.parallel.sharding import shard_pytree
+
+            params = shard_pytree(params, state_like.param_specs, state_like.mesh)
+        _copy_into(state_like.params, params)
         optimizer = getattr(state_like, "optimizer", None)
         if optimizer is not None and saved["optimizer"] is not None:
             optimizer.load_state_dict(saved["optimizer"])

@@ -17,7 +17,7 @@ import contextlib
 import logging
 import os
 import time
-from typing import Dict, Iterator, Union
+from typing import Callable, ContextManager, Dict, Iterator, Union
 
 import torch
 
@@ -25,23 +25,29 @@ logger = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str, device: Union[str, torch.device] = "cuda"
+def device_trace(log_dir: str, device: Union[str, torch.device] = "cuda",
+                 hold: Callable[[], ContextManager] = contextlib.nullcontext,
                  ) -> Iterator[torch.profiler.profile]:
     """Profile everything inside the block; on leaving it, write
     ``log_dir/trace.json`` (Chrome trace format). Yields the profiler, whose
-    ``key_averages()`` and ``events()`` the caller may read."""
+    ``key_averages()`` and ``events()`` the caller may read. The profiler
+    starts and stops inside a ``hold()`` block each: where other threads
+    launch device work, ``hold`` should stop them for that time
+    (``InferenceService.quiesced``)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=activities)
-    prof.__enter__()
+    with hold():
+        prof.__enter__()
     try:
         yield prof
     finally:
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        prof.__exit__(None, None, None)
+        with hold():
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            prof.__exit__(None, None, None)
         path = os.path.join(log_dir, "trace.json")
         prof.export_chrome_trace(path)
         logger.info("torch profiler trace written to %s", path)

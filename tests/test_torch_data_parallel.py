@@ -6,7 +6,8 @@ batch and against the JAX package's sharded step (``make_mesh(data=4)``
 on four virtual devices); their moments are ZeRO shards, on the host after
 ``offload_opt_state``; ``reindex_corpus`` under the mesh equals the one-rank
 index; ``retrieval.main fit`` on two ranks started with torchrun's
-environment writes the one-rank fit's checkpoint; tensor parallelism and
+environment writes the one-rank fit's checkpoint; an indivisible
+tensor-parallel degree, a mesh without process groups and
 ``remat_policy='offload'`` under a mesh raise.
 
 The spawned ranks import this module, so JAX is imported inside the tests
@@ -280,22 +281,30 @@ def test_sharded_reindex_and_mesh_coordinates(ranks, toy_corpus_path):
 
 
 def test_tensor_parallel_and_offload_remat_raise_under_a_mesh():
-    """A mesh with ``model > 1`` or ``model_parallel=True`` raises
-    NotImplementedError (the tensor-parallel slice); ``remat_policy=
-    'offload'`` under a mesh raises ValueError, as in the JAX package."""
+    """A ``model`` degree that does not divide the heads (TINY's 4 over 3)
+    raises ValueError; a ``Mesh(2, 2)`` built without process groups raises
+    the mesh's error, with or without the JAX package's
+    ``model_parallel=True``; ``remat_policy='offload'`` under a mesh raises
+    ValueError, as in the JAX package. Tensor-parallel steps themselves:
+    tests/test_torch_tensor_parallel_training.py."""
     cfg = tt5.T5Config(**TINY)
-    for kwargs in (dict(mesh=Mesh(2, 2)), dict(mesh=Mesh(4), model_parallel=True),
-                   dict(model_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttasks.make_train_step(ttasks.retrieval_loss, cfg, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mesh in (Mesh(1, 3), Mesh(4, 3)):
+        with pytest.raises(ValueError, match="must divide num_heads=4"):
+            ttasks.make_train_step(ttasks.retrieval_loss, cfg, mesh=mesh, model_parallel=True)
+    with pytest.raises(ValueError, match="must divide num_heads=4"):
+        ttasks.make_eval_step(ttasks.retrieval_loss, cfg, mesh=Mesh(1, 3))
+    with pytest.raises(RuntimeError, match="no process group"):
+        ttasks.make_train_step(ttasks.retrieval_loss, cfg, mesh=Mesh(2, 2))
+    with pytest.raises(RuntimeError, match="no process group"):
+        ttasks.make_train_step(ttasks.retrieval_loss, cfg, mesh=Mesh(2, 2), model_parallel=True)
+    with pytest.raises(RuntimeError, match="no process group"):
         ttasks.make_eval_step(ttasks.retrieval_loss, cfg, mesh=Mesh(2, 2))
     offload = tt5.T5Config(**TINY, remat=True, remat_policy="offload")
     with pytest.raises(ValueError, match="single-device"):
         ttasks.make_train_step(ttasks.retrieval_loss, offload, mesh=Mesh(4))
     state = ttasks.init_train_state(tt5.init_params(cfg, torch.Generator().manual_seed(0)),
                                     1e-3, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no process group"):
         ttasks.offload_opt_state(state, Mesh(2, 2))
 
 

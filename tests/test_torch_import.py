@@ -59,6 +59,8 @@ NEW_MODULES = (
     "reprover_tpu_torch.parallel.collectives",
     "reprover_tpu_torch.benchmarks.multichip_dryrun",
     "reprover_tpu_torch.benchmarks.data_parallel_step",
+    # Tensor parallelism: the engines' benchmark.
+    "reprover_tpu_torch.benchmarks.tensor_parallel_engine",
 )
 
 

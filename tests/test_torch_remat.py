@@ -243,7 +243,7 @@ def test_offload_opt_state_dict_round_trips():
     assert set(toptim.MOMENTS) <= moments
     with pytest.raises(ValueError, match="offload_opt"):
         ttasks.make_train_step(ttasks.retrieval_loss, tcfg, offload_opt=True)(dev, batch)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no process group"):
         ttasks.offload_opt_state(dev, mesh=Mesh(2, 2))
 
 
@@ -254,7 +254,9 @@ def test_eval_step_records_no_graph():
     loss = ttasks.make_eval_step(ttasks.retrieval_loss, tcfg)(state.params, batch)
     assert loss.grad_fn is None and not loss.requires_grad
     assert torch.equal(loss, ttasks.retrieval_loss(state.params, tcfg, batch).detach())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="must divide num_heads"):
+        ttasks.make_eval_step(ttasks.retrieval_loss, tcfg, mesh=Mesh(1, 3))
+    with pytest.raises(RuntimeError, match="no process group"):
         ttasks.make_eval_step(ttasks.retrieval_loss, tcfg, mesh=Mesh(2, 2))
 
 

@@ -61,6 +61,67 @@ def test_latency_is_per_tactic():
     assert a.pp != b.pp and a.pp.startswith(state.pp[:16])
 
 
-def test_tp1_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="multi"):
-        sl.main(["--device", "cpu", "--tp1"])
+def test_tp1_waits_for_the_multi_gpu_slice(model, data_path, monkeypatch, capsys):
+    """``--tp1`` (once a placeholder that raised until tensor-parallel
+    serving was ported) serves the streaming cells through a 1 x 1 mesh, as
+    the JAX driver does: ``main`` hands every cell a one-rank mesh, and a
+    cell served through it runs every search's expansions, its line saying
+    ``tp`` 1."""
+    from reprover_tpu_torch.parallel.mesh import local_mesh
+
+    meshes = []
+    monkeypatch.setattr(sl, "make_data", lambda work: data_path)
+    monkeypatch.setattr(sl, "run_cell", lambda *args, **kwargs: meshes.append(kwargs["mesh"]))
+    sl.main(["--device", "cpu", "--tp1", "--tiny", "--workers", "2"])
+    assert len(meshes) == 1 and meshes[0].size == 1
+    monkeypatch.undo()
+    row = sl.run_cell(model, data_path, 2, 0, 0.0, num_theorems=2, streaming=True, num_slots=2,
+                      chunk_size=8, num_beams=8, env_latency_s=0.05, max_expansions=1,
+                      device="cpu", profile_window_s=0, mesh=local_mesh())
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["tp"] == 1 and line["mode"] == "streaming"
+    assert row["searched_nodes"] == [2, 2]
+
+
+@pytest.mark.parametrize("streaming", [True, False])
+def test_quiesced_service_dispatches_nothing(model, streaming):
+    """While ``quiesced`` holds the service, a request queues and the
+    service admits, runs and answers nothing; once the hold ends, the
+    request is answered. The service load driver starts and stops its
+    profiler under this hold."""
+    import asyncio
+    import threading
+    import time
+
+    from reprover_tpu_torch.prover import InferenceService, StreamingInferenceService
+
+    if streaming:
+        service = StreamingInferenceService(model, num_slots=2, num_beams=8, chunk_size=8,
+                                            reorder_mode="gather")
+    else:
+        service = InferenceService(model, max_batch=2, batch_window_s=0.005)
+    client = service.client()
+    client.timeout_s = 30.0  # a failed case ends instead of waiting half an hour
+
+    def ask() -> list:
+        return asyncio.run(client.agenerate("1 + 1 = 2", "F.lean", "t", (1, 1), 8))
+
+    service.start()
+    try:
+        assert ask()  # served before the hold (the engine is built)
+        answers: list = []
+        with service.quiesced(timeout_s=60.0):
+            before = service.stats_snapshot()
+            asker = threading.Thread(target=lambda: answers.append(ask()), daemon=True)
+            asker.start()
+            time.sleep(0.5)
+            after = service.stats_snapshot()
+            assert not answers and after["requests"] == before["requests"]
+            if streaming:
+                assert (after["chunks"], after["admissions"]) == (before["chunks"],
+                                                                   before["admissions"])
+        asker.join(timeout=60)
+        assert answers and answers[0]
+        assert service.stats_snapshot()["requests"] == before["requests"] + 1
+    finally:
+        service.stop()

@@ -283,8 +283,12 @@ def test_cli_rejects_unported_options(toy_corpus_path, toy_dataset_dir, argv_ext
         main(["fit", "--device", "cpu", "--model.tiny", "true",
               "--data.data_path", toy_dataset_dir, "--data.corpus_path", toy_corpus_path]
              + argv_extra)
-    with pytest.raises(NotImplementedError):
-        ttasks.make_train_step(ttasks.retrieval_loss, tt5.T5Config(**TINY), mesh=Mesh(2, 2))
+    with pytest.raises(ValueError, match="must divide num_heads"):
+        ttasks.make_train_step(ttasks.retrieval_loss, tt5.T5Config(**TINY), mesh=Mesh(1, 3),
+                               model_parallel=True)
+    with pytest.raises(RuntimeError, match="no process group"):
+        ttasks.make_train_step(ttasks.retrieval_loss, tt5.T5Config(**TINY), mesh=Mesh(2, 2),
+                               model_parallel=True)
 
 
 def test_cli_fit_validate_predict(toy_corpus_path, toy_dataset_dir, tmp_path):
