@@ -199,7 +199,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     records identical;
 27. the port's service load driver at byt5-small width, streaming, 16
     workers x 8 slots x 64 beams, input 512, output 128, 16 theorems, at
-    environment latency 0 (5 expansions a search) and 2.0 s a tactic (1
+    environment latency 0 (3 expansions a search) and 2.0 s a tactic (1
     expansion, 8 beams): expansions/s, the service's stats, the device-busy
     share of a profiled window naming the encoder and reorder kernels, kernel 13
     launched, every search at its expansions;
@@ -223,7 +223,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     every LLaMA-7B product (decode and admission rows) and kernel 13 at the
     sharded caches against their plain versions (``[tp_kernel]``);
     byt5-small served through ``serve_tensor_parallel`` (the leader's
-    ``StreamingInferenceService``, the other rank following): 4 requests,
+    ``StreamingInferenceService``, the other rank following): 2 requests,
     64 beams, inputs <= 2048 bytes, decode cut to 64 tokens, both ranks'
     beams bit-equal, and one fp32 request whose encoder output and first
     log-probs are within 1e-4 of one rank's (the beams' equal share
@@ -233,7 +233,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     for the generator at [2, 1024] -> [2, 256] and the depth-4 LLaMA
     fine-tuning at [2, 1024], 3 steps each, losses within the bf16 limit
     of one rank's and the replicated leaves bit-equal across the ranks;
-    and the multichip dry run's tensor-parallel checks.
+    the multichip dry run's tensor- and sequence-parallel checks; and on a
+    ``seq`` axis of the same two ranks (``[sp]``) ``encode_sequence_parallel``
+    at byt5-small width, 12 layers, [2, 16384] with row 1's second shard
+    all padding: fp32 within 1e-4 of one card's ``encode`` (kernel 2's long
+    route) overall and row by row and finite, bf16 with a per-row cosine
+    >= 0.99 against one card's bf16 ``encode``, the bf16 ring's ms per
+    encode, peak GiB and ring-shift ms on each rank.
 
 The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
 their launches on the main paths: serving, retriever training, generator
@@ -3206,7 +3212,7 @@ def phase_pretrain(device, work: str, bench: str, tiny: bool = False) -> dict:
 
 
 EVAL = dict(num_retrieved=100, bm25_cpus=4, r10_tol=0.5, mrr_tol=0.005, embed_batch=16)
-LOAD = dict(workers=16, slots=8, chunk=8, beams=64, theorems=16, max_expansions=4,
+LOAD = dict(workers=16, slots=8, chunk=8, beams=64, theorems=16, max_expansions=2,
             latent_max_expansions=0, latent_beams=8, latencies=(0.0, 2.0), profile_window_s=3.0)
 
 
@@ -3423,9 +3429,9 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
     streaming, 16 spawned workers, 8 slots, chunk 8, 64 beams, on the
     driver's synthetic benchmark, in two cells: ``--env-latency 0`` and
     ``2.0``. Cut to fit the smoke: 16 theorems (one per worker; the driver
-    runs 24), ``max_expansions`` 4 at latency 0 and 0 at 2.0 (the driver
+    runs 24), ``max_expansions`` 2 at latency 0 and 0 at 2.0 (the driver
     runs 6; the search stops once it has passed the limit, so a search runs
-    5 and 1 expansions), and 8 beams at 2.0 (the environment waits 2.0 s a
+    3 and 1 expansions), and 8 beams at 2.0 (the environment waits 2.0 s a
     tactic on average, so an expansion of 64 would wait ~128 s, of 8 ~16
     s). Expansions/s by wall and over the serving window, the
     service's stats and the device-busy share of a 3 s profiled window
@@ -3694,8 +3700,6 @@ def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> di
     dry = [r["dryrun"] for r in ranks]
     log(f"[dp_dryrun] {json.dumps(dry)}")
     for d in dry:
-        for line in d["waiting"]:
-            log(f"[dp_dryrun] waiting: {line}")
         if not d["ok"]:
             failures.append(f"dryrun: rank {d['rank']} disagrees with one rank")
     log(f"[dp_gloo] collectives on {device.type} tensors over gloo: "
@@ -3708,19 +3712,27 @@ def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> di
 
 
 # Tensor parallelism (phase 29): two ranks share the card over gloo, as in
-# phase 28. byt5-small served at TP 2 (3 heads a rank): 4 requests, 64
+# phase 28. byt5-small served at TP 2 (3 heads a rank): 2 requests, 64
 # beams, inputs <= 2048 bytes, decode cut to 64 tokens, 2 slots; one fp32
 # request against one rank (8 beams, 16 tokens); LLaMA-7B width cut to
 # depth 4 of 32 in int4 and int8 (4 slots x 8 beams, prompts 512, decode
 # 129: int4 to the end, int8 two chunks); training at (1, 2): the generator
 # at [2, 1024] -> [2, 256] and the depth-4 LLaMA fine-tuning at [2, 1024], 3
 # steps each against one rank in this process.
-TP = dict(ranks=2, backend="gloo", requests=4, slots=2, beams=64, src=2048, dec=64, chunk=8,
+TP = dict(ranks=2, backend="gloo", requests=2, slots=2, beams=64, src=2048, dec=64, chunk=8,
           fp32_beams=8, fp32_dec=16, fp32_rtol=1e-4, llama_layers=4, llama_src=512,
           llama_dec=129, llama_slots=4, llama_beams=8, int8_chunks=2, steps=3, lr=1e-4,
           gen=(2, 1024, 256), finetune=(2, 1024), seed=0, split_share=0.52)
 TP_TINY = dict(TP, beams=4, src=64, dec=8, fp32_beams=4, fp32_dec=6, llama_src=16, llama_dec=9,
                llama_beams=4, gen=(2, 64, 16), finetune=(2, 128))
+# Sequence parallelism (phase 29's spawn): the byt5-small encoder (12
+# layers, 6 heads x 64, seeded weights) at [2, 16384] on a seq axis of the
+# two ranks (shards of 8192); row 1 holds 6000 valid bytes, so rank 1's
+# shard of it is all padding. The one-card references run in this process
+# after the ranks.
+SP = dict(batch=2, length=16384, short_row=6000, fp32_rtol=1e-4, cosine=0.99, iters=3,
+          shift_iters=5, seed=0)
+SP_TINY = dict(SP, length=256, short_row=100)
 
 
 def _tp_t5(device, tiny: bool, dtype):
@@ -3793,6 +3805,129 @@ def _tp_train(task: str, device, tiny: bool, mesh=None) -> tuple:
         state, loss = step(state, batch)
         losses.append(float(loss))
     return losses, state
+
+
+def _sp_inputs(device, tiny: bool):
+    """Seeded ids ``[B, L]`` and the ragged mask: row 1 valid for its first
+    ``short_row`` bytes."""
+    import numpy as np
+    import torch
+
+    sp = SP_TINY if tiny else SP
+    rng = np.random.default_rng(sp["seed"])
+    ids = torch.from_numpy(rng.integers(3, 259, (sp["batch"], sp["length"]))).to(device)
+    mask = torch.ones((sp["batch"], sp["length"]), dtype=torch.long, device=device)
+    mask[1, sp["short_row"]:] = 0
+    return ids, mask
+
+
+def _sp_rank(device, mesh, tiny: bool, work: str) -> dict:
+    """This rank's part of phase 29's sequence-parallel checks: the fp32 and
+    bf16 ring encoders' shards written for the parent to compare, the bf16
+    ring's ms per encode (CUDA events, median), peak GiB and one ring shift
+    of a layer's k/v/mask shard alone (median)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from reprover_tpu_torch.benchmarks.sequence_parallel_encode import model, timed
+    from reprover_tpu_torch.models.t5 import encode_sequence_parallel, place_params
+    from reprover_tpu_torch.parallel.collectives import ring_shift
+
+    sp = SP_TINY if tiny else SP
+    r, n = mesh.coord("seq"), mesh.shape["seq"]
+    ids, mask = _sp_inputs(device, tiny)
+    cfg, params = model(torch.float32, tiny)
+    placed = place_params(params, cfg, device)
+    with torch.inference_mode():
+        h = encode_sequence_parallel(placed, cfg, ids, mask, mesh)
+        torch.save(h.cpu(), os.path.join(work, f"sp_fp32_{r}.pt"))
+        del placed, h
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+        placed = place_params(params, cfg, device)
+        dist.barrier(group=mesh.group("seq"))
+        _empty_cache(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        ms = timed(lambda: encode_sequence_parallel(placed, cfg, ids, mask, mesh), sp["iters"],
+                   device)
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda"
+                else None)
+        torch.save(encode_sequence_parallel(placed, cfg, ids, mask, mesh).cpu(),
+                   os.path.join(work, f"sp_bf16_{r}.pt"))
+        shard = sp["length"] // n
+        buf = torch.zeros(2 * sp["batch"] * cfg.num_heads * shard * cfg.d_kv
+                          + sp["batch"] * shard, dtype=torch.bfloat16, device=device)
+        shift = timed(lambda: ring_shift(buf, mesh), sp["shift_iters"], device)
+    return dict(ms=statistics.median(ms), ms_all=ms, peak_GiB=peak,
+                shift_ms=statistics.median(shift),
+                shift_bytes=buf.numel() * buf.element_size(),
+                transfer_ms_per_encode=statistics.median(shift) * (n - 1) * cfg.num_encoder_layers)
+
+
+def _sp_check(device, work: str, tiny: bool, ranks: list) -> tuple:
+    """The ranks' ring encoders gathered against one card's ``encode`` in
+    this process -> (the ``[sp]`` result, failures)."""
+    import dataclasses
+
+    import torch
+
+    from reprover_tpu_torch.benchmarks.sequence_parallel_encode import model, timed
+    from reprover_tpu_torch.models.t5 import encode, place_params
+    from reprover_tpu_torch.ops.pooling import masked_mean_normalize
+
+    sp = SP_TINY if tiny else SP
+    ids, mask = _sp_inputs(device, tiny)
+    failures = []
+
+    def gathered(tag: str):
+        return torch.cat([torch.load(os.path.join(work, f"sp_{tag}_{r}.pt"))
+                          for r in range(len(ranks))], dim=1).to(device)
+
+    cfg, params = model(torch.float32, tiny)
+    placed = place_params(params, cfg, device)
+    with torch.inference_mode():
+        reset_all_launch_counts()
+        ref = encode(placed, cfg, ids, mask)
+        launches = {k: v for k, v in all_launch_counts().items() if v}
+        ring = gathered("fp32")
+        err = (ring - ref).abs()
+        overall = float(err.max()) / max(1.0, float(ref.abs().max()))
+        by_row = float((err.amax(dim=-1) / ref.abs().amax(dim=-1).clamp(min=1.0)).max())
+        finite = bool(torch.isfinite(ring[mask.any(dim=1)]).all())
+        del placed, ref, ring, err
+        _empty_cache(device)
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+        placed = place_params(params, cfg, device)
+        ref = encode(placed, cfg, ids, mask)
+        one_ms = timed(lambda: encode(placed, cfg, ids, mask), sp["iters"], device)
+        ring = gathered("bf16")
+        cosine = (masked_mean_normalize(ring, mask) * masked_mean_normalize(ref, mask)).sum(dim=1)
+        token_cosine = float(torch.nn.functional.cosine_similarity(
+            ring.float(), ref.float(), dim=-1)[mask.bool()].min())
+    rows = [r["sp"] for r in ranks]
+    res = dict(shape=[sp["batch"], sp["length"]], layers=cfg.num_encoder_layers,
+               ranks=len(ranks), fp32_rel_err=overall, fp32_row_rel_err=by_row,
+               fp32_finite=finite, bf16_row_cosine=[float(c) for c in cosine],
+               bf16_token_cosine_min=token_cosine, ms_per_rank=[row["ms"] for row in rows],
+               peak_GiB_per_rank=[row["peak_GiB"] for row in rows],
+               shift_ms_per_rank=[row["shift_ms"] for row in rows],
+               shift_bytes=rows[0]["shift_bytes"],
+               transfer_ms_per_encode=[row["transfer_ms_per_encode"] for row in rows],
+               one_card_bf16_ms=statistics.median(one_ms), one_card_launches=launches,
+               transport=ranks[0]["dryrun"]["sequence_parallel"]["transport"],
+               dryrun_gap=[r["dryrun"]["sequence_parallel"]["max_abs_gap"] for r in ranks])
+    if not (overall <= sp["fp32_rtol"] and by_row <= sp["fp32_rtol"]):
+        failures.append(f"sequence parallel fp32: {overall:.3g} overall, {by_row:.3g} by row "
+                        f"against one card (limit {sp['fp32_rtol']})")
+    if not finite:
+        failures.append("sequence parallel fp32: a row with a valid key is not finite")
+    if not float(cosine.min()) >= sp["cosine"]:
+        failures.append(f"sequence parallel bf16: per-row cosine {res['bf16_row_cosine']}")
+    if device.type == "cuda" and launches.get("encoder_attn_long", 0) < 1:
+        failures.append(f"the one-card reference took no long route: {launches}")
+    return res, failures
 
 
 def _beam_state(engine) -> dict:
@@ -3958,8 +4093,9 @@ def _tp_llama(device, mesh, tiny: bool, out: dict) -> None:
 def _tp_rank(rank: int, device_type: str, tiny: bool, states: list, work: str) -> None:
     """One rank of phase 29: joins the ranks' gloo group, serves byt5-small
     and LLaMA-7B at TP 2, trains the generator and the fine-tuning step at
-    (1, 2), runs the multichip dry run's tensor-parallel checks; writes one
-    JSON file."""
+    (1, 2), runs the multichip dry run's tensor- and sequence-parallel
+    checks and the byt5-small encoder over a ``seq`` axis of the two ranks;
+    writes one JSON file."""
     import hashlib
 
     import torch
@@ -3976,6 +4112,7 @@ def _tp_rank(rank: int, device_type: str, tiny: bool, states: list, work: str) -
     init_distributed(device, backend=TP["backend"], init_method=f"file://{work}/rendezvous",
                      rank=rank, world_size=TP["ranks"])
     mesh = make_mesh(data=1, model=TP["ranks"])
+    seq_mesh = make_mesh(data=1, seq=TP["ranks"])
     out: dict = {"coords": list(mesh.coords)}
     seconds = {}
     t0 = time.perf_counter()
@@ -4005,8 +4142,11 @@ def _tp_rank(rank: int, device_type: str, tiny: bool, states: list, work: str) -
         _empty_cache(device)
         seconds[task] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["dryrun"] = multichip_dryrun.run_rank(mesh, device)
+    out["dryrun"] = multichip_dryrun.run_rank(mesh, device, seq_mesh)
     seconds["dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sp"] = _sp_rank(device, seq_mesh, tiny, work)
+    seconds["sp"] = time.perf_counter() - t0
     out["seconds"] = seconds
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -4026,8 +4166,9 @@ def phase_tensor_parallel(device, work: str, bench: str, tiny: bool = False) -> 
     every quantized product on a tensor-core body, the split weights' bytes
     half of one card's; the training losses within the bf16 limit of one
     rank's and the replicated leaves bit-equal across the ranks; the dry
-    run's tensor-parallel checks; every kernel of each path launched on
-    every rank."""
+    run's tensor- and sequence-parallel checks; every kernel of each path
+    launched on every rank. Then the ranks' sequence-parallel encoders
+    against one card's ``encode`` here (``_sp_check``, ``[sp]``)."""
     import shutil
 
     import torch
@@ -4146,12 +4287,17 @@ def phase_tensor_parallel(device, work: str, bench: str, tiny: bool = False) -> 
     for d in dry:
         if not d["ok"]:
             failures.append(f"dryrun: rank {d['coords']} disagrees with one rank")
+    t0 = time.perf_counter()
+    sp, sp_failures = _sp_check(device, root, tiny, ranks)
+    failures += sp_failures
+    seconds["sp_one_card"] = time.perf_counter() - t0
+    log(f"[sp] {json.dumps(sp)}")
     seconds.update({f"tp_{k}": round(max(r["seconds"][k] for r in ranks), 1)
                     for k in ranks[0]["seconds"]})
     if failures:
         raise AssertionError("tensor-parallel phase failed: " + "; ".join(failures))
     return dict(seconds={k: round(v, 1) for k, v in seconds.items()}, kernel_rows=kernel_rows,
-                launches=launches, byt5=byt5)
+                launches=launches, byt5=byt5, sp=sp)
 
 
 REPLACES = {

@@ -1,6 +1,5 @@
-"""Data- and tensor-parallel dry run on ``n`` ranks: the counterpart of the
-JAX package's ``__graft_entry__.py::dryrun_multichip`` but its
-sequence-parallel encoder.
+"""Data-, tensor- and sequence-parallel dry run on ``n`` ranks: the
+counterpart of the JAX package's ``__graft_entry__.py::dryrun_multichip``.
 
     python -m reprover_tpu_torch.benchmarks.multichip_dryrun [--ranks N] [--model M]
         [--device cuda|cpu] [--backend nccl|gloo]
@@ -28,11 +27,16 @@ M)`` mesh, tensor-parallel (the JAX dry run's ``(data, model)``
 causal step), and the T5 streaming engine runs sharded over ``model``
 (the JAX dry run's tensor-parallel serving: one wave of two slots, the
 first rank leading the others), held against the one-rank engine: the
-same beams, the largest score gap printed. It also reports which
-collectives the group's backend runs on the ranks' device. The JAX dry
-run's sequence-parallel encoder is not ported (ROADMAP.md Queue 1 item 4):
-it is listed as waiting and not run. Each rank prints one JSON line; the
-run exits non-zero if any step or engine disagrees.
+same beams, the largest score gap printed. On a mesh whose ``seq`` axis
+spans the ``n`` ranks it runs the JAX dry run's sequence-parallel encoder:
+``encode_sequence_parallel`` at ``L = 16 n``, two rows, an all-ones mask,
+gathered and held to one rank's ``encode`` within ``SP_RTOL`` (rtol and
+atol, the JAX dry run's). It also reports which collectives the group's
+backend runs on the ranks' device, and which peer-to-peer ops it runs
+there (each in two child processes of its own: gloo can abort a process
+whose blocking ``send`` meets a CUDA tensor), beside the transport the ring's
+shift uses. Each rank prints one JSON line; the run exits non-zero if any
+step, engine or encoder disagrees.
 """
 
 from __future__ import annotations
@@ -42,13 +46,15 @@ import json
 import os
 import sys
 import tempfile
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from reprover_tpu_torch.models import causal_lm
-from reprover_tpu_torch.models.t5 import T5Config, init_params
+from reprover_tpu_torch.models.t5 import T5Config, encode, encode_sequence_parallel, init_params
+from reprover_tpu_torch.parallel.collectives import RING_TRANSPORT, gather_axis
 from reprover_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from reprover_tpu_torch.parallel.sharding import FUSED_BLOCKS, model_part, shard_axis
 from reprover_tpu_torch.training.tasks import (
@@ -60,16 +66,15 @@ from reprover_tpu_torch.training.tasks import (
 )
 
 RTOL = 1e-4  # float32 on both sides; the sums run in another order
+SP_RTOL = 2e-4  # the JAX dry run's limit for its sequence-parallel encoder
 LR = 1e-4
-WAITING = (
-    "sequence-parallel encoder (ring attention over a seq axis): not ported, "
-    "ROADMAP.md Queue 1 item 4",
-)
 # The tensor-parallel engine's wave (the JAX dry run's: 2 slots x 4 beams,
 # sources of 16, decode 8, chunks of 4).
 ENGINE = dict(num_slots=2, num_beams=4, src=16, dec=8, chunk=4)
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
                "all_gather", "all_to_all_single", "barrier")
+P2P = ("send_recv", "isend_irecv", "batch_isend_irecv")
+P2P_TIMEOUT_S = 60
 
 
 def t5_config() -> T5Config:
@@ -211,6 +216,95 @@ def probe_collectives(mesh: Mesh, device: torch.device) -> Dict[str, str]:
     return out
 
 
+def _p2p_rank(rank: int, op: str, init_method: str, device: str, backend: str,
+              out_dir: str) -> None:
+    if device == "cpu":
+        torch.set_num_threads(1)
+    init_distributed(device, backend=backend, init_method=init_method, rank=rank, world_size=2)
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
+        torch.device("cpu")
+    x = torch.full((1024,), float(rank + 1), device=dev)
+    y = torch.zeros_like(x)
+    peer = 1 - rank
+    try:
+        # Rank 0 sends first and rank 1 receives first: NCCL runs ungrouped
+        # point-to-point ops in order, so two sends first would wait forever.
+        if op == "send_recv":
+            for send in (rank == 0, rank != 0):
+                dist.send(x, peer) if send else dist.recv(y, peer)
+        elif op == "isend_irecv":
+            works = [dist.isend(x, peer) if send else dist.irecv(y, peer)
+                     for send in (rank == 0, rank != 0)]
+            for work in works:
+                work.wait()
+        else:
+            for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                                dist.P2POp(dist.irecv, y, peer)]):
+                work.wait()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        result = "ok" if bool((y == peer + 1).all()) else "wrong values"
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        result = str(e).strip().splitlines()[0][:160]
+    with open(os.path.join(out_dir, f"{op}{rank}"), "w") as f:
+        f.write(result)
+    dist.destroy_process_group()
+
+
+def probe_p2p(device: str, backend: str) -> Dict[str, str]:
+    """Which peer-to-peer ops ``backend`` runs on ``device`` tensors between
+    two ranks: ``ok``, the first error line of rank 0 (or 1), or how a rank
+    died. Each op runs in a process group of two child processes of its own,
+    all ops at once, so an op that aborts a process or leaves its group's
+    connections closed touches nothing else."""
+    import torch.multiprocessing as mp
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="reprover_p2p_") as tmp:
+        runs = {op: mp.start_processes(
+            _p2p_rank, args=(op, "file://" + os.path.join(tmp, f"{op}.store"), device, backend,
+                             tmp), nprocs=2, join=False, start_method="spawn") for op in P2P}
+        deadline = time.monotonic() + P2P_TIMEOUT_S
+        for op, ctx in runs.items():
+            try:  # join returns as each process ends: wait for both or the deadline
+                while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                    if time.monotonic() >= deadline:
+                        break
+            except Exception as e:  # a rank that died: its signal or exit code
+                out[op] = "crashed: " + str(e).strip().splitlines()[0][:160]
+                continue
+            if any(proc.is_alive() for proc in ctx.processes):
+                for proc in ctx.processes:
+                    proc.kill()
+                out[op] = f"hung for {P2P_TIMEOUT_S} s"
+                continue
+            results = [open(os.path.join(tmp, f"{op}{r}")).read() for r in range(2)]
+            out[op] = next((r for r in results if r != "ok"), "ok")
+    return out
+
+
+def sequence_parallel(mesh: Mesh, device: torch.device) -> Dict[str, Any]:
+    """The JAX dry run's sequence-parallel encoder on ``mesh``'s ``seq``
+    axis: ``encode_sequence_parallel`` of two rows of ``L = 16 n`` seeded
+    ids under an all-ones mask, gathered, against one rank's ``encode`` of
+    the same rows (on a card its attention kernel)."""
+    n = mesh.shape["seq"]
+    cfg = t5_config()
+    params = _to(init_params(cfg, torch.Generator().manual_seed(3)), device)
+    length = 16 * n
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, length))).to(device)
+    mask = torch.ones((2, length), dtype=torch.long, device=device)
+    with torch.no_grad():
+        ref = encode(params, cfg, ids, mask)
+        got = gather_axis(encode_sequence_parallel(params, cfg, ids, mask, mesh), 1, mesh, "seq")
+    return dict(seq=n, length=length, max_abs_gap=float((got - ref).abs().max()),
+                transport=RING_TRANSPORT,
+                ok=bool(torch.allclose(got, ref, rtol=SP_RTOL, atol=SP_RTOL)))
+
+
 def tp_engine(mesh: Mesh, device: torch.device) -> Optional[Dict[str, Any]]:
     """The T5 streaming engine sharded over ``model`` (the first rank leads,
     the others follow) against the one-rank engine on the same weights and
@@ -253,11 +347,12 @@ def tp_engine(mesh: Mesh, device: torch.device) -> Optional[Dict[str, Any]]:
                 ok=bool(same and gap is not None and gap <= RTOL * 10))
 
 
-def run_rank(mesh: Mesh, device: torch.device) -> Dict[str, Any]:
+def run_rank(mesh: Mesh, device: torch.device, seq_mesh: Optional[Mesh] = None
+             ) -> Dict[str, Any]:
     """This rank's dry run: every task's data-parallel step, or on a mesh
     whose ``model`` axis spans ranks its tensor-parallel step and the
     tensor-parallel engine, against the one-rank step; the collectives
-    probe."""
+    probe; with a ``seq_mesh`` the sequence-parallel encoder on it."""
     n, tensor_parallel = mesh.shape["data"], mesh.spans("model")
     report: Dict[str, Any] = {"rank": mesh.coord("data"), "ranks": n, "model": mesh.model,
                               "coords": list(mesh.coords), "device": str(device)}
@@ -271,7 +366,9 @@ def run_rank(mesh: Mesh, device: torch.device) -> Dict[str, Any]:
             checks.append("engine")
     else:
         report["collectives"] = probe_collectives(mesh, device)
-    report["waiting"] = list(WAITING)
+    if seq_mesh is not None:
+        report["sequence_parallel"] = sequence_parallel(seq_mesh, device)
+        checks.append("sequence_parallel")
     report["ok"] = all(report[name]["ok"] for name in checks)
     return report
 
@@ -286,7 +383,7 @@ def _rank_main(rank: int, n: int, init_method: str, device: str, backend: Option
     try:
         dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
             torch.device("cpu")
-        report = run_rank(make_mesh(data=n), dev)
+        report = run_rank(make_mesh(data=n), dev, make_mesh(data=1, seq=n))
         if model > 1:
             report["tensor_parallel"] = run_rank(make_mesh(data=n // model, model=model), dev)
             report["ok"] = report["ok"] and report["tensor_parallel"]["ok"]
@@ -309,13 +406,14 @@ def run(n: int, device: str = "cuda", backend: Optional[str] = None,
         raise ValueError(f"--model {model} must divide the {n} ranks")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda.is_available() is False")
+    p2p = probe_p2p(device, backend or ("nccl" if device == "cuda" else "gloo"))
     with tempfile.TemporaryDirectory(prefix="reprover_dryrun_") as tmp:
         mp.spawn(_rank_main, args=(n, "file://" + os.path.join(tmp, "store"), device, backend,
                                    tmp, model), nprocs=n, join=True)
         reports = []
         for r in range(n):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                reports.append(json.load(f))
+                reports.append(dict(json.load(f), p2p=p2p))
     return reports
 
 
@@ -342,8 +440,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"[dryrun] rank {tp['coords']} of ({tp['ranks']}, {tp['model']}): loss and "
                   f"parameter gaps against one rank {json.dumps(gaps)}; engine "
                   f"{json.dumps(tp.get('engine'))}")
-    for line in WAITING:
-        print(f"[dryrun] waiting: {line}")
+    sp = reports[0]["sequence_parallel"]
+    print(f"[dryrun] sequence parallel over {sp['seq']} ranks at L {sp['length']}: largest gap "
+          f"{sp['max_abs_gap']:.3g} against one rank (limit {SP_RTOL}); the ring's transport "
+          f"{sp['transport']}; peer-to-peer ops on {args.device}: {json.dumps(reports[0]['p2p'])}")
     ok = all(r["ok"] for r in reports)
     print(f"[dryrun] {n} ranks: {'ok' if ok else 'FAILED'}", flush=True)
     return 0 if ok else 1

@@ -596,6 +596,54 @@ def encode(
     return rms_norm(h, enc["final_norm"], eps)
 
 
+def encode_sequence_parallel(
+    params: Params,
+    cfg: T5Config,
+    input_ids: torch.Tensor,  # int [B, L]: the whole sequence, on every rank
+    attention_mask: torch.Tensor,  # int [B, L]
+    mesh: Any,
+    axis: str = "seq",
+) -> torch.Tensor:
+    """Encoder forward with the sequence split over the mesh's ``axis`` ->
+    this rank's ``[B, L/n, d_model]``: positions ``coord(axis) * L/n`` on.
+
+    Every rank passes the whole ids and mask, as the JAX caller does, and
+    keeps its own ``L/n`` columns. Norms, projections and the MLP run on the
+    local shard; self-attention runs as a ring over ``axis``
+    (:func:`~reprover_tpu_torch.ops.ring_attention.ring_encoder_attention`),
+    with no remat and no attention kernel, as in the JAX package. The JAX
+    function returns the global array sharded the same way; here the shards
+    stay on their ranks (``collectives.gather_axis(h, 1, mesh, axis)`` makes
+    the whole on every rank). Under autograd each rank's parameter gradients
+    are its share of the sum over ``axis``. ``L`` must divide by the axis's
+    rank count (``ValueError``)."""
+    from reprover_tpu_torch.ops.ring_attention import ring_encoder_attention
+
+    n, r = mesh.shape[axis], mesh.coord(axis)
+    length = input_ids.shape[1]
+    if length % n:
+        raise ValueError(f"seq {length} not divisible by {axis}={n}")
+    shard = length // n
+    ids = input_ids[:, r * shard:(r + 1) * shard]
+    mask = attention_mask[:, r * shard:(r + 1) * shard]
+    dtype = cfg.compute_dtype
+    enc = params["encoder"]
+    eps = cfg.layer_norm_epsilon
+    h = params["shared_embedding"].to(dtype)[ids]
+    for lp in unbind_layers(enc["layers"], cfg.num_encoder_layers):
+        p = lp["attn"]
+        x = rms_norm(h, lp["attn_norm"], eps)
+        q, k, v = (_split_heads(_dense(x, p[w], dtype), cfg.num_heads, cfg.d_kv)
+                   for w in ("q", "k", "v"))
+        attn = ring_encoder_attention(
+            q, k, v, mask, enc["rel_bias"], mesh, axis=axis,
+            num_buckets=cfg.relative_attention_num_buckets,
+            max_distance=cfg.relative_attention_max_distance)
+        h = h + _dense(_merge_heads(attn), p["o"], dtype)
+        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg)
+    return rms_norm(h, enc["final_norm"], eps)
+
+
 # ------------------------------------------------------------------ #
 # Decoder (teacher-forced full-sequence) and the seq2seq loss
 # ------------------------------------------------------------------ #

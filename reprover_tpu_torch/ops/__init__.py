@@ -1,5 +1,5 @@
 """Device ops: the T5 attention kernels (encoder, causal decoder, cross),
-pooling and masked top-k."""
+the sequence-parallel ring attention, pooling and masked top-k."""
 
 from reprover_tpu_torch.ops.flash_attention import (
     causal_attention_reference,
@@ -22,4 +22,15 @@ __all__ = [
     "masked_mean_normalize",
     "cosine_topk",
     "masked_topk",
+    "ring_encoder_attention",
 ]
+
+
+def __getattr__(name: str) -> object:
+    # Lazy, as in the JAX package: the ring imports the mesh's collectives,
+    # whose package imports the quantized weights, which import this one.
+    if name == "ring_encoder_attention":
+        from reprover_tpu_torch.ops.ring_attention import ring_encoder_attention
+
+        return ring_encoder_attention
+    raise AttributeError(name)

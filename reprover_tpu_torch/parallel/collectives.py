@@ -1,14 +1,15 @@
-"""The collectives of data- and tensor-parallel training and serving over a
-mesh (the JAX package gets them implied by GSPMD from its shardings).
+"""The collectives of data-, tensor- and sequence-parallel training and
+serving over a mesh (the JAX package gets them implied by GSPMD from its
+shardings, and writes its one ``ppermute`` by hand).
 
-Every one is built on ``all_reduce``, so NCCL between cards and gloo
-between ranks sharing one card run one algorithm (PyTorch's backend table
-promises gloo only ``all_reduce`` and ``broadcast`` on CUDA tensors). A
-gather is an ``all_reduce`` of a zero-filled buffer in which each rank has
-written its own part: a sum of one value and zeros, exact in every dtype,
-for a shard along any axis (the ZeRO axis is seldom axis 0, where an
-``all_gather`` would need the shards packed and unpacked). It moves twice
-the bytes of an ``all_gather``; ``PERF.md`` has its time.
+Every one but the ring's is built on ``all_reduce``, so NCCL between cards
+and gloo between ranks sharing one card run one algorithm (PyTorch's
+backend table promises gloo only ``all_reduce`` and ``broadcast`` on CUDA
+tensors). A gather is an ``all_reduce`` of a zero-filled buffer in which
+each rank has written its own part: a sum of one value and zeros, exact in
+every dtype, for a shard along any axis (the ZeRO axis is seldom axis 0,
+where an ``all_gather`` would need the shards packed and unpacked). It
+moves twice the bytes of an ``all_gather``; ``PERF.md`` has its time.
 
 - :func:`reduce_gradients_`: the gradients summed over ``data``. Each rank's
   loss is its share of the global batch's loss (the steps of
@@ -21,7 +22,18 @@ the bytes of an ``all_gather``; ``PERF.md`` has its time.
   after the ZeRO update, the moments for a checkpoint).
 - :func:`gather_model`: the whole tensor of which each rank holds its
   ``model`` shard (a tensor-parallel leaf for a checkpoint in the one-card
-  layout, a vocabulary split's logits).
+  layout, a vocabulary split's logits); :func:`gather_axis` the same along
+  any mesh axis (a sequence-parallel encoder's output, to compare it).
+- :func:`ring_shift`: the JAX package's ``ppermute`` with the permutation
+  ``i -> i + 1`` along a mesh axis (the ring of
+  :mod:`reprover_tpu_torch.ops.ring_attention`), differentiable: its
+  backward sends the gradient ``i -> i - 1``, ``ppermute``'s transpose.
+  It is an ``all_to_all_single`` whose split sizes send the whole tensor
+  to the next rank and take the previous rank's (:data:`RING_TRANSPORT`),
+  so it moves one shard: gloo runs no peer-to-peer op on CUDA tensors (the
+  multichip dry run's probe), and ``all_to_all_single`` is the one form
+  both backends run on the ranks' device. It never falls back to an
+  ``all_reduce``, which would hand every rank the whole sequence.
 
 Megatron's conjugate operators on the ``model`` axis (tensor parallelism),
 each the identity when the mesh is None or its ``model`` axis one rank:
@@ -54,12 +66,13 @@ def _all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tenso
     return t
 
 
-def reduce_gradients_(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Sum ``grads`` over the ``data`` axis in place (in one order on every
-    rank: the callers pass the parameters' order)."""
+def reduce_gradients_(grads: Sequence[torch.Tensor], mesh: Mesh, axis: str = "data") -> None:
+    """Sum ``grads`` over ``axis`` in place (in one order on every rank: the
+    callers pass the parameters' order); over ``seq``, the parameter
+    gradients of a sequence-parallel forward, each rank's a partial sum."""
     import torch.distributed as dist
 
-    works = [dist.all_reduce(g, group=mesh.group("data"), async_op=True) for g in grads]
+    works = [dist.all_reduce(g, group=mesh.group(axis), async_op=True) for g in grads]
     for work in works:
         work.wait()
 
@@ -108,16 +121,23 @@ def gather_shards_(full: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
         return _all_reduce_(full, mesh)
 
 
+def gather_axis(local: torch.Tensor, dim: int, mesh: Mesh, mesh_axis: str) -> torch.Tensor:
+    """The whole tensor of which ``local`` is this rank's shard along
+    ``dim``, split over ``mesh_axis`` in coordinate order (a new tensor on
+    every rank, no gradient)."""
+    n = mesh.shape[mesh_axis]
+    shape = list(local.shape)
+    shape[dim] *= n
+    full = local.new_zeros(shape)
+    size = local.shape[dim]
+    full.narrow(dim, mesh.coord(mesh_axis) * size, size).copy_(local.detach())
+    return _all_reduce_(full, mesh, mesh_axis)
+
+
 def gather_model(local: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
     """The whole tensor of which ``local`` is this rank's ``model`` shard
     along ``axis`` (a new tensor on every rank, no gradient)."""
-    n = mesh.shape["model"]
-    shape = list(local.shape)
-    shape[axis] *= n
-    full = local.new_zeros(shape)
-    size = local.shape[axis]
-    full.narrow(axis, mesh.coord("model") * size, size).copy_(local.detach())
-    return _all_reduce_(full, mesh, "model")
+    return gather_axis(local, axis, mesh, "model")
 
 
 def broadcast_object(obj: Any, mesh: Mesh, src: int = 0) -> Any:
@@ -195,3 +215,63 @@ def gather_from_model(x: torch.Tensor, mesh: Any) -> torch.Tensor:
     order (a vocabulary-split projection's logits); the gradient of this
     rank's slice passes back."""
     return _GatherFromModel.apply(x, mesh) if model_parallel(mesh) else x
+
+
+# ------------------------------------------------------------------ #
+# Sequence parallelism: the ring's shift on the ``seq`` axis
+# ------------------------------------------------------------------ #
+
+RING_TRANSPORT = "all_to_all_single"
+
+
+def _shift(x: torch.Tensor, mesh: Mesh, axis: str, step: int, async_op: bool) -> Any:
+    """``x`` of the rank ``step`` places before this one on ``axis`` (a new
+    tensor), sent by one ``all_to_all_single`` whose only non-empty splits
+    are this rank's whole ``x`` to the rank ``step`` places after and the
+    one ``step`` places before's into the output -> ``(out, work)``, the
+    work None unless ``async_op``."""
+    import torch.distributed as dist
+
+    n, r = mesh.shape[axis], mesh.coord(axis)
+    group = mesh.group(axis)
+    if dist.get_rank(group) != r:
+        raise ValueError(f"ring_shift needs the {axis!r} axis's ranks in increasing order: "
+                         f"coordinate {r} is rank {dist.get_rank(group)} of its group")
+    flat = x.detach().contiguous().view(-1)
+    out = torch.empty_like(flat)
+    send, recv = [0] * n, [0] * n
+    send[(r + step) % n] = recv[(r - step) % n] = flat.numel()
+    work = dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
+                                  group=group, async_op=async_op)
+    return out.view(x.shape), work
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, mesh: Mesh, axis: str, works: list) -> torch.Tensor:
+        ctx.mesh, ctx.axis = mesh, axis
+        out, work = _shift(x, mesh, axis, 1, async_op=True)
+        works.append(work)
+        return out
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Any:
+        return _shift(grad, ctx.mesh, ctx.axis, -1, async_op=False)[0], None, None, None
+
+
+def ring_shift(x: torch.Tensor, mesh: Mesh, axis: str = "seq", async_op: bool = False) -> Any:
+    """The previous rank's ``x`` along ``axis`` on every rank (rank ``i``'s
+    goes to ``i + 1``, the last's to the first): ``ppermute`` over the ring.
+    Every rank's ``x`` has one shape. Differentiable: the gradient travels
+    back ``i -> i - 1``, synchronously. With ``async_op`` it returns
+    ``(out, work)`` as soon as the transfer is posted: ``out`` may be read
+    once ``work.wait()`` has returned, and the caller computes meanwhile.
+    On an axis of one rank ``x`` is its own shift."""
+    if not mesh.spans(axis):
+        return (x, None) if async_op else x
+    works: list = []
+    out = _RingShift.apply(x, mesh, axis, works)
+    if async_op:
+        return out, works[0]
+    works[0].wait()
+    return out

@@ -6,14 +6,19 @@ Axes, as in the JAX package:
 - ``data``: data parallelism and ZeRO-style sharding of Adam's moments
   (the reference's DeepSpeed ZeRO-2 role);
 - ``model``: tensor parallelism (Megatron column/row splits: the
-  tensor-parallel streaming engines and ``model_parallel=True`` training).
+  tensor-parallel streaming engines and ``model_parallel=True`` training);
+- ``seq``: sequence parallelism (the encoder's sequence split over the
+  ranks, attention as a ring: :mod:`reprover_tpu_torch.ops.ring_attention`).
 
-Each process is one rank and drives one device. A mesh is a ``(data,
+Each process is one rank and drives one device. A mesh is a ``(data, seq,
 model)`` grid of ranks with ``model`` innermost, so the rank at mesh
-position ``i`` sits at coordinate ``(i // model, i % model)``; it carries
-the process group of this rank's line along each axis, and a host
-``control`` group (gloo, CPU tensors) over the whole grid, in which the
-first rank of a tensor-parallel engine sends its calls to the others.
+position ``i`` sits at ``data`` coordinate ``i // (seq * model)``, ``seq``
+coordinate ``i // model % seq`` and ``model`` coordinate ``i % model``
+(``coords`` is the ``(data, model)`` pair; ``seq`` is 1 unless asked
+for); it carries the process group of this rank's line along each axis,
+and a host ``control`` group (gloo, CPU tensors) over the whole grid, in
+which the first rank of a tensor-parallel engine sends its calls to the
+others.
 
 Process groups are joined or formed by :func:`init_distributed`: one that
 ``torchrun`` describes in the environment (``RANK``, ``WORLD_SIZE``,
@@ -36,35 +41,39 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-AXES = ("data", "model")
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``(data, model)`` grid of ranks; ``coords`` is this rank's position
-    and ``groups`` the process group of its line along each axis of more
-    than one rank, and ``control`` over the grid (empty for a mesh of one
-    rank, or one built only to compute sharding specs)."""
+    """A ``(data, seq, model)`` grid of ranks; ``coords`` is this rank's
+    ``(data, model)`` position and ``seq_coord`` its ``seq`` one, ``groups``
+    the process group of its line along each axis of more than one rank,
+    and ``control`` over the grid (empty for a mesh of one rank, or one
+    built only to compute sharding specs)."""
 
     data: int
     model: int = 1
     coords: Tuple[int, int] = (0, 0)
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False)
+    seq: int = 1
+    seq_coord: int = 0
 
     @property
     def shape(self) -> Dict[str, int]:
         """Axis sizes by name (the JAX mesh's ``shape``)."""
-        return {"data": self.data, "model": self.model}
+        return {"data": self.data, "seq": self.seq, "model": self.model}
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis``."""
-        return self.coords[AXES.index(axis)]
+        if axis == "seq":
+            return self.seq_coord
+        return self.coords[("data", "model").index(axis)]
 
     def group(self, axis: str) -> Any:
         """The process group of this rank's line along ``axis`` (or the
         ``control`` group over the grid)."""
-        size = self.data * self.model if axis == "control" else self.shape[axis]
+        size = self.size if axis == "control" else self.shape[axis]
         if size > 1 and axis not in self.groups:
             raise RuntimeError(f"this mesh has no process group for axis {axis!r}: build it "
                                "with make_mesh inside an initialized process group")
@@ -72,13 +81,13 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self.seq * self.model
 
     @property
     def is_leader(self) -> bool:
         """Whether this rank is the grid's first: the one that owns a
         tensor-parallel engine's host API."""
-        return self.coords == (0, 0)
+        return self.coords == (0, 0) and self.seq_coord == 0
 
     def spans(self, axis: str = "data") -> bool:
         """Whether ``axis`` has more than one rank (collectives to run)."""
@@ -139,35 +148,43 @@ def make_mesh(
     data: Optional[int] = None,
     model: int = 1,
     devices: Optional[Sequence[int]] = None,
+    seq: int = 1,
 ) -> Mesh:
-    """Build a ``(data, model)`` mesh over ``devices`` (the ranks, one device
-    each; default: every rank of the initialized group).
+    """Build a ``(data, seq, model)`` mesh over ``devices`` (the ranks, one
+    device each; default: every rank of the initialized group).
 
-    ``data=None`` uses every rank not consumed by ``model``. Every rank of
-    the group must call this (it forms the axis groups), including ranks
-    the mesh leaves out, which then get an error."""
+    ``data=None`` uses every rank not consumed by ``seq`` and ``model``
+    (``make_mesh(data=1, seq=n)`` is the JAX dry run's ``Mesh(devices,
+    ("seq",))``). Every rank of the group must call this (it forms the axis
+    groups), including ranks the mesh leaves out, which then get an error."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     me = dist.get_rank() if dist.is_initialized() else 0
     ranks = list(devices) if devices is not None else list(range(world))
     n = len(ranks)
-    if model < 1 or n % model:
-        raise ValueError(f"{n} devices are not divisible by model={model}")
+    if model < 1 or seq < 1 or n % (model * seq):
+        raise ValueError(f"{n} devices are not divisible by seq={seq} x model={model}")
     if data is None:
-        data = n // model
-    if data < 1 or data * model > n:
-        raise ValueError(f"mesh {data}x{model} needs more than {n} devices")
-    grid = ranks[: data * model]
+        data = n // (model * seq)
+    name = f"{data}x{model}" if seq == 1 else f"{data}x{seq}x{model}"
+    if data < 1 or data * seq * model > n:
+        raise ValueError(f"mesh {name} needs more than {n} devices")
+    grid = ranks[: data * seq * model]
     if not dist.is_initialized():
-        if data * model > 1:
-            raise RuntimeError(f"a {data}x{model} mesh needs an initialized process group "
+        if len(grid) > 1:
+            raise RuntimeError(f"a {name} mesh needs an initialized process group "
                                "(init_distributed)")
         return Mesh(1, 1)
     groups: Dict[str, Any] = {}
+
+    def at(d: int, s: int, m: int) -> int:
+        return grid[(d * seq + s) * model + m]
+
     lines = {
-        "data": [[grid[d * model + m] for d in range(data)] for m in range(model)],
-        "model": [[grid[d * model + m] for m in range(model)] for d in range(data)],
+        "data": [[at(d, s, m) for d in range(data)] for s in range(seq) for m in range(model)],
+        "model": [[at(d, s, m) for m in range(model)] for d in range(data) for s in range(seq)],
+        "seq": [[at(d, s, m) for s in range(seq)] for d in range(data) for m in range(model)],
     }
     for axis, axis_lines in lines.items():
         for line in axis_lines:
@@ -185,14 +202,14 @@ def make_mesh(
         if me in grid:
             groups["control"] = control
     if me not in grid:
-        raise ValueError(f"rank {me} is not in the {data}x{model} mesh over ranks {grid}")
+        raise ValueError(f"rank {me} is not in the {name} mesh over ranks {grid}")
     i = grid.index(me)
-    return Mesh(data, model, (i // model, i % model), groups)
+    return Mesh(data, model, (i // (seq * model), i % model), groups, seq, i // model % seq)
 
 
 def is_first_rank(mesh: Optional[Mesh]) -> bool:
     """Whether this rank writes a fit's logs and checkpoints: no mesh, or
-    the grid's first rank (coordinates 0 on ``data`` and ``model``)."""
+    the grid's first rank (coordinate 0 on every axis)."""
     return mesh is None or mesh.is_leader
 
 

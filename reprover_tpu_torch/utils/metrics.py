@@ -4,8 +4,10 @@ A copy of the JAX package's writers (importing that module runs
 ``reprover_tpu/utils/__init__.py``, which imports JAX and Orbax). Values are
 host floats; the training loop syncs the device only at its log interval.
 ``metrics.jsonl`` keeps the JAX package's records and keys (``loss``,
-``steps_per_sec``, ``Recall@k_val``, ``MRR``, ...). The WandB sink is not
-ported.
+``steps_per_sec``, ``Recall@k_val``, ``MRR``, ...). The WandB sink
+(:class:`WandbWriter`, ``make_writer(wandb_project=...)``) needs the
+``wandb`` package, which the port does not bundle: without it the factory
+logs a warning and keeps the other writers, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -71,6 +73,33 @@ class StdoutWriter(MetricWriter):
             logger.info("step %d: %s", step, parts)
 
 
+class WandbWriter(MetricWriter):
+    """WandB sink, parity with the reference's logger config; requires the
+    ``wandb`` package (not bundled — gated)."""
+
+    def __init__(self, project: str, name: Optional[str] = None) -> None:
+        import wandb  # gated import
+
+        self._wandb = wandb
+        self.run = wandb.init(project=project, name=name)
+
+    def write(self, step: int, scalars: Scalars) -> None:
+        self._wandb.log(scalars, step=step)
+
+    def write_text(self, step: int, key: str, rows: TextRows) -> None:
+        if not rows:
+            return
+        cols = list(rows[0].keys())
+        table = self._wandb.Table(columns=cols, data=[[r.get(c, "") for c in cols] for r in rows])
+        self._wandb.log({key: table}, step=step)
+
+    def write_hparams(self, hparams: Dict) -> None:
+        self.run.config.update(hparams, allow_val_change=True)
+
+    def close(self) -> None:
+        self._wandb.finish()
+
+
 class MultiWriter(MetricWriter):
     def __init__(self, writers: List[MetricWriter]) -> None:
         self.writers = writers
@@ -92,10 +121,21 @@ class MultiWriter(MetricWriter):
             w.close()
 
 
-def make_writer(log_dir: Optional[str], stdout_every: int = 50) -> MetricWriter:
-    """Stdout every ``stdout_every`` steps, plus ``log_dir/metrics.jsonl``."""
+def make_writer(
+    log_dir: Optional[str],
+    wandb_project: Optional[str] = None,
+    stdout_every: int = 50,
+) -> MetricWriter:
+    """Stdout every ``stdout_every`` steps, plus ``log_dir/metrics.jsonl``,
+    plus WandB under ``wandb_project`` when the ``wandb`` package is there
+    (a warning and no WandB when it is not)."""
     writers: List[MetricWriter] = [StdoutWriter(stdout_every)]
     if log_dir:
         os.makedirs(log_dir, exist_ok=True)
         writers.append(JsonlWriter(os.path.join(log_dir, "metrics.jsonl")))
+    if wandb_project:
+        try:
+            writers.append(WandbWriter(wandb_project))
+        except ImportError:
+            logger.warning("wandb not installed; skipping WandB logging")
     return MultiWriter(writers)

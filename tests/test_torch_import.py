@@ -61,6 +61,9 @@ NEW_MODULES = (
     "reprover_tpu_torch.benchmarks.data_parallel_step",
     # Tensor parallelism: the engines' benchmark.
     "reprover_tpu_torch.benchmarks.tensor_parallel_engine",
+    # Sequence parallelism: the ring and its timing script.
+    "reprover_tpu_torch.ops.ring_attention",
+    "reprover_tpu_torch.benchmarks.sequence_parallel_encode",
 )
 
 
