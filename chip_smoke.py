@@ -27,6 +27,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``evaluate`` with two prover worker processes served by the reused
    ``InferenceService``; the kernel's launch count over this phase must be
    positive;
+4b. diverse beam search (``[diverse]``): ``beam_search`` with
+   ``num_beam_groups``/``diversity_penalty`` on a seeded fp32 logits table
+   (position x last token, values rounded to 0.1 so candidates tie) at B 2,
+   V 384, (K, G, penalty) (64, 4, 1.0), (64, 16, 0.5), (8, 8, 2.0), on the
+   card against the CPU: tokens and lengths equal, scores within 1e-5
+   (absolute and relative); then
+   the phase-4 generator over the first val theorem's packed source at 64
+   beams, decode cut to 128: the classic call, one group bit-equal to it,
+   4 groups at penalty 1.0 with finite descending scores; ms per step,
+   distinct sequences and kernel 1's launches;
 5. numeric sanity: 16 premises embedded on the card in bf16 through the
    kernel and in fp32 through the plain version agree to a per-row cosine
    >= 0.99.
@@ -192,20 +202,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     (``retrieval.bm25 train-tokenizer``/``retrieve``, a pool of 4) scored
     beside it; ``scripts.convert_checkpoint retriever`` on phase 7's
     checkpoint reloaded by ``load_hf_t5``, parameters and a batch of
-    embeddings through kernel 1 bit-equal;
+    embeddings through kernel 1 bit-equal; ``indexer.main`` on one card over
+    it (batch 64, ``max_seq_len`` 1024) and the val queries through
+    ``PremiseRetriever.load_hf`` over that artifact;
 26. failure attribution of phase 4's failed theorems through the card's
     retrieval-augmented generator (64 samples): the bucket table, counts
     summing to the traced failures, kernel 1 launched, a second run's
     records identical;
 27. the port's service load driver at byt5-small width, streaming, 16
-    workers x 8 slots x 64 beams, input 512, output 128, 16 theorems, at
+    workers x 8 slots x 64 beams, input 512, output 128, 8 / 16 theorems, at
     environment latency 0 (3 expansions a search) and 2.0 s a tactic (1
     expansion, 8 beams): expansions/s, the service's stats, the device-busy
     share of a profiled window naming the encoder and reorder kernels, kernel 13
     launched, every search at its expansions;
 28. data-parallel training, two ranks sharing the card over gloo (one
     spawn): ``dp_retriever`` (``retrieval.main fit`` at byt5-small width,
-    batch 8 split over the ranks, 5 steps without warmup, one validation)
+    batch 8 split over the ranks, 3 steps without warmup, one validation)
     and ``dp_generator`` (``generation.main fit`` on phase 10's
     predictions, the ranks' rows with unequal valid-token counts), each
     against the same fit on one rank in this process: the loss at every
@@ -217,7 +229,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     of the one-rank run's and every kernel of the task's path launched on
     every rank, with both runs' ms per step and the gradient reduction's
     ms; ``dp_dryrun``: ``benchmarks/multichip_dryrun.py``'s checks on the
-    same two ranks, and which collectives gloo runs on CUDA tensors.
+    same two ranks, and which collectives gloo runs on CUDA tensors;
+    ``dp_indexer``: each rank calls ``indexer.main`` in the two ranks'
+    gloo group over phase 25's converted retriever and the corpus, held
+    against phase 25's one-card index (``indexer.main`` in this process):
+    one artifact, the one card's corpus, embeddings within 1e-6, the same
+    top-10 of the val states; premises/s of both, the gather's ms (one
+    all-reduce of the index's bytes, timed alone) and bytes, kernel 1's
+    launches a rank.
 29. tensor parallelism at TP 2, two ranks sharing the card over gloo (one
     spawn, ``phase_tensor_parallel``): kernels 11/12 at each rank's shard of
     every LLaMA-7B product (decode and admission rows) and kernel 13 at the
@@ -1322,7 +1341,19 @@ def phase_slice(device, bench: str, cfg, gen_params, ret_params) -> dict:
     failed = [r.theorem.full_name for r in results if r.status.name != "PROVED"]
     return dict(launches=launches, reindex_s=reindex_s, premises=n_premises,
                 premises_per_s=n_premises / reindex_s, requests=requests,
-                s_per_request=per_request, pass_1=pass_1, eval_s=eval_s, failed=failed)
+                s_per_request=per_request, pass_1=pass_1, eval_s=eval_s, failed=failed,
+                packed_source=_packed_source(retriever, first, generator.max_inp_seq_len))
+
+
+def _packed_source(retriever, thm: dict, max_len: int) -> str:
+    """A theorem's first state with its 100 retrieved premises, packed as a
+    served request packs it."""
+    from reprover_tpu_torch.data import Context, Pos, format_augmented_state, remove_marks
+
+    state = thm["traced_tactics"][0]["state_before"]
+    premises, _ = retriever.retrieve_batch(
+        [Context(thm["file_path"], thm["full_name"], Pos.of(thm["start"]), state)], 100)
+    return remove_marks(format_augmented_state(state, premises[0], max_len))
 
 
 def phase_breakdown(device, generator, retriever, thm: dict) -> dict:
@@ -1399,6 +1430,130 @@ def phase_breakdown(device, generator, retriever, thm: dict) -> dict:
         row["profiler"] = f"not measured: {ex!r}"
     log(f"[breakdown] {json.dumps(row)}")
     return row
+
+
+# Diverse beam search (phase 4b): (num_beams, num_beam_groups,
+# diversity_penalty, length_penalty, max_length) of the selection check on a
+# seeded logits table (B 2, V 384, values rounded to 0.1 so candidates tie),
+# card against CPU; the real model at 64 beams over one packed source, the
+# decode cut to 128 bytes (steps, not widths), classic, one group and G 4.
+DIVERSE = dict(batch=2, vocab=384, table_seed=0, score_tol=1e-5,
+               cases=[(64, 4, 1.0, 0.0, 64), (64, 16, 0.5, 1.0, 64), (8, 8, 2.0, 0.0, 32)],
+               beams=64, max_len=128, groups=4, penalty=1.0)
+
+
+def _table_search(table, device, k: int, groups: int, penalty: float, lp: float, t: int):
+    """``beam_search`` on ``device`` whose step reads ``table[position,
+    last token]`` -> (sequences, scores, lengths) on the host."""
+    import torch
+
+    from reprover_tpu_torch.generation.beam_search import beam_search
+
+    tab = table.to(device)
+    res = beam_search(lambda c, tok: (tab[c["step"], tok], {"step": c["step"] + 1}),
+                      lambda c, parent: c, {"step": 0}, DIVERSE["batch"], k, t, 1, 0, 0,
+                      length_penalty=lp, device=device, num_beam_groups=groups,
+                      diversity_penalty=penalty)
+    return [x.cpu() for x in (res.sequences, res.scores, res.lengths)]
+
+
+def phase_diverse(device, cfg, gen_params, source: str) -> dict:
+    """Phase 4b: grouped (diverse) beam search. (a) The selection on a
+    seeded fp32 logits table indexed by (position, last token), rounded to
+    0.1, at each ``DIVERSE["cases"]`` setting on the card and on the CPU:
+    sequences and lengths equal, scores within 1e-5 (absolute and relative,
+    as the CPU tests hold them). (b) The byt5-small generator over
+    ``source`` (phase 4's packed source of the first val theorem) at 64
+    beams, decode cut to 128: the classic call; one group
+    without a penalty, bit-equal to it in sequences and scores; 4 groups at
+    penalty 1.0, finite scores in descending order. ms per decode step
+    (CUDA events over the search / its steps), distinct sequences of each,
+    kernel 1's launches in the encoder."""
+    import numpy as np
+    import torch
+
+    from reprover_tpu_torch.generation.beam_search import beam_search
+    from reprover_tpu_torch.models.t5 import decode_step, encode, init_decode_state
+    from reprover_tpu_torch.models.t5 import reorder_decode_state
+    from reprover_tpu_torch.ops import flash_attention as tfa
+    from reprover_tpu_torch.tokenizer import ByT5Tokenizer
+
+    report: dict = {"table": []}
+    rng = np.random.default_rng(DIVERSE["table_seed"])
+    max_t = max(c[4] for c in DIVERSE["cases"])
+    v = DIVERSE["vocab"]
+    table = np.round(rng.normal(scale=2.0, size=(max_t, v, v)), 1).astype(np.float32)
+    table[:, :, 1] += 1.5  # EOS (id 1): hypotheses finish early and often
+    table = torch.from_numpy(table)
+    failures = []
+    for k, groups, penalty, lp, t in DIVERSE["cases"]:
+        got = _table_search(table, device, k, groups, penalty, lp, t)
+        want = _table_search(table, torch.device("cpu"), k, groups, penalty, lp, t)
+        gap = float((got[1] - want[1]).abs().max())
+        size = float(want[1].abs().max())
+        same = torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        report["table"].append(dict(beams=k, groups=groups, penalty=penalty, length_penalty=lp,
+                                    max_len=t, same_tokens=same, score_gap=gap,
+                                    max_abs_score=size))
+        # Within 1e-5 as the CPU tests hold it (atol and rtol): a sum of 63
+        # log-probs near 300 has an fp32 step of 3e-5.
+        if not same or not gap <= DIVERSE["score_tol"] * (1.0 + size):
+            failures.append(f"table search {k}/{groups}/{penalty}: tokens equal {same}, "
+                            f"score gap {gap} at max |score| {size}")
+
+    batch = ByT5Tokenizer()([source], max_length=SLICE["max_inp_seq_len"], bucket_multiple=128)
+    ids = torch.from_numpy(batch.input_ids).to(device, torch.long)
+    mask = torch.from_numpy(batch.attention_mask).to(device)
+    beams, max_len = DIVERSE["beams"], DIVERSE["max_len"]
+    tfa.reset_launch_counts()
+    with torch.inference_mode():
+        enc = encode(gen_params, cfg, ids, mask)
+    report["encoder_attn_launches"] = tfa.KERNEL_LAUNCHES["encoder_attn"]
+    runs = {}
+    # One group first: its search takes the first call's costs off the
+    # classic one's time.
+    for tag, kw in (("one_group", dict(num_beam_groups=1, diversity_penalty=0.0)), ("classic", {}),
+                    ("groups", dict(num_beam_groups=DIVERSE["groups"],
+                                    diversity_penalty=DIVERSE["penalty"]))):
+        steps = [0]
+
+        def step(cache, tokens):
+            steps[0] += 1
+            return decode_step(gen_params, cfg, cache, tokens)
+
+        with torch.inference_mode():
+            cache = init_decode_state(gen_params, cfg, enc, mask, max_len, num_beams=beams)
+            _sync(device)
+            t0 = time.perf_counter()
+            if device.type == "cuda":
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                events[0].record()
+            res = beam_search(step, reorder_decode_state, cache, 1, beams, max_len,
+                              cfg.eos_token_id, cfg.pad_token_id, cfg.decoder_start_token_id,
+                              0.0, device, **kw)
+            if device.type == "cuda":
+                events[1].record()
+            _sync(device)
+        ms = (events[0].elapsed_time(events[1]) if device.type == "cuda"
+              else 1e3 * (time.perf_counter() - t0))
+        seqs = res.sequences[0].cpu()
+        distinct = len({tuple(row[:n].tolist()) for row, n in zip(seqs, res.lengths[0].cpu())})
+        runs[tag] = res
+        report[tag] = dict(steps=steps[0], ms_per_step=ms / max(steps[0], 1),
+                           distinct=distinct, best=float(res.scores[0, 0]))
+    classic, one, grouped = runs["classic"], runs["one_group"], runs["groups"]
+    if not (torch.equal(one.sequences, classic.sequences) and torch.equal(one.scores,
+                                                                          classic.scores)):
+        failures.append("one group without a penalty is not bit-equal to the classic search")
+    scores = grouped.scores[0].float().cpu()
+    if not bool(torch.isfinite(scores).all()) or bool((scores[1:] > scores[:-1]).any()):
+        failures.append(f"the grouped search's scores are not finite and descending: {scores}")
+    if device.type == "cuda" and report["encoder_attn_launches"] < 1:
+        failures.append("the encoder did not launch kernel 1")
+    log(f"[diverse] {json.dumps(report)}")
+    if failures:
+        raise AssertionError("diverse beam search failed: " + "; ".join(failures))
+    return report
 
 
 def phase_sanity(device, cfg, ret_params) -> float:
@@ -3211,9 +3366,11 @@ def phase_pretrain(device, work: str, bench: str, tiny: bool = False) -> dict:
     return dict(lite=lite, finetune=finetune, offload=offload, launches=launches)
 
 
-EVAL = dict(num_retrieved=100, bm25_cpus=4, r10_tol=0.5, mrr_tol=0.005, embed_batch=16)
-LOAD = dict(workers=16, slots=8, chunk=8, beams=64, theorems=16, max_expansions=2,
-            latent_max_expansions=0, latent_beams=8, latencies=(0.0, 2.0), profile_window_s=3.0)
+EVAL = dict(num_retrieved=100, bm25_cpus=4, r10_tol=0.5, mrr_tol=0.005, embed_batch=16,
+            index_batch=64, index_max_seq_len=1024)
+LOAD = dict(workers=16, slots=8, chunk=8, beams=64, theorems=8, max_expansions=2,
+            latent_theorems=16, latent_max_expansions=0, latent_beams=8, latencies=(0.0, 2.0),
+            profile_window_s=3.0)
 
 
 def _evaluate_cli(preds: str, data_path: str) -> dict:
@@ -3256,10 +3413,16 @@ def phase_evaluate(device, work: str, bench: str, validation: dict, tiny: bool =
     ``retrieve`` in a pool of 4) scored the same way beside the dense
     retriever; then ``scripts.convert_checkpoint retriever`` on phase 7's
     checkpoint, reloaded with ``load_hf_t5``: every parameter and one batch
-    of premise embeddings through kernel 1 bit-equal to the checkpoint's."""
+    of premise embeddings through kernel 1 bit-equal to the checkpoint's;
+    then the indexer CLI's ``main`` on one card over the converted
+    checkpoint and the corpus (batch 64, ``max_seq_len`` 1024: the JAX
+    indexer's defaults) and the val queries at 100 premises through
+    ``PremiseRetriever.load_hf`` of it over that artifact: 100 premises
+    each, finite descending scores."""
     import dataclasses
     import shutil
 
+    import numpy as np
     import torch
 
     from reprover_tpu_torch.models.hf_import import hf_config, load_hf_t5
@@ -3361,8 +3524,42 @@ def phase_evaluate(device, work: str, bench: str, validation: dict, tiny: bool =
     log(f"[evaluate] convert_checkpoint retriever: {len(flat_saved)} tensors and a "
         f"[{len(texts)}] embedding batch bit-equal ({launched} kernel-1 launches); BM25 "
         f"took {report['bm25_s']:.1f}s")
+
+    # The converted checkpoint indexed on one card by the indexer CLI (its
+    # main, which ``python -m reprover_tpu_torch.retrieval.indexer`` runs),
+    # then the val queries through ``load_hf`` of it over the artifact.
+    index = dict(ckpt=hf_dir, corpus=os.path.join(bench, "corpus.jsonl"),
+                 path=os.path.join(out, "indexed"))
+    index.update(_run_indexer(index_argv(index, device) + ["--output-path", index["path"]]))
+    retriever = PremiseRetriever.load_hf(hf_dir, EVAL["index_max_seq_len"], device=device)
+    retriever.load_corpus(index["path"])
+    contexts = val_contexts(val)
+    premises, scores = retriever.retrieve_batch(contexts, EVAL["num_retrieved"])
+    scores = np.asarray(scores)
+    if retriever.embeddings_staled or any(len(row) != EVAL["num_retrieved"] for row in premises) \
+            or not np.isfinite(scores).all() or (np.diff(scores, axis=1) > 0).any():
+        raise AssertionError("the one-card index does not reload into a query-ready retriever")
+    log(f"[evaluate] indexer on one card: {index['premises_per_s']} premises/s; reloaded: "
+        f"{len(contexts)} val queries x {EVAL['num_retrieved']} premises, finite and descending")
+    report["index"] = index
     report["launches"] = dict(tfa.KERNEL_LAUNCHES)
     return report
+
+
+def index_argv(index: dict, device) -> list:
+    """The indexer CLI's flags for ``index`` (its checkpoint and corpus) at
+    the JAX indexer's defaults."""
+    return ["--ckpt-path", index["ckpt"], "--corpus-path", index["corpus"], "--batch-size",
+            str(EVAL["index_batch"]), "--max-seq-len", str(EVAL["index_max_seq_len"]),
+            "--device", device.type]
+
+
+def val_contexts(val: list) -> list:
+    """The port's ``Context`` of every traced tactic of the val theorems."""
+    from reprover_tpu_torch.data import Context, Pos
+
+    return [Context(thm["file_path"], thm["full_name"], Pos.of(thm["start"]),
+                    tac["state_before"]) for thm in val for tac in thm["traced_tactics"]]
 
 
 def phase_attribution(device, bench: str, cfg, gen_params, ret_params, failed: list) -> dict:
@@ -3428,12 +3625,14 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
     generator weights, input 512, output 128, the JAX driver's geometry),
     streaming, 16 spawned workers, 8 slots, chunk 8, 64 beams, on the
     driver's synthetic benchmark, in two cells: ``--env-latency 0`` and
-    ``2.0``. Cut to fit the smoke: 16 theorems (one per worker; the driver
-    runs 24), ``max_expansions`` 2 at latency 0 and 0 at 2.0 (the driver
-    runs 6; the search stops once it has passed the limit, so a search runs
-    3 and 1 expansions), and 8 beams at 2.0 (the environment waits 2.0 s a
-    tactic on average, so an expansion of 64 would wait ~128 s, of 8 ~16
-    s). Expansions/s by wall and over the serving window, the
+    ``2.0``. Cut to fit the smoke: 8 theorems at latency 0 and 16 at 2.0
+    (16 at both before the diverse and indexer parts; at 2.0 the serving
+    window of 8 searches, ~2 s, ends before the 3 s profiled window;
+    ``service_load.py`` runs 24), ``max_expansions`` 2 at latency 0 and 0
+    at 2.0 (``service_load.py`` runs 6; the search stops once it has
+    passed the limit, so a search runs 3 and 1 expansions), and 8 beams at
+    2.0 (the environment waits 2.0 s a tactic on average, so an expansion
+    of 64 would wait ~128 s, of 8 ~16 s). Expansions/s by wall and over the serving window, the
     service's stats and the device-busy share of a 3 s profiled window
     (``utils/profiling.device_trace``); fails unless every search ran its
     expansions, kernel 13 launched and the trace names the encoder and
@@ -3447,8 +3646,9 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
     launches: dict = {}
     for latency in LOAD["latencies"]:
         limit = LOAD["max_expansions"] if latency == 0 else LOAD["latent_max_expansions"]
+        theorems = LOAD["theorems"] if latency == 0 else LOAD["latent_theorems"]
         reset_all_launch_counts()
-        row = sl.run_cell(model, data, LOAD["workers"], 0, 0.0, num_theorems=LOAD["theorems"],
+        row = sl.run_cell(model, data, LOAD["workers"], 0, 0.0, num_theorems=theorems,
                           streaming=True, num_slots=LOAD["slots"], chunk_size=LOAD["chunk"],
                           num_beams=LOAD["beams"] if latency == 0 else LOAD["latent_beams"],
                           env_latency_s=latency,
@@ -3460,7 +3660,7 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
         names = row.get("trace_kernels", {})
         row["launches"] = {k: n for k, n in counts.items() if n}
         log(f"[load] {json.dumps({k: v for k, v in row.items() if k != 'trace_kernels'})}")
-        if row["searched_nodes"] != [limit + 1] * LOAD["theorems"]:
+        if row["searched_nodes"] != [limit + 1] * theorems:
             raise AssertionError(f"the load searches ran {row['searched_nodes']} expansions, "
                                  f"not {limit + 1} each")
         if device.type == "cuda":
@@ -3480,8 +3680,8 @@ def phase_load(device, work: str, cfg, gen_params, tiny: bool = False) -> dict:
 
 # Data-parallel training: two ranks share the one card over gloo
 # (NCCL refuses two ranks on one device), each launching the CUDA kernels.
-DP = dict(ranks=2, backend="gloo", steps=5, lr=1e-4, loss_rtol=2e-2, loss_atol=2e-3,
-          update_l1=5e-2, r10_tol=5.0, moment_share=0.55)
+DP = dict(ranks=2, backend="gloo", steps=3, lr=1e-4, loss_rtol=2e-2, loss_atol=2e-3,
+          update_l1=5e-2, r10_tol=5.0, moment_share=0.55, index_tol=1e-6, index_k=10)
 
 
 def _dp_argv(device, run_dir: str, bench: str, task: str, tiny: bool, preds: str) -> list:
@@ -3512,11 +3712,13 @@ DP_TASKS = {"retriever": "reprover_tpu_torch.retrieval.main",
             "generator": "reprover_tpu_torch.generation.main"}
 
 
-def _dp_rank(rank: int, device_type: str, argvs: dict, init_file: str, out_dir: str) -> None:
+def _dp_rank(rank: int, device_type: str, argvs: dict, init_file: str, out_dir: str,
+             index_flags: list) -> None:
     """One rank of the data-parallel phases: joins the ranks' gloo group,
     runs each task's ``fit`` (kernel launches, moment bytes, seconds), times
-    the reduction of the last step's gradients alone, then runs the
-    multichip dry run's checks on the same ranks; writes one JSON file."""
+    the reduction of the last step's gradients alone, runs the multichip dry
+    run's checks on the same ranks, then the indexer CLI in the group
+    (``index_flags`` and an output path of its own); writes one JSON file."""
     import importlib
 
     import torch
@@ -3559,9 +3761,30 @@ def _dp_rank(rank: int, device_type: str, argvs: dict, init_file: str, out_dir: 
     out["dryrun"] = multichip_dryrun.run_rank(make_mesh(data=DP["ranks"]), device)
     out["dryrun"]["launches"] = {k: n for k, n in all_launch_counts().items() if n}
     out["dryrun"]["seconds"] = time.perf_counter() - t0
+    out["indexer"] = _run_indexer(index_flags + ["--output-path",
+                                                 os.path.join(out_dir, f"indexed{rank}")])
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+def _run_indexer(argv: list) -> dict:
+    """``retrieval.indexer.main(argv)`` in this process: its seconds, kernel
+    1's launches and what it printed (the rate and the gather, on the
+    writing rank)."""
+    import contextlib
+    import io
+
+    from reprover_tpu_torch.retrieval.indexer import main as index_main, parse_report
+
+    before = all_launch_counts()["encoder_attn"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        index_main(argv)
+    wall = time.perf_counter() - t0
+    return dict(parse_report(out.getvalue()), wall_s=wall, printed=out.getvalue(),
+                encoder_attn=all_launch_counts()["encoder_attn"] - before)
 
 
 def _metrics(path: str) -> list:
@@ -3623,12 +3846,17 @@ def _dp_compare(task: str, one_dir: str, dp_dir: str, tiny: bool, seed: int) -> 
                 top1={k: v.get("top1_acc_val") for k, v in val.items()})
 
 
-def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> dict:
-    """``dp_retriever``, ``dp_generator`` and ``dp_dryrun``: each fit on one
-    rank in this process, then on two ranks sharing the card over gloo (one
-    spawn for all three: each rank runs both fits, then the multichip dry
-    run's checks), held against each other; each rank must launch its
-    task's kernels and hold about half of the one-rank moment bytes."""
+def phase_data_parallel(device, work: str, bench: str, index: dict,
+                        tiny: bool = False) -> dict:
+    """``dp_retriever``, ``dp_generator``, ``dp_dryrun`` and ``dp_indexer``:
+    each fit on one rank in this process, then on two ranks sharing the card
+    over gloo (one spawn for all: each rank runs both fits, the multichip
+    dry run's checks and the indexer CLI), held against each other; each
+    rank must launch its task's kernels and hold about half of the one-rank
+    moment bytes. The indexer runs on the two ranks as phase 25 ran it on
+    one card (``index``: its checkpoint, corpus, artifact and rate): exactly
+    one artifact must be written, with the one card's corpus, embeddings
+    within 1e-6 of its and the same top-10 retrieval of the val states."""
     import torch
     import torch.multiprocessing as mp
 
@@ -3652,8 +3880,8 @@ def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> di
             torch.cuda.empty_cache()
         seconds[f"dp_{task}_one_rank"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mp.spawn(_dp_rank, args=(device.type, argvs, os.path.join(root, "rendezvous"), root),
-             nprocs=DP["ranks"], join=True)
+    mp.spawn(_dp_rank, args=(device.type, argvs, os.path.join(root, "rendezvous"), root,
+                             index_argv(index, device)), nprocs=DP["ranks"], join=True)
     seconds["dp_ranks"] = time.perf_counter() - t0
     ranks = []
     for r in range(DP["ranks"]):
@@ -3705,10 +3933,58 @@ def phase_data_parallel(device, work: str, bench: str, tiny: bool = False) -> di
     log(f"[dp_gloo] collectives on {device.type} tensors over gloo: "
         f"{json.dumps(dry[0]['collectives'])}")
     seconds["dp_dryrun"] = round(max(d["seconds"] for d in dry), 1)
+    t0 = time.perf_counter()
+    failures += _check_indexer(device, root, index, bench, [r["indexer"] for r in ranks])
+    seconds["dp_indexer"] = round(time.perf_counter() - t0
+                                  + max(r["indexer"]["wall_s"] for r in ranks), 1)
     if failures:
         raise AssertionError("data-parallel phases failed: " + "; ".join(failures))
     return dict(seconds={k: round(v, 1) for k, v in seconds.items()}, results=results,
                 dryrun=dry)
+
+
+def _check_indexer(device, root: str, one: dict, bench: str, ranks: list) -> list:
+    """The two ranks' indexer against the one card's: one artifact, the same
+    corpus, embeddings within ``DP["index_tol"]``, the same top-10 of the
+    val states; logs ``[dp_indexer]`` and returns the failures."""
+    import numpy as np
+
+    from reprover_tpu_torch.data import IndexedCorpus
+    from reprover_tpu_torch.retrieval import PremiseRetriever
+
+    failures = []
+    written = sorted(n for n in os.listdir(root) if n.startswith("indexed"))
+    want = IndexedCorpus.load(one["path"])
+    report = dict(written=written, one_card=one["premises_per_s"],
+                  two_ranks=ranks[0]["premises_per_s"], gather_ms=ranks[0]["gather_ms"],
+                  gather_bytes=ranks[0]["gather_bytes"],
+                  encoder_attn_per_rank=[r["encoder_attn"] for r in ranks],
+                  wall_s=dict(one_card=one["wall_s"], ranks=[r["wall_s"] for r in ranks]))
+    if written != ["indexed0"]:
+        failures.append(f"indexer: the ranks wrote {written}, not one artifact")
+    else:
+        got = IndexedCorpus.load(os.path.join(root, "indexed0"))
+        same_corpus = [p.full_name for p in got.corpus.all_premises] == [
+            p.full_name for p in want.corpus.all_premises]
+        gap = float(np.abs(got.embeddings - want.embeddings).max())
+        retriever = PremiseRetriever.load_hf(one["ckpt"], EVAL["index_max_seq_len"],
+                                             device=device)
+        with open(os.path.join(bench, "random", "val.json")) as f:
+            contexts = val_contexts(json.load(f))
+        top = []
+        for artifact in (want, got):
+            retriever.load_corpus(artifact)
+            premises, _ = retriever.retrieve_batch(contexts, DP["index_k"])
+            top.append([[p.full_name for p in row] for row in premises])
+        report.update(same_corpus=same_corpus, embedding_gap=gap, same_top10=top[0] == top[1],
+                      queries=len(contexts))
+        if not same_corpus or not gap <= DP["index_tol"] or top[0] != top[1]:
+            failures.append(f"indexer: corpus equal {same_corpus}, embedding gap {gap} (limit "
+                            f"{DP['index_tol']}), top-{DP['index_k']} equal {top[0] == top[1]}")
+    if device.type == "cuda" and min(report["encoder_attn_per_rank"]) < 1:
+        failures.append("indexer: a rank did not launch kernel 1")
+    log(f"[dp_indexer] {json.dumps(report)}")
+    return failures
 
 
 # Tensor parallelism (phase 29): two ranks share the card over gloo, as in
@@ -4503,6 +4779,7 @@ def main() -> int:
                       cfg.num_heads, SLICE["max_oup_seq_len"], cfg.d_kv]
         serving_rows = phase("serving_kernels", phase_serving_kernels, device, byt5_cache)
         sl = phase("slice", phase_slice, device, bench, cfg, gen_params, ret_params)
+        phase("diverse", phase_diverse, device, cfg, gen_params, sl["packed_source"])
         phase("sanity", phase_sanity, device, cfg, ret_params)
         st = phase("streaming", phase_streaming, device, bench, cfg, gen_params, ret_params)
         del gen_params, ret_params
@@ -4542,7 +4819,7 @@ def main() -> int:
         ld = phase("load", phase_load, device, work, cfg, gen_params)
         del gen_params
         torch.cuda.empty_cache()
-        dp = phase("data_parallel", phase_data_parallel, device, work, bench)
+        dp = phase("data_parallel", phase_data_parallel, device, work, bench, ev["index"])
         seconds.update(dp["seconds"])
         tpr = phase("tensor_parallel", phase_tensor_parallel, device, work, bench)
         seconds.update(tpr["seconds"])

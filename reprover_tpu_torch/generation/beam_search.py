@@ -1,5 +1,6 @@
 """Batched beam search with HF ``generate`` score semantics: the counterpart
-of :mod:`reprover_tpu.generation.beam_search` (without beam groups).
+of :mod:`reprover_tpu.generation.beam_search`, grouped (diverse) search
+included.
 
 Semantics as the JAX package has them (``do_sample=False``,
 ``early_stopping=False``):
@@ -12,10 +13,19 @@ Semantics as the JAX package has them (``do_sample=False``,
 - scores are ``sum_logprobs / generated_len ** length_penalty`` with
   generated_len counting the EOS.
 
-The ``lax.while_loop`` becomes a Python loop over device tensors; it stops
-when every row is done or ``max_length`` is reached (one host read of the
-done flags per step). Ties break toward the lowest (beam, token) index, as
-``lax.top_k`` breaks them.
+Diverse beam search (HF ``num_beam_groups`` + ``diversity_penalty``: the
+``HammingDiversityLogitsProcessor`` + ``_group_beam_search`` semantics)
+splits each step's selection into ``G`` sequential groups of ``K/G`` beams:
+group ``g``'s log-probs are penalized by ``diversity_penalty`` times the
+per-token count of the tokens groups ``0..g-1`` just chose (a done group
+counts ``K/G`` pads, as HF's dummy pads do); each group keeps its own
+candidates, finished pool and done flag per batch row, and finalize merges
+the groups. With one group the search is the classic one, token for token.
+
+The ``lax.while_loop`` becomes a Python loop over device tensors (the groups
+an inner loop); it stops when every (row, group) is done or ``max_length``
+is reached (one host read of the done flags per step). Ties break toward
+the lowest (beam, token) index, as ``lax.top_k`` breaks them.
 """
 
 from __future__ import annotations
@@ -78,15 +88,24 @@ def beam_search(
     start_id: Any,  # int or [batch] int tensor
     length_penalty: float = 0.0,
     device: Any = "cpu",
+    num_beam_groups: int = 1,
+    diversity_penalty: float = 0.0,
 ) -> BeamSearchResult:
-    """Run beam search.
+    """Run (optionally grouped, diverse) beam search.
 
     ``step_fn(cache, tokens[B*K]) -> (logits[B*K, V], cache)`` feeds the
     token at the current position; ``reorder_fn(cache, flat_parent[B*K])``
     makes row ``i`` of the incremental state follow row ``flat_parent[i]``.
     ``max_length`` counts the decoder start token (HF convention).
+
+    ``num_beam_groups > 1`` is HF diverse beam search: ``num_beams`` must
+    divide evenly, and group ``g`` is penalized by ``diversity_penalty`` per
+    same-step token chosen by groups ``< g``.
     """
-    B, K, T = batch_size, num_beams, max_length
+    B, K, T, G = batch_size, num_beams, max_length, num_beam_groups
+    if K % G != 0:
+        raise ValueError(f"num_beams={K} must be divisible by num_beam_groups={G}")
+    Kg = K // G
     dev = torch.device(device)
     start = torch.as_tensor(start_id, dtype=torch.long, device=dev).expand(B)
 
@@ -98,57 +117,97 @@ def beam_search(
     tokens = torch.full((B, K, T), pad_id, dtype=torch.long, device=dev)
     tokens[:, :, 0] = start[:, None]
     last_token = start[:, None].expand(B, K).contiguous()
-    # Only the first beam is live initially, so the first expansion is unique.
+    # Only the first beam of each group is live initially, so each group's
+    # first expansion is unique (HF sets beam scores to 0 at ::group_size).
     beam_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
-    beam_scores[:, 0] = 0.0
+    beam_scores[:, ::Kg] = 0.0
     fin_tokens = torch.full((B, K, T), pad_id, dtype=torch.long, device=dev)
     fin_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
     fin_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    done = torch.zeros((B, G), dtype=torch.bool, device=dev)  # one HF BeamHypotheses each
     row_base = torch.arange(B, device=dev)[:, None] * K
-    rank_ok = torch.arange(2 * K, device=dev)[None, :] < K  # HF drops worse-ranked EOS
+    if G > 1:
+        group_base = torch.arange(K, device=dev)[None, :] // Kg * Kg  # each beam's group's first
+
+    def groups(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Each group's beams of ``x`` ``[B, K, ...]`` (``x`` itself for one
+        group: the classic step takes no extra host operation)."""
+        return (x,) if G == 1 else x.split(Kg, dim=1)
+
+    def beam_done(done: torch.Tensor) -> torch.Tensor:
+        """``[B, G]`` -> a mask over ``[B, K]``, each beam its group's flag
+        (one group's ``[B, 1]`` broadcasts)."""
+        return done if G == 1 else done[:, :, None].expand(B, G, Kg).reshape(B, K)
+
+    rank_ok = torch.arange(2 * Kg, device=dev)[None, :] < Kg  # HF drops worse-ranked EOS
+    diverse = G > 1 and diversity_penalty > 0.0
 
     n = 1  # current sequence length, start token included
     while n < T:
         logits, cache = step_fn(cache, last_token.reshape(B * K))
         logp = torch.log_softmax(logits.float(), dim=-1)
-        logp = logp.view(B, K, -1)
+        V = logp.shape[-1]
+        logp = logp.view(B, K, V)
 
-        cand_scores, parent, token = topk_candidates(beam_scores[:, :, None] + logp, 2 * K)
-        is_eos = token == eos_id
+        # Per-step token counts of the earlier groups' choices (Hamming
+        # diversity); a done group counts Kg pads, as HF's dummy pads do.
+        if diverse:
+            freq = torch.zeros((B, V), dtype=torch.float32, device=dev)
+            pad_freq = torch.zeros((V,), dtype=torch.float32, device=dev)
+            pad_freq[pad_id] = float(Kg)
+        outs = []
+        # Groups are sequential by design: each sees the earlier ones' tokens.
+        for g, (logp_g, scores_g, toks, fin_scores_g, fin_tokens_g, fin_lens_g) in enumerate(zip(
+                groups(logp), groups(beam_scores), groups(tokens), groups(fin_scores),
+                groups(fin_tokens), groups(fin_lens))):
+            if diverse and g > 0:
+                logp_g = logp_g - diversity_penalty * freq[:, None, :]
+            cand_scores, parent, token = topk_candidates(scores_g[:, :, None] + logp_g, 2 * Kg)
+            is_eos = token == eos_id
 
-        # Continuing beams: the best K non-EOS candidates.
-        cont_scores, cont_pos = stable_topk(
-            cand_scores.masked_fill(is_eos, NEG_INF), K
-        )
-        cont_parent = torch.gather(parent, 1, cont_pos)
-        cont_token = torch.gather(token, 1, cont_pos)
-        new_tokens = _gather_rows(tokens, cont_parent)
-        new_tokens[:, :, n] = cont_token
+            # Continuing beams: the group's best Kg non-EOS candidates.
+            cont_scores, cont_pos = stable_topk(cand_scores.masked_fill(is_eos, NEG_INF), Kg)
+            cont_parent = torch.gather(parent, 1, cont_pos)
+            cont_token = torch.gather(token, 1, cont_pos)
+            new_tokens = _gather_rows(toks, cont_parent)
+            new_tokens[:, :, n] = cont_token
 
-        # Finished pool: EOS candidates ranked below K join it.
-        eos_new_scores = torch.where(
-            is_eos & rank_ok, norm(cand_scores, n), torch.full_like(cand_scores, NEG_INF)
-        )
-        eos_tokens = _gather_rows(tokens, parent)
-        eos_tokens[:, :, n] = eos_id
-        merged_scores = torch.cat([fin_scores, eos_new_scores], dim=1)
-        merged_tokens = torch.cat([fin_tokens, eos_tokens], dim=1)
-        merged_lens = torch.cat([fin_lens, torch.full_like(eos_new_scores, n + 1, dtype=torch.long)], dim=1)
-        new_fin_scores, keep = stable_topk(merged_scores, K)
-        new_fin_tokens = _gather_rows(merged_tokens, keep)
-        new_fin_lens = torch.gather(merged_lens, 1, keep)
+            # Finished pool: EOS candidates ranked below Kg join the group's.
+            eos_new_scores = torch.where(
+                is_eos & rank_ok, norm(cand_scores, n), torch.full_like(cand_scores, NEG_INF))
+            eos_tokens = _gather_rows(toks, parent)
+            eos_tokens[:, :, n] = eos_id
+            merged_scores = torch.cat([fin_scores_g, eos_new_scores], dim=1)
+            merged_tokens = torch.cat([fin_tokens_g, eos_tokens], dim=1)
+            merged_lens = torch.cat(
+                [fin_lens_g, torch.full_like(eos_new_scores, n + 1, dtype=torch.long)], dim=1)
+            new_fin_scores, keep = stable_topk(merged_scores, Kg)
 
-        # Termination heuristic (early_stopping=False).
-        num_fin = (new_fin_scores > NEG_INF).sum(dim=1)
-        best_attainable = norm(cand_scores[:, 0], n)
-        newly_done = (num_fin >= K) & (new_fin_scores[:, K - 1] >= best_attainable)
+            # Termination heuristic (early_stopping=False), per group: [B, 1].
+            num_fin = (new_fin_scores > NEG_INF).sum(dim=1, keepdim=True)
+            best_attainable = norm(cand_scores[:, :1], n)
+            newly_done = (num_fin >= Kg) & (new_fin_scores[:, Kg - 1:Kg] >= best_attainable)
 
+            if diverse and g < G - 1:
+                picked = torch.zeros((B, V), dtype=torch.float32, device=dev).scatter_add_(
+                    1, cont_token, torch.ones_like(cont_scores))
+                freq = freq + torch.where(done[:, g, None], pad_freq, picked)
+
+            outs.append((cont_scores, cont_parent, cont_token, new_tokens, new_fin_scores,
+                         _gather_rows(merged_tokens, keep), torch.gather(merged_lens, 1, keep),
+                         newly_done))
+
+        # One group is the step's state as it stands; more are joined along
+        # the beams, their parents shifted from group-local to global.
+        (cont_scores, cont_parent, cont_token, new_tokens, new_fin_scores, new_fin_tokens,
+         new_fin_lens, newly_done) = outs[0] if G == 1 else [torch.cat(p, 1) for p in zip(*outs)]
+        if G > 1:
+            cont_parent = cont_parent + group_base
         cache = reorder_fn(cache, (row_base + cont_parent).reshape(B * K))
 
-        # Rows already done keep their state.
-        d2 = done[:, None]
-        d3 = done[:, None, None]
+        # (Row, group)s already done keep their state.
+        d2 = beam_done(done)
+        d3 = d2[:, :, None]
         tokens = torch.where(d3, tokens, new_tokens)
         last_token = torch.where(d2, last_token, cont_token)
         beam_scores = torch.where(d2, beam_scores, cont_scores)
@@ -160,11 +219,11 @@ def beam_search(
         if bool(done.all()):
             break
 
-    # Rows not done merge their running beams as hypotheses
-    # (generated_len = n - 1, no EOS — HF finalize semantics).
-    run_scores = torch.where(
-        done[:, None], torch.full_like(beam_scores, NEG_INF), norm(beam_scores, n - 1)
-    )
+    # (Row, group)s not done merge their running beams as hypotheses
+    # (generated_len = n - 1, no EOS: HF finalize semantics); the best K
+    # across the groups are returned.
+    d2 = beam_done(done)
+    run_scores = torch.where(d2, torch.full_like(beam_scores, NEG_INF), norm(beam_scores, n - 1))
     merged_scores = torch.cat([fin_scores, run_scores], dim=1)
     merged_tokens = torch.cat([fin_tokens, tokens], dim=1)
     merged_lens = torch.cat([fin_lens, torch.full_like(fin_lens, n)], dim=1)

@@ -81,7 +81,7 @@ from reprover_tpu_torch.models.t5 import (
 )
 from reprover_tpu_torch.ops.beam_reorder import parent_effective, reorder_append_gather
 from reprover_tpu_torch.ops.topk import stable_topk
-from reprover_tpu_torch.parallel.collectives import reduce_from_model
+from reprover_tpu_torch.parallel.collectives import raise_everywhere, reduce_from_model
 from reprover_tpu_torch.parallel.sharding import shard_for_model
 
 logger = logging.getLogger(__name__)
@@ -530,11 +530,11 @@ def replicated(method: Callable[..., Any]) -> Callable[..., Any]:
         try:
             result = method(self, *args, **kwargs)
         except Exception:
-            self._raise_everywhere(method.__name__, failed=True)
+            raise_everywhere(self.mesh, True, method.__name__)
             raise
         finally:
             self._in_call = False
-        self._raise_everywhere(method.__name__, failed=False)
+        raise_everywhere(self.mesh, False, method.__name__)
         return result
 
     return call
@@ -663,20 +663,6 @@ class StepwiseEngineBase:
         if self._control is not None and self.mesh.is_leader and not self._released:
             self._send(("stop", (), {}))
             self._released = True
-
-    def _raise_everywhere(self, name: str, failed: bool) -> None:
-        """After a replicated call: one all-reduce over the control group of
-        the ranks that raised in it. Raise on a rank that did not, if any
-        did (a rank that did re-raises its own error)."""
-        import torch.distributed as dist
-
-        flags = torch.zeros(dist.get_world_size(self._control), dtype=torch.long)
-        flags[dist.get_rank(self._control)] = int(failed)
-        dist.all_reduce(flags, group=self._control)
-        if flags.any() and not failed:
-            ranks = [dist.get_global_rank(self._control, i)
-                     for i in flags.nonzero().flatten().tolist()]
-            raise RuntimeError(f"{name} raised on rank(s) {ranks} of the tensor-parallel engine")
 
     def _agree(self, values: List[int], what: str) -> None:
         """Raise on every rank unless every rank of the grid holds the same

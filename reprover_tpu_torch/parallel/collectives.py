@@ -140,6 +140,24 @@ def gather_model(local: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
     return gather_axis(local, axis, mesh, "model")
 
 
+def raise_everywhere(mesh: Mesh, failed: bool, what: str) -> None:
+    """After a step that may raise on some ranks and not on others: one
+    all-reduce of the ranks' failure flags over the mesh's ``control``
+    group, then raise on each rank that did not fail if any did (a rank
+    that failed calls this on its way out and re-raises its own error)."""
+    import torch.distributed as dist
+
+    if mesh.size < 2:
+        return
+    group = mesh.group("control")
+    flags = torch.zeros(dist.get_world_size(group), dtype=torch.long)
+    flags[dist.get_rank(group)] = int(failed)
+    dist.all_reduce(flags, group=group)
+    if flags.any() and not failed:
+        ranks = [dist.get_global_rank(group, i) for i in flags.nonzero().flatten().tolist()]
+        raise RuntimeError(f"{what} raised on rank(s) {ranks}")
+
+
 def broadcast_object(obj: Any, mesh: Mesh, src: int = 0) -> Any:
     """``obj`` of the ``data`` group's rank ``src`` on every rank (the
     mesh's coordinate ``src`` when it lists its ranks in order, as

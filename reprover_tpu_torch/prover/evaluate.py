@@ -18,10 +18,10 @@ unmodified in tests and in production.
 
 The CLI has the JAX one's flags and defaults, plus ``--device`` (default
 ``cuda``; raises when there is no card): ByT5 and decoder-only (LLaMA-family)
-checkpoints, ``--quantize [int8|int4]`` and ``--streaming`` (token-level
-continuous batching through :class:`StreamingInferenceService`). Not ported,
-and raising ``NotImplementedError`` when asked for: ``--approx`` (exact
-retrieval only).
+checkpoints, ``--quantize [int8|int4]``, ``--streaming`` (token-level
+continuous batching through :class:`StreamingInferenceService`) and
+``--approx`` (the JAX package's ``lax.approx_max_k`` retrieval; exact, as
+XLA computes it off a TPU: ``PremiseRetriever.load_hf``).
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ from reprover_tpu_torch.prover.environment import Environment, RepoSpec, Theorem
 from reprover_tpu_torch.prover.proof_search import SearchResult
 from reprover_tpu_torch.prover.search_tree import Status
 from reprover_tpu_torch.prover.tactic_generator import FixedTacticGenerator, TacticGenerator
-from reprover_tpu_torch.retrieval.retriever import APPROX_TODO
 
 logger = logging.getLogger(__name__)
 
@@ -191,7 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quantize", nargs="?", const="int8", default=False, choices=("int8", "int4"),
                         help="weight-only quantized generator serving: bare flag or 'int8' "
                         "(half the weight bytes), 'int4' (a quarter)")
-    parser.add_argument("--approx", action="store_true", help="not ported: raises")
+    parser.add_argument("--approx", action="store_true",
+                        help="approximate top-k retrieval (exact off a TPU, as in the JAX package)")
     parser.add_argument("--max-batch", type=int, default=8,
                         help="inference-service coalescing cap (requests per device batch)")
     parser.add_argument("--batch-window-ms", type=float, default=5.0,
@@ -242,8 +242,6 @@ def main(argv: Optional[List[str]] = None) -> float:
     args = build_parser().parse_args(argv)
     if not (args.gen_ckpt_path or args.tactic):
         raise SystemExit("one of --gen_ckpt_path or --tactic is required")
-    if args.approx:
-        raise NotImplementedError(APPROX_TODO)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
 
     from reprover_tpu_torch.models.t5 import resolve_device

@@ -27,8 +27,9 @@ package's rule): on a machine with ``n`` cards it launches
 ``torchrun`` (or in a process group its caller formed) it trains on the
 group's ranks, each on the same global batches, with ZeRO-sharded moments.
 ``--device cpu`` with ``torchrun``'s environment runs the same path over
-gloo. ``--data_parallel false`` trains on one card. Not ported (raises
-with a pointer into ROADMAP.md): ``--model.approx``.
+gloo. ``--data_parallel false`` trains on one card. ``--model.approx``
+(the JAX package's ``lax.approx_max_k`` retrieval) is accepted and exact,
+as XLA computes it off a TPU (``PremiseRetriever.load_hf``).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ class ModelConfig:
     num_retrieved: int = 100
     random_init: bool = False  # skip HF weights (tests/smoke)
     tiny: bool = False  # tiny geometry smoke model (cli_dummy.yaml analog)
-    approx: bool = False  # approximate top-k: not ported, raises
+    approx: bool = False  # lax.approx_max_k in the JAX package; exact here
     # Activation checkpointing per encoder layer (default ON, as in the JAX
     # package: byt5-small at the reference batch needs it to fit).
     remat: bool = True
@@ -114,10 +115,8 @@ def _build(cfg: RetrievalConfig, mesh: Any = None) -> Tuple[Any, Any, Any]:
         resolve_device,
     )
     from reprover_tpu_torch.retrieval.datamodule import RetrievalDataModule
-    from reprover_tpu_torch.retrieval.retriever import APPROX_TODO, PremiseRetriever
+    from reprover_tpu_torch.retrieval.retriever import PremiseRetriever
 
-    if cfg.model.approx:
-        raise NotImplementedError(APPROX_TODO)
     if cfg.model.loss not in ("mse", "infonce"):
         raise ValueError(f"--model.loss must be 'mse' or 'infonce', got {cfg.model.loss!r}")
     device = resolve_device(cfg.device)

@@ -10,7 +10,7 @@
 Any parameter update marks the corpus embeddings stale; queries re-index
 lazily. Under a data-parallel mesh (``mesh=``) each rank embeds every
 ``data``-th batch of the re-index and the embeddings are gathered, so every
-rank holds the one-device index. Approximate top-k is not ported.
+rank holds the one-device index.
 """
 
 from __future__ import annotations
@@ -34,11 +34,6 @@ from reprover_tpu_torch.models.t5 import (
 from reprover_tpu_torch.ops.pooling import masked_mean_normalize
 from reprover_tpu_torch.ops.topk import cosine_topk
 from reprover_tpu_torch.tokenizer import ByT5Tokenizer
-
-APPROX_TODO = (
-    "approximate top-k (--approx, lax.approx_max_k in the JAX package) is not "
-    "ported: the port's retrieval is exact (ROADMAP.md Queue 1 item 3)"
-)
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (corpus idxs, ids, mask)
 
@@ -78,17 +73,22 @@ class PremiseRetriever:
         num_retrieved: int = 100,
         compute_dtype: Optional[torch.dtype] = None,
         approximate: bool = False,
+        mesh: Any = None,
         device: Any = "cuda",
     ) -> "PremiseRetriever":
         """Load an HF retriever checkpoint (encoder-only or full T5);
-        ``compute_dtype`` defaults to bfloat16 on a card, float32 on the CPU."""
-        if approximate:
-            raise NotImplementedError(APPROX_TODO)
+        ``compute_dtype`` defaults to bfloat16 on a card, float32 on the CPU.
+        ``mesh``: a data-parallel mesh to re-index over. ``approximate``
+        (the JAX package's ``lax.approx_max_k``, recall target 0.99) is
+        accepted and gives the exact top-k: XLA computes ``approx_max_k`` as
+        the exact top-k, in ``lax.top_k``'s tie order, off a TPU, whose
+        partial sort is the only source of its speed-up."""
         dev = resolve_device(device)
         params, cfg = load_hf_t5(
             ckpt_dir, encoder_only=True, compute_dtype=compute_dtype or default_dtype(dev)
         )
-        return cls(place_params(fuse_mlp_params(params), cfg, dev), cfg, max_seq_len, num_retrieved)
+        return cls(place_params(fuse_mlp_params(params), cfg, dev), cfg, max_seq_len, num_retrieved,
+                   mesh=mesh)
 
     @property
     def embedding_size(self) -> int:
@@ -170,18 +170,26 @@ class PremiseRetriever:
     @torch.inference_mode()
     def _embed_tokenized(self, batches: List[Batch], n: int) -> torch.Tensor:
         """Embed pre-tokenized batches into a device ``[n, D]`` fp32 matrix in
-        corpus order. Launches are asynchronous; nothing waits on the device
-        until a caller reads the result. Under a mesh this rank embeds every
-        ``data``-th batch and the rows are gathered (each is written by one
-        rank: the sum is exact)."""
-        from reprover_tpu_torch.parallel.collectives import global_sum
+        corpus order. Launches are asynchronous; on one device nothing waits
+        on it until a caller reads the result. Under a mesh this rank embeds
+        every ``data``-th batch, a failure on any rank raises on every rank,
+        and the rows are gathered (each is written by one rank: the sum is
+        exact)."""
+        from reprover_tpu_torch.parallel.collectives import global_sum, raise_everywhere
 
         out = torch.zeros((n, self.embedding_size), dtype=torch.float32, device=self.device)
-        n_ranks = 1 if self.mesh is None else self.mesh.shape["data"]
-        mine = 0 if self.mesh is None else self.mesh.coord("data")
-        for idxs, ids, mask in batches[mine::n_ranks]:
-            out[torch.from_numpy(idxs).to(self.device)] = self._encode(ids, mask)
-        return out if self.mesh is None else global_sum(out, self.mesh)
+        if self.mesh is None:
+            for idxs, ids, mask in batches:
+                out[torch.from_numpy(idxs).to(self.device)] = self._encode(ids, mask)
+            return out
+        failed = True
+        try:
+            for idxs, ids, mask in batches[self.mesh.coord("data")::self.mesh.shape["data"]]:
+                out[torch.from_numpy(idxs).to(self.device)] = self._encode(ids, mask)
+            failed = False
+        finally:
+            raise_everywhere(self.mesh, failed, "re-indexing")
+        return global_sum(out, self.mesh)
 
     # -------------------------------------------------------------- #
     # Query

@@ -5,7 +5,8 @@ generation losses, held against three one-process steps on the global
 batch and against the JAX package's sharded step (``make_mesh(data=4)``
 on four virtual devices); their moments are ZeRO shards, on the host after
 ``offload_opt_state``; ``reindex_corpus`` under the mesh equals the one-rank
-index; ``retrieval.main fit`` on two ranks started with torchrun's
+index and the indexer CLI in the ranks' group writes one artifact, the
+one-process one; ``retrieval.main fit`` on two ranks started with torchrun's
 environment writes the one-rank fit's checkpoint; an indivisible
 tensor-parallel degree, a mesh without process groups and
 ``remat_policy='offload'`` under a mesh raise.
@@ -35,6 +36,7 @@ TINY = dict(d_model=32, d_kv=8, d_ff=64, num_heads=4, num_encoder_layers=2, num_
 RANKS, ROWS, STEPS, LR = 4, 2, 3, 1e-4  # global batch RANKS * ROWS
 LOSSES = ("retrieval_loss", "retrieval_infonce_loss", "generation_loss")
 RTOL = 2e-4  # loss and parameters (atol: RTOL x the leaf's largest magnitude)
+INDEXER_ARGS = ["--batch-size", "2", "--max-seq-len", "256", "--device", "cpu"]
 
 
 def _flat(tree, prefix=""):
@@ -113,7 +115,9 @@ def _train(params_np, loss_name, batches, mesh=None):
 
 def _worker(rank, init_file, work):
     """One of ``RANKS`` gloo ranks: the three losses' steps, the moments'
-    shapes, offloading, a sharded re-index and a 2x2 mesh's coordinates."""
+    shapes, offloading, a sharded re-index, the indexer CLI (each rank names
+    its own output) and a 2x2 mesh's coordinates."""
+    from reprover_tpu_torch.retrieval.indexer import main as index
     from reprover_tpu_torch.retrieval.retriever import PremiseRetriever
 
     cap_cpu_threads()
@@ -138,6 +142,8 @@ def _worker(rank, init_file, work):
     retriever.load_corpus(inputs["corpus"])
     retriever.reindex_corpus(batch_size=2)
     out["index"] = retriever.corpus_embeddings.clone()
+    index(["--ckpt-path", inputs["hf_ckpt"], "--corpus-path", inputs["corpus"],
+           "--output-path", os.path.join(work, f"indexed{rank}")] + INDEXER_ARGS)
     out["mesh22"] = make_mesh(data=2, model=2).coords
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     import torch.distributed as dist
@@ -153,6 +159,7 @@ def ranks(tmp_path_factory, toy_corpus_path):
     work = str(tmp_path_factory.mktemp("dp"))
     inputs = {name: dict(params=_jax_params(name), batches=_batches(name)) for name in LOSSES}
     inputs["corpus"] = toy_corpus_path
+    inputs["hf_ckpt"] = _export_hf_retriever(work)
     torch.save(inputs, os.path.join(work, "inputs.pt"))
     spawned = mp.spawn(_worker, args=(os.path.join(work, "rendezvous"), work), nprocs=RANKS,
                        join=False)
@@ -167,6 +174,21 @@ def ranks(tmp_path_factory, toy_corpus_path):
     outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
             for r in range(RANKS)]
     return inputs, outs, refs
+
+
+def _export_hf_retriever(work):
+    """A tiny encoder-only HF checkpoint of seeded JAX parameters."""
+    import jax
+
+    from reprover_tpu.models.hf_import import export_hf_t5
+    from reprover_tpu.models import t5 as jt5
+
+    cfg = jt5.T5Config(**TINY)
+    full = jt5.init_params(jax.random.PRNGKey(9), cfg)
+    out = os.path.join(work, "hf_retriever")
+    export_hf_t5({"shared_embedding": full["shared_embedding"], "encoder": full["encoder"]}, cfg,
+                 out, encoder_only=True)
+    return out
 
 
 def _jax_mesh_steps(params_np, loss_name, batches):
@@ -278,6 +300,26 @@ def test_sharded_reindex_and_mesh_coordinates(ranks, toy_corpus_path):
                                    atol=1e-5, err_msg=f"rank {r}")
         assert out["coords"] == (r, 0)
         assert out["mesh22"] == (r // 2, r % 2)
+
+
+def test_indexer_on_ranks_writes_the_one_process_artifact(ranks, tmp_path):
+    """``retrieval.indexer`` run by each of the ranks in their group: only
+    the first rank's output exists, and it equals the indexer's on one
+    process (corpus order, embeddings within 1e-5)."""
+    from reprover_tpu_torch.data import IndexedCorpus
+    from reprover_tpu_torch.retrieval.indexer import main as index
+
+    inputs, outs, _ = ranks
+    work = os.path.dirname(inputs["hf_ckpt"])
+    written = sorted(n for n in os.listdir(work) if n.startswith("indexed"))
+    assert written == ["indexed0"], written
+    one = str(tmp_path / "one")
+    index(["--ckpt-path", inputs["hf_ckpt"], "--corpus-path", inputs["corpus"],
+           "--output-path", one] + INDEXER_ARGS)
+    got, want = IndexedCorpus.load(os.path.join(work, "indexed0")), IndexedCorpus.load(one)
+    assert [p.full_name for p in got.corpus.all_premises] == [
+        p.full_name for p in want.corpus.all_premises]
+    np.testing.assert_allclose(got.embeddings, want.embeddings, atol=1e-5, rtol=0)
 
 
 def test_tensor_parallel_and_offload_remat_raise_under_a_mesh():

@@ -64,6 +64,10 @@ NEW_MODULES = (
     # Sequence parallelism: the ring and its timing script.
     "reprover_tpu_torch.ops.ring_attention",
     "reprover_tpu_torch.benchmarks.sequence_parallel_encode",
+    # The indexer on every card: its scaling script; the served request's
+    # beam search of one checkout.
+    "reprover_tpu_torch.benchmarks.indexer_scaling",
+    "reprover_tpu_torch.benchmarks.beam_decode_step",
 )
 
 

@@ -273,7 +273,6 @@ def test_config_depth2_override_keeps_customized_grandchild():
 
 
 @pytest.mark.parametrize("argv_extra, error", [
-    (["--model.approx", "true"], NotImplementedError),
     (["--model.loss", "hinge"], ValueError),
 ])
 def test_cli_rejects_unported_options(toy_corpus_path, toy_dataset_dir, argv_extra, error):
