@@ -87,8 +87,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     whose loss must fall, timed by part with CUDA events, peak memory, and
     each attention kernel's share of a profiled step;
 12. serving kernels vs plain: the beam-reorder kernel at the byt5-small
-    and LLaMA-7B engine caches (full and short ``T_live``, a frozen slot),
-    bit-equal to its plain version; the w8a16 and w4a16 kernels at every
+    and LLaMA-7B engine caches (``T_live`` T and T/4, and T/8 for
+    byt5-small; a frozen slot, int64 indices), bit-equal to its plain
+    version by default and with each of its branches forced, one kernel
+    launched a call; the w8a16 and w4a16 kernels at every
     routed LLaMA-7B weight shape at decode (M = 32) and admission rows,
     bf16 within 2e-2 * max(1, max|ref|), every output row within 2e-2 of
     its own max|ref|, two launches bit-equal, each on a tensor-core body;
@@ -560,8 +562,10 @@ def phase_sass() -> dict:
     attention forward, dQ and dK/dV kernels and every decode and admission
     body of the quantized products runs its products on the tensor cores
     (HGMMA, Hopper's warpgroup MMA), unserialized (fewer waits than
-    HGMMAs), and every fp32 attention instantiation keeps the FMA body (no
-    HGMMA, no HMMA); raises otherwise, or if an instantiation is missing."""
+    HGMMAs), every fp32 attention instantiation keeps the FMA body (no
+    HGMMA, no HMMA), and both instantiations of the beam reorder hold the
+    bulk copies (UBLKCP); raises otherwise, or if an instantiation is
+    missing."""
     from reprover_tpu_torch.ops.native import BuildInfo, cuda_tool
 
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", BuildInfo.path],
@@ -593,9 +597,37 @@ def phase_sass() -> dict:
         faults.append(f"quant kernels: {len(tma)} tensor-core instantiations (want "
                       f"{QUANT_TMA_INSTANCES}); no HGMMA or serialized products in {bad}")
     report["quant"] = by_body
+    # Kernel 13: both index instantiations carry the bulk-copy branch:
+    # cp.async.bulk loads (UBLKCP.S.G, global to shared) and stores
+    # (UBLKCP.G.S) in the machine code.
+    bulk = sass_bulk_copies(sass)
+    log(f"[sass] reorder_append_kernel bulk copies {json.dumps(bulk)}")
+    if len(bulk) != 2 or not all(c.get("UBLKCP.S.G") and c.get("UBLKCP.G.S")
+                                 for c in bulk.values()):
+        faults.append(f"reorder_append_kernel: {len(bulk)} instantiations (want 2), bulk-copy "
+                      f"opcodes {bulk}")
+    report["beam_reorder"] = bulk
     if faults:
         raise AssertionError(f"machine code: {faults}")
     return report
+
+
+def sass_bulk_copies(sass: str) -> dict:
+    """``{instantiation: {opcode: count}}`` of the bulk-copy instructions
+    (``UBLKCP``: ``cp.async.bulk``, both directions) in each
+    ``reorder_append_kernel`` of ``cuobjdump -sass`` output."""
+    counts: dict = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = name if "reorder_append_kernel" in name else None
+            if current is not None:
+                counts[current] = {}
+        elif current is not None:
+            for op in re.findall(r"\bUBLKCP[.\w]*", line):
+                counts[current][op] = counts[current].get(op, 0) + 1
+    return counts
 
 
 def _sync(device) -> None:
@@ -2078,13 +2110,39 @@ def _time_cold_ms(fn, copies: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _reorder_rows_fresh(shapes: list, seed: int) -> list:
+    """``_reorder_row`` at each of ``shapes`` (full ``T_live``), made in a
+    fresh process. Phase 29 takes its rows from there: in the smoke's own
+    process the profiler recorded no device activity after phase 28 (seen
+    on the card; the cause is not found), so a profiled call there cannot
+    count launches."""
+    code = ("import json, torch, chip_smoke; d = torch.device('cuda'); "
+            f"g = torch.Generator(device=d).manual_seed({seed}); "
+            f"print(json.dumps([chip_smoke._reorder_row(d, s, s[4], g) for s in {shapes!r}]))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"kernel 13's phase 29 rows failed ({proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def _reorder_row(device, shape, t_live: int, gen) -> dict:
-    """Kernel 13 at one engine shape (bf16, a frozen slot, ``t_live`` of the
-    buffer's T columns): bit-equality with the plain version, times of the
-    kernel, the plain version and ``index_select`` + the column write."""
+    """Kernel 13 at one engine shape (bf16, int64 parents and positions, a
+    frozen slot, ``t_live`` of the buffer's T columns): bit-equality with the
+    plain version, by the kernel's default and with each branch forced
+    (``VECTOR_ROW_BYTES``); the kernels one call launches (exactly one) and
+    their device ms, from a profiled run; ms by CUDA events, queued ms and
+    host us a call (``kernel_timing.queued_ms``); times of the plain
+    version, ``index_select`` + the column write and the engine's einsum and
+    scan modes; the bound (distinct parents read once) and the bound that
+    reads a parent once for every child."""
     import torch
 
+    from reprover_tpu_torch.generation import engine as te
     from reprover_tpu_torch.ops import beam_reorder as br
+    from reprover_tpu_torch.ops.kernel_timing import (index_select_reorder, profile_calls,
+                                                      queued_ms, reorder_bound_ms)
 
     L, S, K, H, T, d = shape
     dt = torch.bfloat16
@@ -2098,43 +2156,42 @@ def _reorder_row(device, shape, t_live: int, gen) -> dict:
     out_k, out_v = torch.zeros_like(k), torch.zeros_like(v)
     args = (k[..., :t_live, :], v[..., :t_live, :], kc, vc, parent, frozen, pos)
     outs = (out_k[..., :t_live, :], out_v[..., :t_live, :])
-    br.reorder_append_gather(*args, *outs)
     want = br.reorder_append_gather_reference(*args)
-    torch.cuda.synchronize()
-    bit_equal = bool(torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1]))
-    err = max((outs[0].float() - want[0].float()).abs().max().item(),
-              (outs[1].float() - want[1].float()).abs().max().item())
+    default, bit_equal, err = br.VECTOR_ROW_BYTES, {}, 0.0
+    try:
+        for branch, value in (("default", default), ("bulk", 1 << 30), ("vector", 16)):
+            br.VECTOR_ROW_BYTES = value
+            out_k.zero_(), out_v.zero_()
+            br.reorder_append_gather(*args, *outs)
+            torch.cuda.synchronize()
+            bit_equal[branch] = bool(torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1]))
+            err = max(err, (outs[0].float() - want[0].float()).abs().max().item(),
+                      (outs[1].float() - want[1].float()).abs().max().item())
+    finally:
+        br.VECTOR_ROW_BYTES = default
     del want
-    eff = br.parent_effective(parent, frozen)
-    flat_idx = (torch.arange(S, device=device)[:, None] * K + eff).reshape(-1)
-    slot_ix = torch.arange(S, device=device)[:, None]
-
-    live = torch.nonzero(pos < t_live)[:, 0]
-
-    def library():
-        for cache, col in ((k, kc), (v, vc)):
-            out = torch.index_select(cache[..., :t_live, :].reshape(L, S * K, H, t_live, d), 1,
-                                     flat_idx).view(L, S, K, H, t_live, d)
-            cols = col[:, slot_ix, eff][:, :, :, :, 0].permute(1, 0, 2, 3, 4)  # [S, L, K, H, d]
-            out.permute(1, 4, 0, 2, 3, 5)[live, pos[live]] = cols[live]
-
+    library = index_select_reorder(br, *args)
     iters = 10
+    kernel = lambda: br.reorder_append_gather(*args, *outs)  # noqa: E731
+    device_ms, launches = profile_calls(kernel, iters)
+    queued, host_us = queued_ms(lambda i: kernel(), 1, iters)
     row = dict(kernel="beam_reorder", shape=list(shape), t_live=t_live, dtype="bfloat16",
-               bit_equal=bit_equal, max_abs_err=err,
-               ms=_time_ms(lambda: br.reorder_append_gather(*args, *outs), iters),
+               span_bytes=t_live * d * 2, branch="bulk" if d * 2 < default else "vector",
+               bit_equal=bit_equal, max_abs_err=err, launches_per_call=launches,
+               ms=_time_ms(kernel, iters), device_ms=device_ms, queued_ms=queued, host_us=host_us,
                plain_ms=_time_ms(lambda: br.reorder_append_gather_reference(*args), iters),
                library_ms=_time_ms(library, iters))
-    if t_live == T:  # the engine's two plain modes, for AUTO_SCAN_CACHE_BYTES
-        from reprover_tpu_torch.generation import engine as te
-
-        row["einsum_ms"] = _time_ms(lambda: (te.reorder_append(k, kc, parent, frozen, pos),
-                                             te.reorder_append(v, vc, parent, frozen, pos)), 3)
-        row["scan_ms"] = _time_ms(
-            lambda: te.reorder_append_scan(k, v, kc, vc, parent, frozen, pos), 3)
-        row["auto_resolves_to"] = te.resolve_reorder_mode("auto", 2 * k.numel() * 2)
-    nbytes = 2 * 2 * L * S * K * H * t_live * d * 2 + 2 * L * S * K * H * d * 2
-    row["bound_ms"], row["bound_by"] = 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
-    row["ok"] = bit_equal
+    # The engine's two plain modes (for AUTO_SCAN_CACHE_BYTES); scan last:
+    # it rewrites the caches.
+    row["einsum_ms"] = _time_ms(lambda: (te.reorder_append(args[0], kc, parent, frozen, pos),
+                                         te.reorder_append(args[1], vc, parent, frozen, pos)), 3)
+    row["scan_ms"] = _time_ms(
+        lambda: te.reorder_append_scan(args[0], args[1], kc, vc, parent, frozen, pos), 3)
+    row["auto_resolves_to"] = te.resolve_reorder_mode("auto", 2 * args[0].numel() * 2)
+    row["bound_ms"], row["bound_all_parents_ms"] = reorder_bound_ms(shape, t_live, parent,
+                                                                    frozen, 2)
+    row["bound_by"] = "bytes"
+    row["ok"] = all(bit_equal.values()) and launches == 1
     return row
 
 
@@ -2260,7 +2317,8 @@ def _quant_row(device, bits: int, m: int, k: int, n: int, gen, tp: int = 1,
 
 def phase_serving_kernels(device, byt5_shape) -> list:
     """Phase 12: kernel 13 at the byt5-small and LLaMA-7B engine shapes
-    (full and short ``T_live``), bit-equal to its plain version; kernels 11
+    (``T_live`` T and T/4, and T/8 for byt5-small), bit-equal to its plain
+    version with either branch, one kernel a call; kernels 11
     and 12 at every routed LLaMA-7B weight shape at decode (M = 32) and
     admission (``LLAMA_ADMIT_ROWS``) rows, within 2e-2 * max(1, max|ref|),
     each row within 2e-2 of its own max|ref|, two launches bit-equal, and
@@ -2271,9 +2329,11 @@ def phase_serving_kernels(device, byt5_shape) -> list:
     gen = torch.Generator(device=device).manual_seed(12)
     rows = []
     llama = (32, LLAMA["num_slots"], LLAMA["num_beams"], 32, LLAMA["dec"], 128)
-    for shape in (tuple(byt5_shape), llama):
-        for t_live in (shape[4], max(1, shape[4] // 4)):
-            row = _reorder_row(device, shape, t_live, gen)
+    byt5_t = byt5_shape[4]
+    for shape, lives in ((tuple(byt5_shape), (byt5_t, byt5_t // 4, byt5_t // 8)),
+                         (llama, (llama[4], llama[4] // 4))):
+        for t_live in lives:
+            row = _reorder_row(device, shape, max(1, t_live), gen)
             log(f"[serving_kernel] {json.dumps(row)}")
             rows.append(row)
             torch.cuda.empty_cache()
@@ -4471,12 +4531,12 @@ def phase_tensor_parallel(device, work: str, bench: str, tiny: bool = False) -> 
                 kernel_rows.append(_quant_row(device, bits, m, 4096, 4096, gen, TP["ranks"],
                                               False))
                 log(f"[tp_kernel] {json.dumps(kernel_rows[-1])}")
-        for shape in ([4, tp["slots"], tp["beams"], 6 // TP["ranks"], tp["dec"], 64],
-                      [32, tp["llama_slots"], tp["llama_beams"], 32 // TP["ranks"],
-                       tp["llama_dec"], 128]):
-            kernel_rows.append(_reorder_row(device, tuple(shape), shape[4], gen))
-            log(f"[tp_kernel] {json.dumps(kernel_rows[-1])}")
-            torch.cuda.empty_cache()
+        shapes = [(4, tp["slots"], tp["beams"], 6 // TP["ranks"], tp["dec"], 64),
+                  (32, tp["llama_slots"], tp["llama_beams"], 32 // TP["ranks"], tp["llama_dec"],
+                   128)]
+        for row in _reorder_rows_fresh(shapes, 29):
+            kernel_rows.append(row)
+            log(f"[tp_kernel] {json.dumps(row)}")
         _check_rows(kernel_rows, "the tensor-parallel shard shapes' kernels do")
         off = [(r["kernel"], r["M"], r["K"], r["N"], r["body"]) for r in kernel_rows
                if "body" in r and r["body"] != "tma"]
@@ -4611,11 +4671,14 @@ def serving_entry(name: str, rows: list, launches: int, llama_cache: list) -> di
     128] cache for kernel 13); kernels 11/12 also at the admission wave's
     rows (``admission_*``, 4096 x 11008 at M = 2044), and ``device_ms``
     beside ``ms``: the products queued behind a device sleep, without the
-    host's enqueue."""
+    host's enqueue; for kernel 13 the profiler's device ms, the host us a
+    call and the bound that reads a parent once for every child."""
     mine = [r for r in rows if r["kernel"] == name]
     extra = {}
     if name == "beam_reorder":
         at = next(r for r in mine if r["shape"] == llama_cache and r["t_live"] == llama_cache[4])
+        extra = {"device_ms": at["device_ms"], "host_us": at["host_us"],
+                 "bound_all_parents_ms": at["bound_all_parents_ms"]}
     else:
         at = next(r for r in mine if (r["M"], r["K"], r["N"]) == (
             LLAMA["num_slots"] * LLAMA["num_beams"], 4096, 11008))

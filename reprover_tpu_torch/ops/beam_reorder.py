@@ -18,8 +18,7 @@ bucket): only that prefix is read and written.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -75,6 +74,17 @@ def _t_full(x: torch.Tensor, name: str) -> int:
     return t_full
 
 
+#: Index dtypes the kernel reads as they are (``cont_parent`` and ``pos``
+#: share one), with their widths in bytes; ``frozen`` is bool.
+INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
+
+#: Rows (``d`` elements, in bytes) narrower than this move by the kernel's
+#: bulk copies, wider ones by its vector branch: the choice is made inside
+#: the kernel, by what the card measured (see ``csrc/beam_reorder.cu``). A
+#: check forces one branch with 1 << 30 (bulk) or 16 (vector).
+VECTOR_ROW_BYTES = 256
+
+
 def _check(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
@@ -85,37 +95,49 @@ def _check(
     cont_parent: torch.Tensor,
     frozen: torch.Tensor,
     pos: torch.Tensor,
-) -> int:
-    if k_cache.dim() != 6:
-        raise ValueError(f"beam_reorder: caches must be [L, S, K, H, T, d], got {tuple(k_cache.shape)}")
-    l, s, k, h, t, d = k_cache.shape
-    for name, x in (("v_cache", v_cache), ("out_k", out_k), ("out_v", out_v)):
-        if x.shape != k_cache.shape:
-            raise ValueError(f"beam_reorder: {name} shape {tuple(x.shape)} != {tuple(k_cache.shape)}")
-    for name, x in (("k_col", k_col), ("v_col", v_col)):
-        if tuple(x.shape) != (l, s, k, h, 1, d) or not x.is_contiguous():
-            raise ValueError(f"beam_reorder: {name} must be contiguous [{l}, {s}, {k}, {h}, 1, {d}]")
-    tensors = (k_cache, v_cache, k_col, v_col, out_k, out_v)
-    if any(x.dtype != k_cache.dtype for x in tensors):
+) -> Tuple[int, Tuple[int, ...]]:
+    """Raise on what the kernel does not take; returns the buffers' full
+    column count and the six data pointers. Every call reads each operand's
+    attributes once (this runs at each engine step)."""
+    shape = k_cache.shape
+    if len(shape) != 6:
+        raise ValueError(f"beam_reorder: caches must be [L, S, K, H, T, d], got {tuple(shape)}")
+    l, s, k, h, t, d = shape
+    strides = k_cache.stride()
+    if not (v_cache.shape == out_k.shape == out_v.shape == shape
+            and v_cache.stride() == out_k.stride() == out_v.stride() == strides):
+        raise ValueError(f"beam_reorder: v_cache, out_k and out_v must have the caches' shape "
+                         f"{tuple(shape)} and buffer layout {strides}")
+    t_full = _t_full(k_cache, "k_cache")
+    col = (l, s, k, h, 1, d)
+    if not (k_col.shape == v_col.shape == col and k_col.is_contiguous()
+            and v_col.is_contiguous()):
+        raise ValueError(f"beam_reorder: k_col and v_col must be contiguous [{l}, {s}, {k}, {h}, "
+                         f"1, {d}]")
+    if not (v_cache.dtype == k_col.dtype == v_col.dtype == out_k.dtype == out_v.dtype
+            == k_cache.dtype):
         raise ValueError("beam_reorder: caches, columns and outputs must share one dtype")
-    if any(x.device != k_cache.device for x in tensors + (cont_parent, frozen, pos)):
+    index = cont_parent.dtype
+    if index not in INDEX_BYTES or pos.dtype != index or frozen.dtype != torch.bool:
+        raise ValueError(f"beam_reorder: cont_parent and pos must be both int64 or both int32 and "
+                         f"frozen bool, got {index}, {pos.dtype}, {frozen.dtype}")
+    if not (cont_parent.shape == (s, k) and frozen.shape == pos.shape == (s,)
+            and cont_parent.is_contiguous() and frozen.is_contiguous() and pos.is_contiguous()):
+        raise ValueError("beam_reorder: cont_parent must be contiguous [S, K], frozen and pos [S]")
+    device = k_cache.get_device()
+    if not (v_cache.get_device() == k_col.get_device() == v_col.get_device()
+            == out_k.get_device() == out_v.get_device() == cont_parent.get_device()
+            == frozen.get_device() == pos.get_device() == device):
         raise ValueError("beam_reorder: every operand must be on one device")
-    if tuple(cont_parent.shape) != (s, k) or tuple(frozen.shape) != (s,) or tuple(pos.shape) != (s,):
-        raise ValueError("beam_reorder: cont_parent must be [S, K], frozen and pos [S]")
+    ptrs = (k_cache.data_ptr(), v_cache.data_ptr(), k_col.data_ptr(), v_col.data_ptr(),
+            out_k.data_ptr(), out_v.data_ptr())
     row_bytes = d * k_cache.element_size()
-    if row_bytes % 16 or any(x.data_ptr() % 16 for x in tensors):
+    if row_bytes % 16 or (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4] | ptrs[5]) % 16:
         raise ValueError(f"beam_reorder: rows of {row_bytes} bytes or unaligned data: the kernel "
                          "copies 16-byte vectors")
-    if out_k.data_ptr() in (k_cache.data_ptr(), v_cache.data_ptr()) or out_v.data_ptr() in (
-            k_cache.data_ptr(), v_cache.data_ptr()):
+    if ptrs[4] in ptrs[:2] or ptrs[5] in ptrs[:2]:
         raise ValueError("beam_reorder: a permutation cannot be done in place")
-    t_full = _t_full(k_cache, "k_cache")
-    for name, x in (("v_cache", v_cache), ("out_k", out_k), ("out_v", out_v)):
-        if _t_full(x, name) != t_full:
-            raise ValueError("beam_reorder: caches and outputs must share one buffer layout")
-    if h > 65535:
-        raise ValueError("beam_reorder: at most 65535 heads")
-    return t_full
+    return t_full, ptrs
 
 
 def reorder_append_gather(
@@ -123,15 +145,17 @@ def reorder_append_gather(
     v_cache: torch.Tensor,
     k_col: torch.Tensor,  # [L, S, K, H, 1, d]
     v_col: torch.Tensor,
-    cont_parent: torch.Tensor,  # [S, K] int, in [0, K)
+    cont_parent: torch.Tensor,  # [S, K] int64 or int32, in [0, K)
     frozen: torch.Tensor,  # [S] bool
-    pos: torch.Tensor,  # [S] int
+    pos: torch.Tensor,  # [S], cont_parent's dtype
     out_k: Optional[torch.Tensor] = None,
     out_v: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both caches permuted by the beam parents with the fresh column
     installed, written into ``out_k``/``out_v`` (allocated when None; only
-    the ``T`` columns given are written) and returned."""
+    the ``T`` columns given are written) and returned. The index tensors are
+    read as they are: ``cont_parent`` and ``pos`` contiguous int64 (the
+    engines') or int32, ``frozen`` bool; any other dtype raises."""
     if out_k is None or out_v is None:
         if k_cache.dim() != 6:
             raise ValueError(f"beam_reorder: caches must be [L, S, K, H, T, d], got "
@@ -141,27 +165,35 @@ def reorder_append_gather(
         fresh = lambda: k_cache.new_empty(full)[:, :, :, :, :t]  # noqa: E731
         out_k = fresh() if out_k is None else out_k
         out_v = fresh() if out_v is None else out_v
-    t_full = _check(k_cache, v_cache, k_col, v_col, out_k, out_v, cont_parent, frozen, pos)
-    if k_cache.device.type == "cpu":
+    t_full, ptrs = _check(k_cache, v_cache, k_col, v_col, out_k, out_v, cont_parent, frozen,
+                          pos)
+    device = k_cache.get_device()
+    if device < 0:
         new_k, new_v = reorder_append_gather_reference(
             k_cache, v_cache, k_col, v_col, cont_parent, frozen, pos)
         out_k.copy_(new_k)
         out_v.copy_(new_v)
         return out_k, out_v
-    from reprover_tpu_torch.ops.flash_attention import _ptr, _raise_on_error
-    from reprover_tpu_torch.ops.native import load_library
-
-    lib = load_library()
     l, s, k, h, t, d = k_cache.shape
-    parent32 = cont_parent.to(torch.int32).contiguous()
-    frozen32 = frozen.to(torch.int32).contiguous()
-    pos32 = pos.to(torch.int32).contiguous()
-    stream = torch.cuda.current_stream(k_cache.device).cuda_stream
-    err = lib.beam_reorder_append(
-        _ptr(k_cache), _ptr(v_cache), _ptr(k_col), _ptr(v_col), _ptr(out_k), _ptr(out_v),
-        _ptr(parent32), _ptr(frozen32), _ptr(pos32), l, s, k, h, t_full, t,
-        d * k_cache.element_size(), ctypes.c_void_p(stream),
-    )
-    _raise_on_error(lib, err, "beam_reorder")
+    err = _entry()(*ptrs, cont_parent.data_ptr(), frozen.data_ptr(), pos.data_ptr(), l, s, k, h,
+                   t_full, t, d * k_cache.element_size(), INDEX_BYTES[pos.dtype],
+                   VECTOR_ROW_BYTES, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        from reprover_tpu_torch.ops.flash_attention import _raise_on_error
+        from reprover_tpu_torch.ops.native import load_library
+
+        _raise_on_error(load_library(), err, "beam_reorder")
     KERNEL_LAUNCHES["beam_reorder"] += 1
     return out_k, out_v
+
+
+_ENTRY: list = []
+
+
+def _entry() -> Callable[..., int]:
+    """The library's ``beam_reorder_append``, built and loaded at first use."""
+    if not _ENTRY:
+        from reprover_tpu_torch.ops.native import load_library
+
+        _ENTRY.append(load_library().beam_reorder_append)
+    return _ENTRY[0]

@@ -36,6 +36,18 @@ process, on one card: times from two cards do not compare. ``--engine N``
 adds N samples of the LLaMA-7B int4 streaming engine (seeded random
 weights at full width, 4 slots x 8 beams, prompts of 512 tokens): the
 admission wave's ms and the next 32 steps' ms per step, host clock.
+``--reorder LxSxKxHxTxd[:T_live]`` (repeatable) adds kernel 13, the beam-cache
+reorder, on the ``T_live`` prefix (all T by default) of bf16 caches made from
+a seed (int64 parents and positions, a frozen slot, the engines' dtypes) and
+cycled over copies past the L2 cache: one JSON line a shape with
+``device_ms`` (the profiler's sum over every kernel one call launches),
+``launches`` (kernels a call launches), ``queued_ms`` and ``host_us`` as
+above, ``bound_ms`` (a new beam's rows written once and each distinct
+parent's read once, at 3.35 TB/s; ``bound_all_parents_ms`` reads a parent
+once a child), ``library_ms`` (``index_select`` and the column write), the engine's
+``einsum_ms`` and ``scan_ms`` (queued), and whether the result is bit-equal
+to the plain version; where the checkout's wrapper has
+``VECTOR_ROW_BYTES``, also each branch forced (``bulk_*``, ``vector_*``).
 """
 
 from __future__ import annotations
@@ -357,6 +369,165 @@ def time_engine(samples: int, seed: int, cfg: object = None, device: str = "cuda
             "steps_per_sample": steps, "admit_ms": admit_ms, "ms_per_step": step_ms}
 
 
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def parse_reorder(spec: str) -> Tuple[Tuple[int, ...], int]:
+    """``"LxSxKxHxTxd[:T_live]"`` -> ``((L, S, K, H, T, d), T_live)``."""
+    dims, _, live = spec.partition(":")
+    parts = dims.split("x")
+    if len(parts) != 6 or not all(p.isdigit() and int(p) > 0 for p in parts) or (
+            live and not (live.isdigit() and 0 < int(live) <= int(parts[4]))):
+        raise ValueError(f"--reorder wants LxSxKxHxTxd[:T_live] with 0 < T_live <= T, got {spec!r}")
+    shape = tuple(int(p) for p in parts)
+    return shape, int(live) if live else shape[4]
+
+
+def reorder_bound_ms(shape: Tuple[int, ...], t_live: int, parent: "torch.Tensor",
+                     frozen: "torch.Tensor", itemsize: int) -> Tuple[float, float]:
+    """Kernel 13's bound at 3.35 TB/s: ``(this call's, every child's)``. A
+    call must write every new beam's ``t_live`` rows of both caches and read
+    each distinct parent's once (its row ``pos`` from the column instead),
+    so the first counts the distinct effective parents of each slot; the
+    second reads a parent's rows once for every child, and the column."""
+    import torch
+
+    L, S, K, H, _, d = shape
+    row = d * itemsize
+    eff = torch.where(frozen[:, None].bool(), torch.arange(K, device=parent.device)[None, :],
+                      parent.long())
+    distinct = int(torch.zeros((S, K), device=parent.device).scatter_(1, eff, 1.0).sum().item())
+    written = 2 * L * S * K * H * t_live * row
+    needed = written + 2 * L * distinct * H * t_live * row
+    every = 2 * written + 2 * L * S * K * H * row
+    return 1e3 * needed / PEAK_BYTES_PER_S, 1e3 * every / PEAK_BYTES_PER_S
+
+
+def index_select_reorder(br: object, k: "torch.Tensor", v: "torch.Tensor", kc: "torch.Tensor",
+                         vc: "torch.Tensor", parent: "torch.Tensor", frozen: "torch.Tensor",
+                         pos: "torch.Tensor") -> Callable[[], None]:
+    """Kernel 13's library yardstick on the ``T_live`` caches ``k``/``v``:
+    a call that reorders each by ``torch.index_select`` and writes the
+    columns with one indexed assignment (timed only; the port never calls
+    it)."""
+    import torch
+
+    L, S, K, H, t_live, d = k.shape
+    eff = br.parent_effective(parent, frozen)
+    flat_idx = (torch.arange(S, device=k.device)[:, None] * K + eff).reshape(-1)
+    slot_ix = torch.arange(S, device=k.device)[:, None]
+    live = torch.nonzero(pos < t_live)[:, 0]
+
+    def library() -> None:
+        for cache, col in ((k, kc), (v, vc)):
+            out = torch.index_select(cache.reshape(L, S * K, H, t_live, d), 1,
+                                     flat_idx).view(L, S, K, H, t_live, d)
+            cols = col[:, slot_ix, eff][:, :, :, :, 0].permute(1, 0, 2, 3, 4)  # [S, L, K, H, d]
+            out.permute(1, 4, 0, 2, 3, 5)[live, pos[live]] = cols[live]
+
+    return library
+
+
+def profile_calls(fn: Callable[[], object], iters: int) -> Tuple[float, float]:
+    """``(device ms a call, kernels a call)`` of ``fn``: the profiler's
+    records of ``iters`` calls, each kernel's mean time by its launches a
+    call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: Dict[str, List[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    # A kernel's launches a call, rounded: the profiler now and then drops a
+    # record of a long run, which would read as a fraction of a launch.
+    per_call = {name: round(len(us) / iters) for name, us in by_name.items()}
+    return (sum(sum(us) / len(us) * per_call[name] for name, us in by_name.items()) / 1e3,
+            float(sum(per_call.values())))
+
+
+def time_reorder(br: object, te: object, shape: Tuple[int, ...], t_live: int, iters: int,
+                 seed: int) -> Dict[str, object]:
+    """Kernel 13 through ``br.reorder_append_gather`` at ``shape`` bf16 over
+    its first ``t_live`` columns, beside ``index_select`` and the engine's
+    plain modes, on operand sets cycled past the L2 cache."""
+    import torch
+
+    L, S, K, H, T, d = shape
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    live = L * S * K * H * t_live * d * 2  # bytes of one cache's live prefix
+    copies = max(1, -(-3 * L2_BYTES // (4 * live)))
+    sets = []
+    for _ in range(copies):
+        k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(2))
+        kc, vc = (torch.randn((L, S, K, H, 1, d), generator=gen, device="cuda").to(dt)
+                  for _ in range(2))
+        sets.append((k, v, kc, vc, torch.zeros_like(k), torch.zeros_like(v)))
+    parent = torch.randint(0, K, (S, K), generator=gen, device="cuda")
+    frozen = torch.zeros(S, dtype=torch.bool, device="cuda")
+    frozen[-1] = True
+    pos = torch.randint(0, t_live, (S,), generator=gen, device="cuda")
+    cut = (slice(None),) * 4 + (slice(0, t_live),)
+    views = [(k[cut], v[cut], kc, vc, ok[cut], ov[cut]) for k, v, kc, vc, ok, ov in sets]
+
+    def call(i: int) -> object:  # the wrapper alone: the views are cut once
+        k, v, kc, vc, ok, ov = views[i]
+        return br.reorder_append_gather(k, v, kc, vc, parent, frozen, pos, ok, ov)
+
+    def check() -> bool:
+        k, v, kc, vc, ok, ov = sets[0]
+        ok.zero_(), ov.zero_()
+        call(0)
+        want = br.reorder_append_gather_reference(k[cut], v[cut], kc, vc, parent, frozen, pos)
+        return bool(torch.equal(ok[cut], want[0]) and torch.equal(ov[cut], want[1]))
+
+    def measure(prefix: str) -> Dict[str, object]:
+        queued, host_us = queued_ms(call, copies, iters)
+        device, launches = profile_calls(lambda: [call(i) for i in range(copies)], iters)
+        return {f"{prefix}bit_equal": check(), f"{prefix}device_ms": device / copies,
+                f"{prefix}launches": launches / copies, f"{prefix}queued_ms": queued,
+                f"{prefix}host_us": host_us}
+
+    row: Dict[str, object] = {"shape": list(shape), "t_live": t_live, "dtype": "bfloat16",
+                              "copies": copies}
+    row.update(measure(""))
+    knob = getattr(br, "VECTOR_ROW_BYTES", None)
+    if knob is not None:
+        try:
+            for branch, value in (("bulk", 1 << 30), ("vector", 16)):
+                br.VECTOR_ROW_BYTES = value
+                row.update(measure(f"{branch}_"))
+        finally:
+            br.VECTOR_ROW_BYTES = knob
+    row["span_bytes"], row["row_bytes"] = t_live * d * 2, d * 2
+    row["bound_ms"], row["bound_all_parents_ms"] = reorder_bound_ms(shape, t_live, parent, frozen,
+                                                                    2)
+    row["bound_by"] = "bytes"
+
+    libraries = [index_select_reorder(br, k, v, kc, vc, parent, frozen, pos)
+                 for k, v, kc, vc, _, _ in views]
+
+    def einsum(i: int) -> None:
+        k, v, kc, vc, _, _ = sets[i]
+        te.reorder_append(k[cut], kc, parent, frozen, pos)
+        te.reorder_append(v[cut], vc, parent, frozen, pos)
+
+    def scan(i: int) -> None:
+        k, v, kc, vc, _, _ = sets[i]
+        te.reorder_append_scan(k[cut], v[cut], kc, vc, parent, frozen, pos)
+
+    row["library_ms"] = queued_ms(lambda i: libraries[i](), copies, iters)[0]
+    row["einsum_ms"] = queued_ms(einsum, copies, 3)[0]
+    row["scan_ms"] = queued_ms(scan, copies, 3)[0]  # last: it rewrites the caches
+    return row
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", required=True, help="root of the checkout to time")
@@ -371,6 +542,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="comma-separated MxKxN of the int8/int4 products, e.g. 32x4096x11008")
     parser.add_argument("--engine", type=int, default=0,
                         help="samples of the LLaMA-7B int4 engine's admission wave and steps")
+    parser.add_argument("--reorder", action="append", default=[],
+                        help="LxSxKxHxTxd[:T_live] of a kernel 13 row (repeatable), e.g. "
+                             "4x2x64x6x512x64:64")
     parser.add_argument("--iters", type=int, default=20)
     return parser
 
@@ -378,15 +552,18 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: List[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     quant = parse_quant(args.quant)
+    reorder = [parse_reorder(spec) for spec in args.reorder]
 
     checkout = os.path.abspath(args.checkout)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [checkout] + [p for p in sys.path if os.path.abspath(p or ".") != here]
+    from reprover_tpu_torch.generation import engine as te
     from reprover_tpu_torch.models import quantize as qz
+    from reprover_tpu_torch.ops import beam_reorder as br
     from reprover_tpu_torch.ops import flash_attention as tfa
     from reprover_tpu_torch.ops import quant_matmul as qm
 
-    for mod in (tfa, qm, qz):
+    for mod in (tfa, qm, qz, br, te):
         if not os.path.abspath(mod.__file__).startswith(checkout + os.sep):
             raise RuntimeError(f"imported {mod.__file__}, not the checkout {checkout}")
     card = subprocess.run(
@@ -420,6 +597,11 @@ def main(argv: List[str] | None = None) -> None:
             row = time_quant(qm, qz, m, k, n, bits, args.iters, seed=i)
             print(json.dumps({"label": args.label, "card": card, "kernel": "quant_matmul"
                               if bits == 8 else "quant4_matmul", **row}), flush=True)
+    for i, (shape, t_live) in enumerate(reorder):
+        row = time_reorder(br, te, shape, t_live, args.iters, seed=i)
+        print(json.dumps({"label": args.label, "card": card, "kernel": "beam_reorder", **row}),
+              flush=True)
+        sys.modules["torch"].cuda.empty_cache()
     if args.engine:
         print(json.dumps({"label": args.label, "card": card,
                           **time_engine(args.engine, seed=0)}), flush=True)

@@ -74,7 +74,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 11 + [i] * 9 + [vp]
         fn.restype = i
-    lib.beam_reorder_append.argtypes = [vp] * 9 + [i] * 7 + [vp]
+    lib.beam_reorder_append.argtypes = [vp] * 9 + [i] * 9 + [vp]
     lib.beam_reorder_append.restype = i
     lib.quant_matmul_launch.argtypes = [i] + [vp] * 6 + [i] * 9 + [ctypes.c_longlong, i, vp]
     lib.quant_matmul_launch.restype = i

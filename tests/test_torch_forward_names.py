@@ -365,3 +365,28 @@ def test_quant_instances_in_the_build():
     """Decode at bits 8/4 x 32/64 rows and admission at bits 8/4: the
     instantiations the launcher reaches."""
     assert chip_smoke.QUANT_TMA_INSTANCES == 2 * 2 + 2 == 6
+
+
+REORDER_SASS = """
+        Function : _ZN48_GLOBAL__N__cc795b4d_15_beam_reorder_cu_67e5979a21reorder_append_kernelIiEEvNS_4ArgsE
+        /*0690*/                   SYNCS.EXCH.64 URZ, [UR4], UR6 ;
+        /*19c0*/                   UBLKCP.S.G [UR28], [UR26], UR5 ;
+        /*1bc0*/                   UBLKCP.S.G [UR28], [UR26], UR5 ;
+        /*27d0*/                   UBLKCP.G.S [UR8], [UR6], UR5 ;
+        Function : _ZN48_GLOBAL__N__cc795b4d_15_beam_reorder_cu_67e5979a21reorder_append_kernelIlEEvNS_4ArgsE
+        /*1a00*/                   UBLKCP.S.G [UR28], [UR26], UR5 ;
+        Function : _Z21attn_fwd_kernelIfLi0ELi0ELi64ELi0EEvv
+        /*0100*/                   UBLKCP.S.G [UR8], [UR6], UR5 ;
+"""
+
+
+def test_sass_counts_bulk_copies_per_reorder_instance():
+    """Kernel 13's SASS check counts the bulk-copy opcodes of each index
+    instantiation and nothing of other kernels; an instantiation without
+    the stores (UBLKCP.G.S) is what the check refuses."""
+    counts = chip_smoke.sass_bulk_copies(REORDER_SASS)
+    names = sorted(counts)
+    assert len(names) == 2 and all("reorder_append_kernel" in n for n in names)
+    by_index = {("IiE" in n and "int32") or "int64": c for n, c in counts.items()}
+    assert by_index == {"int32": {"UBLKCP.S.G": 2, "UBLKCP.G.S": 1},
+                        "int64": {"UBLKCP.S.G": 1}}

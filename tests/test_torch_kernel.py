@@ -471,24 +471,35 @@ def test_long_generation_loss_gradients_on_card_match_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["default", "bulk", "vector"])
+@pytest.mark.parametrize("index", [torch.int64, torch.int32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape, t_live", [((2, 3, 4, 2, 9, 64), 9), ((2, 3, 4, 2, 9, 64), 5),
-                                           ((1, 2, 8, 4, 17, 128), 11)])
-def test_beam_reorder_kernel_bit_equal(cuda_device, dtype, shape, t_live):
+                                           ((1, 2, 8, 4, 17, 128), 11),
+                                           ((2, 3, 3, 2, 300, 64), 257),
+                                           ((1, 3, 2, 1, 140, 128), 129)])
+def test_beam_reorder_kernel_bit_equal(cuda_device, dtype, shape, t_live, index, branch,
+                                       monkeypatch):
     """The gather kernel equals its plain version bit for bit on a T prefix
-    of the full buffers, with a frozen slot and a column past t_live."""
+    of the full buffers, with a frozen slot, a column past t_live and one at
+    t_live - 1, int64 and int32 indices, by either branch (spans of one
+    chunk and of several in the bulk branch)."""
     from reprover_tpu_torch.ops import beam_reorder as br
 
+    if branch != "default":
+        monkeypatch.setattr(br, "VECTOR_ROW_BYTES", 1 << 30 if branch == "bulk" else 16)
     gen = torch.Generator(device=cuda_device).manual_seed(t_live)
     L, S, K, H, T, d = shape
     k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
     kc, vc = (torch.randn((L, S, K, H, 1, d), generator=gen, device=cuda_device).to(dtype)
               for _ in range(2))
-    parent = torch.randint(0, K, (S, K), generator=gen, device=cuda_device)
+    parent = torch.randint(0, K, (S, K), generator=gen, device=cuda_device).to(index)
     frozen = torch.zeros(S, dtype=torch.bool, device=cuda_device)
     frozen[-1] = True
-    pos = torch.randint(0, t_live, (S,), generator=gen, device=cuda_device)
+    pos = torch.randint(0, t_live, (S,), generator=gen, device=cuda_device).to(index)
     pos[0] = t_live + 1 if t_live + 1 < T else pos[0]
+    if S > 2:
+        pos[1] = t_live - 1
     out_k, out_v = torch.zeros_like(k), torch.zeros_like(v)
     before = br.KERNEL_LAUNCHES["beam_reorder"]
     br.reorder_append_gather(k[..., :t_live, :], v[..., :t_live, :], kc, vc, parent, frozen, pos,

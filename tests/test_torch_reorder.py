@@ -22,17 +22,22 @@ from reprover_tpu_torch.utils.misc import cap_cpu_threads
 cap_cpu_threads()
 
 L, S, K, H, T, D = 2, 3, 4, 2, 8, 4
+# [L, S, K, H, T, d]: the default, one beam a slot, one head.
+SHAPES = [(L, S, K, H, T, D), (L, S, 1, H, T, D), (L, S, K, 1, T, D)]
+# The index dtypes the engines pass (int64 parents and positions) and int32.
+INDEX = [np.int64, np.int32]
 
 
-def _case(seed):
+def _case(seed, shape=SHAPES[0], index=np.int32):
+    l, s, k_, h, t, d = shape
     rng = np.random.default_rng(seed)
-    k = rng.normal(size=(L, S, K, H, T, D)).astype(np.float32)
-    v = rng.normal(size=(L, S, K, H, T, D)).astype(np.float32)
-    kc = rng.normal(size=(L, S, K, H, 1, D)).astype(np.float32)
-    vc = rng.normal(size=(L, S, K, H, 1, D)).astype(np.float32)
-    parent = rng.integers(0, K, (S, K)).astype(np.int32)
+    k = rng.normal(size=(l, s, k_, h, t, d)).astype(np.float32)
+    v = rng.normal(size=(l, s, k_, h, t, d)).astype(np.float32)
+    kc = rng.normal(size=(l, s, k_, h, 1, d)).astype(np.float32)
+    vc = rng.normal(size=(l, s, k_, h, 1, d)).astype(np.float32)
+    parent = rng.integers(0, k_, (s, k_)).astype(index)
     frozen = np.array([False, True, False])
-    pos = np.array([0, 5, T - 1], np.int32)
+    pos = np.array([0, 5, t - 1], index)
     return k, v, kc, vc, parent, frozen, pos
 
 
@@ -40,9 +45,13 @@ def _torch(*arrays):
     return [torch.from_numpy(np.asarray(a)) for a in arrays]
 
 
+@pytest.mark.parametrize("index", INDEX)
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("seed", [0, 1])
-def test_gather_einsum_scan_bit_equal_to_jax(seed):
-    k, v, kc, vc, parent, frozen, pos = _case(seed)
+def test_gather_einsum_scan_bit_equal_to_jax(seed, shape, index):
+    """pos at 0, inside and at T - 1; a frozen slot; int64 and int32 indices
+    read as they are; K = 1 and H = 1."""
+    k, v, kc, vc, parent, frozen, pos = _case(seed, shape, index)
     want_k, want_v = jax_gather(*map(jnp.asarray, (k, v, kc, vc, parent, frozen, pos)),
                                 interpret=True)
     np.testing.assert_array_equal(
@@ -79,14 +88,16 @@ def test_gather_frozen_slot_keeps_rows():
     np.testing.assert_array_equal(got_v.numpy()[:, :, :, :, 3], vc[:, :, :, :, 0])
 
 
-def test_gather_on_bucket_prefix_of_full_buffer():
+@pytest.mark.parametrize("index", INDEX)
+@pytest.mark.parametrize("positions", [(2, 7, 5), (0, 6, 5)])
+def test_gather_on_bucket_prefix_of_full_buffer(positions, index):
     """On the ``T_live`` prefix view of a full buffer (the engine's step
     bucket) the output is the JAX reorder of the sliced cache, written into
-    the prefix of the output buffer only; a position past the prefix
-    installs nothing."""
-    k, v, kc, vc, parent, frozen, pos = _case(3)
+    the prefix of the output buffer only; a position at or past the prefix
+    (7, 6) installs nothing, one at 0 or ``T_live - 1`` (5) its column."""
+    k, v, kc, vc, parent, frozen, pos = _case(3, index=index)
     t_live = 6
-    pos = np.array([2, 7, 5], np.int32)  # slot 1's column lies past the prefix
+    pos = np.array(positions, index)
     tk, tv, tkc, tvc, tparent, tfrozen, tpos = _torch(k, v, kc, vc, parent, frozen, pos)
     out_k, out_v = torch.full_like(tk, 7.0), torch.full_like(tv, 7.0)
     br.reorder_append_gather(tk[..., :t_live, :], tv[..., :t_live, :], tkc, tvc, tparent,
@@ -98,9 +109,12 @@ def test_gather_on_bucket_prefix_of_full_buffer():
     assert (out_k[..., t_live:, :] == 7.0).all() and (out_v[..., t_live:, :] == 7.0).all()
 
 
-@pytest.mark.parametrize("bad", ["in_place", "dtype", "col_shape", "not_prefix"])
+@pytest.mark.parametrize("bad", ["in_place", "dtype", "col_shape", "not_prefix", "parent_float",
+                                 "parent_int16", "pos_int16", "pos_float", "mixed_index",
+                                 "frozen_int"])
 def test_gather_checks_operands(bad):
-    """The wrapper raises on what the kernel does not take, on either device."""
+    """The wrapper raises on what the kernel does not take, on either device:
+    an index dtype it does not read as it is raises, and is not converted."""
     k, v, kc, vc, parent, frozen, pos = _torch(*_case(4))
     out_k, out_v = torch.empty_like(k), torch.empty_like(v)
     if bad == "in_place":
@@ -109,6 +123,18 @@ def test_gather_checks_operands(bad):
         kc = kc.double()
     elif bad == "col_shape":
         kc = kc[:, :, :, :, :, :2].contiguous()
+    elif bad == "parent_float":
+        parent = parent.float()
+    elif bad == "parent_int16":
+        parent, pos = parent.to(torch.int16), pos.to(torch.int16)
+    elif bad == "pos_int16":
+        pos = pos.to(torch.int16)
+    elif bad == "pos_float":
+        pos = pos.float()
+    elif bad == "mixed_index":
+        parent = parent.long()
+    elif bad == "frozen_int":
+        frozen = frozen.to(torch.int32)
     else:
         k = k.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
@@ -147,3 +173,42 @@ def test_reorder_mode_threads_through_serving_stack():
                StreamingInferenceService._build_engine):
         src = inspect.getsource(fn).replace('reorder_mode: str = "auto"', "")
         assert "reorder_mode=" in src, f"{fn} does not forward reorder_mode"
+
+
+@pytest.mark.parametrize("spec, want", [
+    ("4x2x64x6x512x64", ((4, 2, 64, 6, 512, 64), 512)),
+    ("4x2x64x6x512x64:64", ((4, 2, 64, 6, 512, 64), 64)),
+    ("32x4x8x16x129x128:129", ((32, 4, 8, 16, 129, 128), 129)),
+])
+def test_kernel_timing_parses_reorder_shapes(spec, want):
+    from reprover_tpu_torch.ops.kernel_timing import build_parser, parse_reorder
+
+    assert parse_reorder(spec) == want
+    args = build_parser().parse_args(["--checkout", ".", "--label", "x", "--reorder", spec,
+                                      "--reorder", "1x1x1x1x1x8"])
+    assert args.reorder == [spec, "1x1x1x1x1x8"]
+
+
+@pytest.mark.parametrize("spec", ["4x2x64x6x512", "4x2x64x6x512x64:0", "4x2x64x6x512x64:513",
+                                  "4x2x0x6x512x64", "4x2x64x6x512x64:a"])
+def test_kernel_timing_rejects_bad_reorder_shapes(spec):
+    from reprover_tpu_torch.ops.kernel_timing import parse_reorder
+
+    with pytest.raises(ValueError):
+        parse_reorder(spec)
+
+
+def test_reorder_bound_counts_distinct_parents():
+    """The bound reads each slot's distinct effective parents once (a frozen
+    slot's beams are their own) and writes every new beam; the second
+    figure reads a parent once for every child, with the column."""
+    from reprover_tpu_torch.ops.kernel_timing import PEAK_BYTES_PER_S, reorder_bound_ms
+
+    parent = torch.tensor([[0, 0, 1, 1], [0, 0, 0, 0], [3, 3, 3, 3]])
+    frozen = torch.tensor([False, True, False])
+    needed, every = reorder_bound_ms((L, S, K, H, T, D), 6, parent, frozen, 4)
+    row = D * 4
+    written = 2 * L * S * K * H * 6 * row
+    assert needed == pytest.approx(1e3 * (written + 2 * L * (2 + 4 + 1) * H * 6 * row)
+                                   / PEAK_BYTES_PER_S)
+    assert every == pytest.approx(1e3 * (2 * written + 2 * L * S * K * H * row) / PEAK_BYTES_PER_S)
