@@ -11,6 +11,19 @@ Any parameter update marks the corpus embeddings stale; queries re-index
 lazily. Under a data-parallel mesh (``mesh=``) each rank embeds every
 ``data``-th batch of the re-index and the embeddings are gathered, so every
 rank holds the one-device index.
+
+A re-index reports to the process's spans and counters
+(``utils/profiling.py``), each at batch granularity or coarser. Spans:
+``retriever.reindex`` (a call that re-embeds), inside it
+``retriever.serialize``, ``retriever.tokenize``, per batch
+``retriever.upload`` (the blocking copies of ids, mask and row indices to
+the device) and ``retriever.encode`` (the enqueue of encode, pooling and the
+rows' scatter), and under a mesh ``retriever.gather``. Counters:
+``retriever.premises_prepared`` (serialised), and of the batches this
+process embeds ``retriever.premises``, ``retriever.batches``,
+``retriever.tokens_real`` (not padding) and ``retriever.tokens_padded``
+(rows x padded length); ``retriever.token_cache_hits`` counts re-indexes
+that reused the tokenized batches.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from reprover_tpu_torch.models.t5 import (
 from reprover_tpu_torch.ops.pooling import masked_mean_normalize
 from reprover_tpu_torch.ops.topk import cosine_topk
 from reprover_tpu_torch.tokenizer import ByT5Tokenizer
+from reprover_tpu_torch.utils.profiling import count, span
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (corpus idxs, ids, mask)
 
@@ -62,8 +76,9 @@ class PremiseRetriever:
         self.corpus_embeddings: Optional[torch.Tensor] = None  # [N, D] fp32
         self.embeddings_staled = True
         # Premise text is fixed per corpus: the tokenized batches are reused
-        # across reindexes (keyed by batch size; reset by load_corpus).
-        self._token_cache: Optional[Tuple[int, List[Batch]]] = None
+        # across reindexes (keyed by batch size; reset by load_corpus), with
+        # each batch's count of real tokens.
+        self._token_cache: Optional[Tuple[int, List[Batch], List[int]]] = None
 
     @classmethod
     def load_hf(
@@ -125,9 +140,16 @@ class PremiseRetriever:
 
     @torch.inference_mode()
     def _encode(self, input_ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        ids = torch.from_numpy(input_ids).to(self.device, torch.long)
-        m = torch.from_numpy(mask).to(self.device)
-        return masked_mean_normalize(encode(self.params, self.cfg, ids, m), m)
+        return self._embed_device(*self._upload(input_ids, mask))
+
+    def _upload(self, input_ids: np.ndarray, mask: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Host ids and mask -> device ids (long) and mask (blocking copies)."""
+        return (torch.from_numpy(input_ids).to(self.device, torch.long),
+                torch.from_numpy(mask).to(self.device))
+
+    def _embed_device(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Encode and pool device ids -> unit-norm fp32 ``[B, D]``."""
+        return masked_mean_normalize(encode(self.params, self.cfg, ids, mask), mask)
 
     def _encode_strings_device(self, texts: Sequence[str]) -> torch.Tensor:
         batch = self.tokenizer(
@@ -145,12 +167,20 @@ class PremiseRetriever:
             return
         if self.corpus is None:
             raise RuntimeError("load_corpus first")
-        if self._token_cache is None or self._token_cache[0] != batch_size:
-            serialized = [p.serialize() for p in self.corpus.all_premises]
-            self._token_cache = (batch_size, self._tokenize_batches(serialized, batch_size))
-        self.corpus_embeddings = self._embed_tokenized(
-            self._token_cache[1], len(self.corpus.all_premises)
-        )
+        with span("retriever.reindex"):
+            if self._token_cache is None or self._token_cache[0] != batch_size:
+                with span("retriever.serialize"):
+                    serialized = [p.serialize() for p in self.corpus.all_premises]
+                count("retriever.premises_prepared", len(serialized))
+                with span("retriever.tokenize"):
+                    batches = self._tokenize_batches(serialized, batch_size)
+                    real = [int(np.count_nonzero(mask)) for _, _, mask in batches]
+                self._token_cache = (batch_size, batches, real)
+            else:
+                count("retriever.token_cache_hits")
+            _, batches, real = self._token_cache
+            self.corpus_embeddings = self._embed_tokenized(
+                batches, real, len(self.corpus.all_premises))
         self.embeddings_staled = False
 
     def _tokenize_batches(self, texts: List[str], batch_size: int) -> List[Batch]:
@@ -168,28 +198,52 @@ class PremiseRetriever:
         return batches
 
     @torch.inference_mode()
-    def _embed_tokenized(self, batches: List[Batch], n: int) -> torch.Tensor:
-        """Embed pre-tokenized batches into a device ``[n, D]`` fp32 matrix in
-        corpus order. Launches are asynchronous; on one device nothing waits
-        on it until a caller reads the result. Under a mesh this rank embeds
-        every ``data``-th batch, a failure on any rank raises on every rank,
-        and the rows are gathered (each is written by one rank: the sum is
-        exact)."""
+    def _embed_tokenized(self, batches: List[Batch], real: List[int], n: int) -> torch.Tensor:
+        """Embed pre-tokenized batches (``real``: each one's tokens that are
+        not padding) into a device ``[n, D]`` fp32 matrix in corpus order.
+        Launches are asynchronous; on one device nothing waits on it until a
+        caller reads the result. Under a mesh this rank embeds every
+        ``data``-th batch, a failure on any rank raises on every rank, and the
+        rows are gathered (each is written by one rank: the sum is exact)."""
         from reprover_tpu_torch.parallel.collectives import global_sum, raise_everywhere
 
         out = torch.zeros((n, self.embedding_size), dtype=torch.float32, device=self.device)
+        mine = range(len(batches))
         if self.mesh is None:
-            for idxs, ids, mask in batches:
-                out[torch.from_numpy(idxs).to(self.device)] = self._encode(ids, mask)
+            for i in mine:
+                self._embed_batch(out, *batches[i])
+        else:
+            mine = mine[self.mesh.coord("data")::self.mesh.shape["data"]]
+            failed = True
+            try:
+                for i in mine:
+                    self._embed_batch(out, *batches[i])
+                failed = False
+            finally:
+                raise_everywhere(self.mesh, failed, "re-indexing")
+        count("retriever.batches", len(mine))
+        count("retriever.premises", sum(len(batches[i][0]) for i in mine))
+        count("retriever.tokens_real", sum(real[i] for i in mine))
+        count("retriever.tokens_padded", sum(batches[i][1].size for i in mine))
+        if self.mesh is None:
             return out
-        failed = True
-        try:
-            for idxs, ids, mask in batches[self.mesh.coord("data")::self.mesh.shape["data"]]:
-                out[torch.from_numpy(idxs).to(self.device)] = self._encode(ids, mask)
-            failed = False
-        finally:
-            raise_everywhere(self.mesh, failed, "re-indexing")
-        return global_sum(out, self.mesh)
+        with span("retriever.gather"):
+            return global_sum(out, self.mesh)
+
+    def _embed_batch(self, out: torch.Tensor, idxs: np.ndarray, ids: np.ndarray,
+                     mask: np.ndarray) -> None:
+        """``out[idxs] = self._encode(ids, mask)`` in the order Python runs
+        it (ids and mask up, encode and pool, the rows' indices up, the
+        scatter), each copy under the ``retriever.upload`` span and each
+        enqueue under ``retriever.encode``."""
+        with span("retriever.upload"):
+            ids_d, mask_d = self._upload(ids, mask)
+        with span("retriever.encode"):
+            emb = self._embed_device(ids_d, mask_d)
+        with span("retriever.upload"):
+            rows = torch.from_numpy(idxs).to(self.device)
+        with span("retriever.encode"):
+            out[rows] = emb
 
     # -------------------------------------------------------------- #
     # Query

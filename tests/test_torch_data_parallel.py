@@ -119,6 +119,7 @@ def _worker(rank, init_file, work):
     its own output) and a 2x2 mesh's coordinates."""
     from reprover_tpu_torch.retrieval.indexer import main as index
     from reprover_tpu_torch.retrieval.retriever import PremiseRetriever
+    from reprover_tpu_torch.utils.profiling import counters
 
     cap_cpu_threads()
     init_distributed("cpu", init_method=f"file://{init_file}", rank=rank, world_size=RANKS)
@@ -140,7 +141,10 @@ def _worker(rank, init_file, work):
                                  tt5.T5Config(**TINY), max_seq_len=256, bucket_multiple=32,
                                  mesh=mesh)
     retriever.load_corpus(inputs["corpus"])
+    before = counters()
     retriever.reindex_corpus(batch_size=2)
+    out["counted"] = {k: v - before.get(k, 0) for k, v in counters().items()
+                      if k.startswith("retriever.")}
     out["index"] = retriever.corpus_embeddings.clone()
     index(["--ckpt-path", inputs["hf_ckpt"], "--corpus-path", inputs["corpus"],
            "--output-path", os.path.join(work, f"indexed{rank}")] + INDEXER_ARGS)
@@ -287,19 +291,30 @@ def test_moments_are_zero_shards_and_offload_to_host(ranks):
 
 def test_sharded_reindex_and_mesh_coordinates(ranks, toy_corpus_path):
     """``reindex_corpus`` on four ranks equals the one-rank index (atol
-    1e-5) on every rank; a 2x2 mesh puts ``model`` innermost."""
+    1e-5) on every rank; a 2x2 mesh puts ``model`` innermost. Each rank
+    serialises the whole corpus, counts the batches it embedded and times one
+    gather; the ranks' counts add up to the one-rank re-index's."""
     from reprover_tpu_torch.retrieval.retriever import PremiseRetriever
+    from reprover_tpu_torch.utils.profiling import counters
 
     inputs, outs, _ = ranks
     one = PremiseRetriever(params_from_jax(inputs["retrieval_loss"]["params"]),
                            tt5.T5Config(**TINY), max_seq_len=256, bucket_multiple=32)
     one.load_corpus(toy_corpus_path)
+    before = counters()
     one.reindex_corpus(batch_size=2)
+    whole = {k: v - before.get(k, 0) for k, v in counters().items()}
     for r, out in enumerate(outs):
         np.testing.assert_allclose(out["index"].numpy(), one.corpus_embeddings.numpy(),
                                    atol=1e-5, err_msg=f"rank {r}")
         assert out["coords"] == (r, 0)
         assert out["mesh22"] == (r // 2, r % 2)
+        assert out["counted"]["retriever.gather.calls"] == 1
+        assert out["counted"]["retriever.premises_prepared"] == len(one.corpus.all_premises)
+    for key in ("retriever.premises", "retriever.batches", "retriever.tokens_real",
+                "retriever.tokens_padded"):
+        assert sum(out["counted"][key] for out in outs) == whole[key], key
+    assert whole.get("retriever.gather.calls", 0) == 0
 
 
 def test_indexer_on_ranks_writes_the_one_process_artifact(ranks, tmp_path):

@@ -65,12 +65,21 @@ def test_section_timer():
         with timer.section("slow"):
             time.sleep(0.02)
     with timer.section("fast"):
-        pass
+        with timer.section("inner"):
+            time.sleep(0.002)
     with pytest.raises(RuntimeError):
         with timer.section("raises"):
             raise RuntimeError
-    assert timer.counts == {"slow": 2, "fast": 1, "raises": 1}
+    timer.count("things", 5)
+    timer.count("things")
+    assert timer.counts == {"slow": 2, "fast": 1, "inner": 1, "raises": 1}
     assert list(timer.summary())[0] == "slow" and timer.totals["slow"] >= 0.04
+    assert timer.totals["fast"] >= timer.totals["inner"] >= 0.002
+    snap = timer.snapshot()
+    assert snap["things"] == 6 and snap["slow.calls"] == 2 and snap["raises.calls"] == 1
+    assert snap["fast.seconds"] == timer.totals["fast"]
+    assert set(snap) == {f"{k}.{v}" for k in timer.counts for v in ("seconds", "calls")} | {
+        "things"}
 
 
 def test_device_trace_writes_a_cpu_trace(tmp_path):
