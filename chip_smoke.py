@@ -21,6 +21,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    valid scores, and a length that is not a multiple of 64; fp32 within
    1e-4, bf16 within 2e-2 * max(1, max|ref|) and each (row, head) within
    2e-2 of its own max|ref| (``row_error``); times from CUDA events;
+3b. fused elementwise kernels vs plain (``[fused]``): ``add_rms_norm``
+   (with and without the residual) at [64, L, 1472] for L in 1, 33, 257,
+   1024 and the engine's [1024, 1, 1472] decode rows, and ``gated_gelu`` on
+   the halves of the fused ``wi`` product ([64 x 257, 7168], [64 x 1024,
+   7168], [1024, 7168]), on separate ``wi_0`` / ``wi_1`` products and at a
+   TP 2 shard's width 1792: ``h_new`` bit-equal to the bf16 add, every row
+   within one bf16 rounding of the float32 (GELU: float64) reference
+   (``fused_row_excess``), one launch a call; then both at [64, 1024]
+   beside their bytes bound and the plain chains
+   (``kernel_timing.time_fused``);
 4. the slice: a synthetic LeanDojo-format benchmark (12,900 premises),
    the port's retriever and generator at full byt5-small width (bf16,
    seeded random weights), ``reindex_corpus``, then the reused
@@ -262,7 +272,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     >= 0.99 against one card's bf16 ``encode``, the bf16 ring's ms per
     encode, peak GiB and ring-shift ms on each rank.
 
-The line before the last is ``{"kernels": [...]}`` (the 36 kernels, with
+The line before the last is ``{"kernels": [...]}`` (the 38 kernels, with
 their launches on the main paths: serving, retriever training, generator
 training, the remat policies' steps, pretraining and the fine-tuning from
 its export, the evaluation harnesses, attribution and the load driver,
@@ -273,7 +283,9 @@ passes 4096), kernel 14's in its sweep; and their times, bounds and
 library times at the generator-training shapes, the LLaMA-7B decode shapes
 for the serving kernels (kernels 11/12 also at the admission rows,
 ``admission_*``), [4, 8192] for the long route, [4, 2048] x 32 x 128 for
-the scaled causal kernels and [64, 1024] for kernel 14); the last
+the scaled causal kernels, [64, 1024] for kernel 14 and [64, 1024] rows
+of byt5-small's widths for the fused elementwise kernels, whose launches
+are every phase's but phase 3b's); the last
 line is ``{"ok": true, "device": {...}}``. Without a card the script exits
 2 and prints no result.
 
@@ -331,6 +343,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SHAPES = [(8, 2304), (8, 2048), (32, 1024), (4, 384)]
 GEN_SHAPE = (8, 2304)  # generator training: 2300-byte sources padded to 2304
 RAGGED_SHAPE = (3, 1000)  # length not a multiple of the 64-key tile
+# The fused elementwise kernels (phase 3b): the norm's [B, L, d_model] at
+# the re-index batch and the engine's decode rows (16 slots x 64 beams);
+# the gated GELU's (rows, d_ff, halves of one wi product) at those rows,
+# on separate products and at a TP 2 shard's width; times at FUSED_MAIN.
+FUSED_NORM_SHAPES = [(64, 1, 1472), (64, 33, 1472), (64, 257, 1472), (64, 1024, 1472),
+                     (1024, 1, 1472)]
+FUSED_GELU_CASES = [(64 * 257, 3584, True), (64 * 1024, 3584, True), (1024, 3584, True),
+                    (64 * 257, 3584, False), (64 * 257, 1792, True), (64 * 33, 1792, False)]
+FUSED_MAIN = (64, 1024)
+FUSED_EPS = 1e-6
 NUM_HEADS, HEAD_DIM = 6, 64
 FP32_TOL = 1e-4
 BF16_REL_TOL = 2e-2
@@ -962,6 +984,88 @@ def phase_kernel(device) -> list:
     torch.cuda.empty_cache()
     _check_rows(rows, "the encoder kernel does")
     return rows
+
+
+def fused_row_excess(out, ref):
+    """Each row's largest distance from the reference over what one bf16
+    rounding of it allows (at most 2^-8 of the value, with 1e-3 of that and
+    1e-6 of the row's largest magnitude for float32's own reordering); at
+    most 1 in every row for a kernel that rounds once."""
+    ref = ref.reshape(-1, ref.shape[-1])
+    err = (out.to(ref.dtype).reshape(ref.shape) - ref).abs()
+    allowed = 2 ** -8 * (1 + 1e-3) * ref.abs() + 1e-6 * ref.abs().amax(-1, keepdim=True)
+    return (err / allowed.clamp_min(1e-30)).amax(-1)
+
+
+def phase_fused_kernels(device) -> dict:
+    """Phase 3b: ``add_rms_norm`` and ``gated_gelu`` against their plain
+    versions at ``FUSED_NORM_SHAPES`` and ``FUSED_GELU_CASES``, then their
+    times at ``FUSED_MAIN`` beside the bytes bound and the plain chains."""
+    import torch
+
+    from reprover_tpu_torch.models import t5
+    from reprover_tpu_torch.ops import fused_elementwise as fe
+    from reprover_tpu_torch.ops import kernel_timing
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rand(*shape: int, scale: float = 1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    def launched(name: str, fn):
+        before = fe.KERNEL_LAUNCHES[name]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fe.KERNEL_LAUNCHES[name] - before
+
+    rows, faults = [], []
+    for shape in FUSED_NORM_SHAPES:
+        w = torch.rand(shape[-1], generator=gen, device=device) + 0.5
+        for with_delta in (True, False):
+            h = rand(*shape, scale=3.0)
+            delta = rand(*shape) if with_delta else None
+            (h_new, normed), n = launched("add_rms_norm",
+                                          lambda: fe.add_rms_norm(h, delta, w, FUSED_EPS))
+            want_h, ref_normed = fe.add_rms_norm_reference(h, delta, w, FUSED_EPS)
+            x = want_h.float()
+            ref = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + FUSED_EPS) * w
+            excess = fused_row_excess(normed, ref)
+            row = dict(kernel="add_rms_norm", shape=list(shape), delta=with_delta, launches=n,
+                       h_new_equal=bool(torch.equal(h_new, want_h)),
+                       max_row_excess=float(excess.max()),
+                       max_abs_err=float((normed.float() - ref).abs().max()),
+                       plain_max_abs_err=float((ref_normed.float() - ref).abs().max()))
+            rows.append(row)
+            if n != 1 or not row["h_new_equal"] or row["max_row_excess"] > 1:
+                faults.append(row)
+    for n_rows, width, halves in FUSED_GELU_CASES:
+        if halves:
+            gate, up = rand(n_rows, 2 * width, scale=2.0).chunk(2, dim=-1)
+        else:
+            gate, up = rand(n_rows, width, scale=2.0), rand(n_rows, width)
+        out, n = launched("gated_gelu", lambda: fe.gated_gelu(gate, up))
+        # float64: float32's tanh form cancels where tanh(y) nears -1.
+        x = gate.double()
+        ref = 0.5 * x * (1.0 + torch.tanh(fe.GELU_C * (x + 0.044715 * x * x * x))) * up.double()
+        excess = fused_row_excess(out, ref)
+        row = dict(kernel="gated_gelu", shape=[n_rows, width], wi_halves=halves, launches=n,
+                   max_row_excess=float(excess.max()),
+                   max_abs_err=float((out.double() - ref).abs().max()),
+                   plain_max_abs_err=float(((t5.gelu_new(gate) * up).double() - ref).abs().max()))
+        rows.append(row)
+        if n != 1 or row["max_row_excess"] > 1:
+            faults.append(row)
+    for row in rows:
+        log(f"[fused] {json.dumps(row)}")
+    del gate, up, out
+    torch.cuda.empty_cache()
+    times = kernel_timing.time_fused(fe, t5, *FUSED_MAIN, iters=20, seed=0)
+    for row in times:
+        log(f"[fused] times {json.dumps(row)}")
+    if faults:
+        raise AssertionError(f"the fused elementwise kernels disagree with their references: "
+                             f"{faults}")
+    return dict(rows=rows, times=times)
 
 
 def _fit_argv(device, work: str, bench: str, tiny: bool) -> list:
@@ -4812,8 +4916,33 @@ def bisect_entries(report: dict) -> list:
     return entries
 
 
+# The fused elementwise kernels: the plain JAX function each chain comes
+# from (no Pallas kernel: XLA fuses these chains on the TPU).
+FUSED_REPLACES = {"add_rms_norm": "none: XLA fuses reprover_tpu/models/t5.py:198 rms_norm",
+                  "gated_gelu": "none: XLA fuses reprover_tpu/models/t5.py:207 gelu_new"}
+
+
+def fused_entries(report: dict, launches: dict) -> list:
+    """The entries of the fused elementwise kernels: launches on the main
+    paths, the largest error over every checked shape, and the times at
+    ``FUSED_MAIN`` (no library call computes either chain as one)."""
+    entries = []
+    for name, replaces in FUSED_REPLACES.items():
+        at = next(r for r in report["times"] if r["kernel"] == name)
+        entries.append({"name": name, "route": "cuda",
+                        "source": "reprover_tpu_torch/csrc/fused_elementwise.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": max(r["max_abs_err"] for r in report["rows"]
+                                           if r["kernel"] == name),
+                        "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+                        "bound_by": at["bound_by"], "library_ms": None})
+    return entries
+
+
 def main() -> int:
     import torch
+
+    from reprover_tpu_torch.ops import fused_elementwise as fe
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4822,17 +4951,25 @@ def main() -> int:
     device = torch.device("cuda")
     seconds: dict = {}
 
+    fused_launches: dict = {}
+
     def phase(name: str, fn, *args, **kwargs):
-        """Run one phase; its wall seconds go to the ``[smoke]`` line."""
+        """Run one phase; its wall seconds go to the ``[smoke]`` line, the
+        fused elementwise kernels' launches in it (counted from 0: nothing
+        else resets them) to ``fused_launches``."""
         t0 = time.perf_counter()
+        fe.reset_launch_counts()
         result = fn(*args, **kwargs)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        if any(fe.KERNEL_LAUNCHES.values()):
+            fused_launches[name] = dict(fe.KERNEL_LAUNCHES)
         return result
 
     info = phase("device", phase_device)
     phase("build", phase_build)
     phase("sass", phase_sass)
     rows = phase("kernel", phase_kernel, device)
+    fused = phase("fused_kernels", phase_fused_kernels, device)
     dec_fwd, dec_bwd = phase("decoder_kernels", phase_decoder_kernels, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         bench = make_bench(work)
@@ -4937,6 +5074,18 @@ def main() -> int:
         f"fine-tuning)")
     entries += scaled_kernel_entries(scaled_rows, ft["launches"])
     entries += bisect_entries(bs)
+    # The fused elementwise kernels: every inference path of the T5 models
+    # in bf16 on the card (serving, re-indexing, the streaming engine,
+    # evaluation, validation inside training); phase 3b is their check.
+    log(f"[smoke] fused elementwise launches by phase {json.dumps(fused_launches)}")
+    main_fused = {name: sum(n.get(name, 0) for p, n in fused_launches.items()
+                            if p != "fused_kernels") for name in FUSED_REPLACES}
+    entries += fused_entries(fused, main_fused)
+    unfused = [p for p in ("slice", "streaming")
+               if not all(fused_launches.get(p, {}).get(name) for name in FUSED_REPLACES)]
+    if unfused:
+        raise AssertionError(f"phases {unfused} served byt5-small in bf16 on the card without "
+                             f"launching both fused elementwise kernels: {fused_launches}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}), flush=True)

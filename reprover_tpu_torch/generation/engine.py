@@ -66,9 +66,13 @@ import torch
 from reprover_tpu_torch.generation.beam_search import _gather_rows, topk_candidates
 from reprover_tpu_torch.models.quantize import quantize_t5_params, resolve_quantize_bits
 from reprover_tpu_torch.models.t5 import (
+    Elementwise,
     Params,
     T5Config,
+    _decoder_norms,
     _dense,
+    _fuses,
+    _layer_stack,
     _lm_logits,
     _mlp_block,
     _split_heads,
@@ -77,7 +81,6 @@ from reprover_tpu_torch.models.t5 import (
     layer_params,
     local_heads,
     relative_position_bucket,
-    rms_norm,
 )
 from reprover_tpu_torch.ops.beam_reorder import parent_effective, reorder_append_gather
 from reprover_tpu_torch.ops.topk import stable_topk
@@ -227,7 +230,6 @@ def _engine_decode_step(
     T = t_live
     H, d = local_heads(dec["layers"]["self_attn"]["q"], cfg), cfg.d_kv
     rel_bias = head_bias(dec["rel_bias"], H, mesh)
-    eps = cfg.layer_norm_epsilon
     dev = state.n.device
     pos = state.n - 1  # position of the token being fed
 
@@ -253,12 +255,14 @@ def _engine_decode_step(
         return attn.permute(0, 1, 3, 2, 4).reshape(S * K, 1, H * d)
 
     k_news, v_news = [], []
-    for i in range(cfg.num_decoder_layers):
+
+    def block(h: torch.Tensor, delta: Optional[torch.Tensor], i: int, ew: Elementwise
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         lp = layer_params(dec["layers"], i)
         k_cache = state.self_k[i, :, :, :, :T]  # [S, K, H, T, d]
         v_cache = state.self_v[i, :, :, :, :T]
 
-        nrm = rms_norm(h, lp["self_norm"], eps)
+        h, nrm = ew.add_norm(h, delta, lp["self_norm"])
         q = proj(nrm, lp["self_attn"]["q"])
         k_new = proj(nrm, lp["self_attn"]["k"])
         v_new = proj(nrm, lp["self_attn"]["v"])
@@ -269,20 +273,18 @@ def _engine_decode_step(
             torch.matmul(probs[..., :T], v_cache.to(dt)).float()
             + probs[..., T:].float() * v_new.float()
         ).to(dt)
-        h = h + reduce_from_model(_dense(merge(attn), lp["self_attn"]["o"], dt),
-                                  mesh).reshape(S, K, 1, -1)
-
-        nrm = rms_norm(h, lp["cross_norm"], eps)
+        out = reduce_from_model(_dense(merge(attn), lp["self_attn"]["o"], dt), mesh)
+        h, nrm = ew.add_norm(h, out.reshape(S, K, 1, -1), lp["cross_norm"])
         q = proj(nrm, lp["cross_attn"]["q"])
         attn = _grouped_attention(q, state.cross_k[i], state.cross_v[i], state.cross_bias, dt)
-        h = h + reduce_from_model(_dense(merge(attn), lp["cross_attn"]["o"], dt),
-                                  mesh).reshape(S, K, 1, -1)
-
-        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
+        out = reduce_from_model(_dense(merge(attn), lp["cross_attn"]["o"], dt), mesh)
+        h, nrm = ew.add_norm(h, out.reshape(S, K, 1, -1), lp["mlp_norm"])
         k_news.append(k_new.to(state.self_k.dtype))
         v_news.append(v_new.to(state.self_v.dtype))
+        return h, _mlp_block(nrm, lp["mlp"], cfg, mesh, ew.gated)
 
-    h = rms_norm(h, dec["final_norm"], eps)
+    fused = _fuses(h, _decoder_norms(dec), dec["layers"]["mlp"])
+    h = _layer_stack(block, range(cfg.num_decoder_layers), h, dec["final_norm"], cfg, fused)
     logits = _lm_logits(params, cfg, h.reshape(S * K, 1, -1), mesh)[:, 0, :]
     return logits.reshape(S, K, -1), torch.stack(k_news), torch.stack(v_news)
 

@@ -33,6 +33,13 @@ the replicated ``rel_bias``, sums the row-parallel products over ``model``
 and gathers the logits (:mod:`reprover_tpu_torch.parallel.collectives`);
 the attention kernels run on the local heads.
 
+In inference on a card in bf16 (autograd recording for no parameter), each
+layer's residual adds, RMSNorms and gated GELU run as two fused kernels
+(:mod:`reprover_tpu_torch.ops.fused_elementwise`), each MLP's output carried
+into the next layer's norm; everywhere else, training and the CPU among
+them, the plain composition runs op for op (:func:`_fuses`,
+:func:`_layer_stack`).
+
 Training rematerializes each layer (``cfg.remat``) with one of the JAX
 package's three policies: ``full`` recomputes the whole layer in backward;
 ``lite`` keeps the products the JAX package names ``qkv`` and
@@ -49,13 +56,14 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from reprover_tpu_torch.models.quantize import QuantWeight, quantized_dense, quantized_logits
+from reprover_tpu_torch.ops import fused_elementwise as fe
 from reprover_tpu_torch.parallel.collectives import (
     copy_to_model,
     gather_from_model,
@@ -69,6 +77,7 @@ from reprover_tpu_torch.ops.flash_attention import (
     encoder_attention_reference,
     encoder_flash_attention,
 )
+from reprover_tpu_torch.utils.profiling import count
 
 Params = Dict[str, Any]
 
@@ -387,7 +396,15 @@ def attention(
     return torch.matmul(probs, v.to(dtype))
 
 
-def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config, mesh: Any = None) -> torch.Tensor:
+def _gelu_gated(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return gelu_new(gate) * up
+
+
+def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config, mesh: Any = None,
+               gated: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = _gelu_gated
+               ) -> torch.Tensor:
+    """The gated-GELU MLP; ``gated(gate, up)`` joins the two halves (the
+    plain chain, or :func:`~reprover_tpu_torch.ops.fused_elementwise.gated_gelu`)."""
     dtype = cfg.compute_dtype
     x = copy_to_model(x, mesh)
     if "wi" in p:
@@ -395,7 +412,86 @@ def _mlp_block(x: torch.Tensor, p: Params, cfg: T5Config, mesh: Any = None) -> t
     else:
         gate, up = _dense(x, p["wi_0"], dtype, "mlp_hidden"), _dense(x, p["wi_1"], dtype,
                                                                       "mlp_hidden")
-    return reduce_from_model(_dense(gelu_new(gate) * up, p["wo"], dtype), mesh)
+    return reduce_from_model(_dense(gated(gate, up), p["wo"], dtype), mesh)
+
+
+# ------------------------------------------------------------------ #
+# The layer stack: the plain composition, or the fused elementwise kernels
+# ------------------------------------------------------------------ #
+
+
+class Elementwise(NamedTuple):
+    """A layer's elementwise steps, both the fused kernels' or both the plain
+    composition's (:func:`_elementwise`): ``add_norm(h, delta, weight) ->
+    (h + delta, rms_norm(h + delta))`` (``h`` itself where ``delta`` is
+    None) and ``gated(gate, up) -> gelu_new(gate) * up``."""
+
+    add_norm: Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor],
+                       Tuple[torch.Tensor, torch.Tensor]]
+    gated: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+Block = Callable[[torch.Tensor, Optional[torch.Tensor], Any, Elementwise],
+                 Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _fuses(h: torch.Tensor, norms: List[torch.Tensor], mlp: Params) -> bool:
+    """Whether a call's layers run the fused elementwise kernels
+    (:mod:`~reprover_tpu_torch.ops.fused_elementwise`), read from what the
+    call is given: the hidden states ``h`` and the norms' weights are as
+    the kernels take them (:func:`~reprover_tpu_torch.ops.fused_elementwise.plain_reason`:
+    on a card, bf16 rows of whole 16-byte vectors, float32 weights, and
+    autograd recording for none of them, so training stays plain), and the
+    MLP's hidden width is whole 16-byte vectors too."""
+    width = mlp["wi"].shape[-1] // 2 if "wi" in mlp else mlp["wi_0"].shape[-1]
+    return width % 8 == 0 and not fe.plain_reason((h,), norms)
+
+
+def _elementwise(fused: bool, eps: float) -> Elementwise:
+    if fused:
+        return Elementwise(lambda h, delta, w: fe.add_rms_norm(h, delta, w, eps),
+                           lambda gate, up: fe.gated_gelu(gate, up))
+
+    def add_norm(h: torch.Tensor, delta: Optional[torch.Tensor], w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if delta is not None:
+            h = h + delta
+        return h, rms_norm(h, w, eps)
+
+    return Elementwise(add_norm, _gelu_gated)
+
+
+def _layer_stack(block: Block, layers: Any, h: torch.Tensor, final_norm: torch.Tensor,
+                 cfg: T5Config, fused: bool, remat: bool = False) -> torch.Tensor:
+    """``block(h, delta, lp, elementwise) -> (h, mlp_out)`` over each ``lp``
+    of ``layers``, then the final norm. A block takes its input stream as
+    ``h + delta`` and returns the stream before its MLP's residual with the
+    MLP's output.
+
+    Plain: each layer adds its MLP's output before it returns (the unit that
+    ``remat`` checkpoints), the composition op for op. Fused: the MLP's
+    output is carried into the next layer's ``add_rms_norm`` and into the
+    final norm's, so no residual add runs alone. Counts the layers of each
+    path (``model.fused_layers``, ``model.plain_layers``)."""
+    n = len(layers)
+    count("model.fused_layers", n if fused else 0)
+    count("model.plain_layers", 0 if fused else n)
+    ew = _elementwise(fused, cfg.layer_norm_epsilon)
+    if fused:
+        delta: Optional[torch.Tensor] = None
+        for lp in layers:
+            h, delta = block(h, delta, lp, ew)
+        return ew.add_norm(h, delta, final_norm)[1]
+
+    def layer(h: torch.Tensor, lp: Any) -> torch.Tensor:
+        h, mlp_out = block(h, None, lp, ew)
+        return h + mlp_out
+
+    if remat:
+        layer = _rematerialized(layer, cfg)
+    for lp in layers:
+        h = layer(h, lp)
+    return rms_norm(h, final_norm, cfg.layer_norm_epsilon)
 
 
 def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -566,14 +662,15 @@ def encode(
     """
     dtype = cfg.compute_dtype
     enc = params["encoder"]
-    eps = cfg.layer_norm_epsilon
     route = {"block_kv": cfg.flash_block_kv} if cfg.flash_block_kv else {}
 
     heads = local_heads(enc["layers"]["attn"]["q"], cfg)
 
-    def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
+    def block(h: torch.Tensor, delta: Optional[torch.Tensor], lp: Params, ew: Elementwise
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         p = lp["attn"]
-        n = copy_to_model(rms_norm(h, lp["attn_norm"], eps), mesh)
+        h, n = ew.add_norm(h, delta, lp["attn_norm"])
+        n = copy_to_model(n, mesh)
         attn = attention_fn(
             _dense(n, p["q"], dtype, "qkv"),
             _dense(n, p["k"], dtype, "qkv"),
@@ -585,15 +682,16 @@ def encode(
             max_distance=cfg.relative_attention_max_distance,
             **route,
         )
-        h = h + reduce_from_model(_dense(attn, p["o"], dtype), mesh)
-        return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
+        h, n = ew.add_norm(h, reduce_from_model(_dense(attn, p["o"], dtype), mesh),
+                           lp["mlp_norm"])
+        return h, _mlp_block(n, lp["mlp"], cfg, mesh, ew.gated)
 
-    if cfg.remat and torch.is_grad_enabled():
-        layer = _rematerialized(layer, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     h = params["shared_embedding"].to(dtype)[input_ids]
-    for lp in unbind_layers(enc["layers"], cfg.num_encoder_layers):
-        h = layer(h, lp)
-    return rms_norm(h, enc["final_norm"], eps)
+    layers = unbind_layers(enc["layers"], cfg.num_encoder_layers)
+    norms = [enc["layers"]["attn_norm"], enc["layers"]["mlp_norm"], enc["final_norm"]]
+    fused = not remat and _fuses(h, norms, enc["layers"]["mlp"])
+    return _layer_stack(block, layers, h, enc["final_norm"], cfg, fused, remat)
 
 
 def encode_sequence_parallel(
@@ -698,15 +796,13 @@ def decode(
     """
     dtype = cfg.compute_dtype
     dec = params["decoder"]
-    eps = cfg.layer_norm_epsilon
     enc_h = copy_to_model(encoder_hidden.to(dtype), mesh)
     heads = local_heads(dec["layers"]["self_attn"]["q"], cfg)
     rel_bias = head_bias(dec["rel_bias"], heads, mesh)
 
     if decoder_mask is None and flash_attention:
 
-        def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
-            n = copy_to_model(rms_norm(h, lp["self_norm"], eps), mesh)
+        def self_attention(n: torch.Tensor, lp: Params) -> torch.Tensor:
             p = lp["self_attn"]
             # Flat [B, T, H*d] projection layout straight into the kernels.
             attn = causal_flash_attention(
@@ -718,9 +814,10 @@ def decode(
                 num_buckets=cfg.relative_attention_num_buckets,
                 max_distance=cfg.relative_attention_max_distance,
             )
-            h = h + reduce_from_model(_dense(attn, p["o"], dtype), mesh)
+            return reduce_from_model(_dense(attn, p["o"], dtype), mesh)
+
+        def cross_attention(n: torch.Tensor, lp: Params) -> torch.Tensor:
             pc = lp["cross_attn"]
-            n = copy_to_model(rms_norm(h, lp["cross_norm"], eps), mesh)
             attn = cross_flash_attention(
                 _dense(n, pc["q"], dtype, "qkv"),
                 _dense(enc_h, pc["k"], dtype, "qkv"),
@@ -728,8 +825,7 @@ def decode(
                 encoder_mask,
                 num_heads=heads,
             )
-            h = h + reduce_from_model(_dense(attn, pc["o"], dtype), mesh)
-            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
+            return reduce_from_model(_dense(attn, pc["o"], dtype), mesh)
 
     else:
         positions = torch.arange(decoder_input_ids.shape[1], device=decoder_input_ids.device)
@@ -740,19 +836,30 @@ def decode(
             self_bias = self_bias + _mask_bias(decoder_mask)
         cross_bias = _mask_bias(encoder_mask)
 
-        def layer(h: torch.Tensor, lp: Params) -> torch.Tensor:
-            n = copy_to_model(rms_norm(h, lp["self_norm"], eps), mesh)
-            h = h + _attn_block(n, n, lp["self_attn"], self_bias, cfg, mesh)
-            n = copy_to_model(rms_norm(h, lp["cross_norm"], eps), mesh)
-            h = h + _attn_block(n, enc_h, lp["cross_attn"], cross_bias, cfg, mesh)
-            return h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
+        def self_attention(n: torch.Tensor, lp: Params) -> torch.Tensor:
+            return _attn_block(n, n, lp["self_attn"], self_bias, cfg, mesh)
 
-    if cfg.remat and torch.is_grad_enabled():
-        layer = _rematerialized(layer, cfg)
+        def cross_attention(n: torch.Tensor, lp: Params) -> torch.Tensor:
+            return _attn_block(n, enc_h, lp["cross_attn"], cross_bias, cfg, mesh)
+
+    def block(h: torch.Tensor, delta: Optional[torch.Tensor], lp: Params, ew: Elementwise
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h, n = ew.add_norm(h, delta, lp["self_norm"])
+        h, n = ew.add_norm(h, self_attention(copy_to_model(n, mesh), lp), lp["cross_norm"])
+        h, n = ew.add_norm(h, cross_attention(copy_to_model(n, mesh), lp), lp["mlp_norm"])
+        return h, _mlp_block(n, lp["mlp"], cfg, mesh, ew.gated)
+
+    remat = cfg.remat and torch.is_grad_enabled()
     h = params["shared_embedding"].to(dtype)[decoder_input_ids]
-    for lp in unbind_layers(dec["layers"], cfg.num_decoder_layers):
-        h = layer(h, lp)
-    return _lm_logits(params, cfg, rms_norm(h, dec["final_norm"], eps), mesh)
+    layers = unbind_layers(dec["layers"], cfg.num_decoder_layers)
+    fused = not remat and _fuses(h, _decoder_norms(dec), dec["layers"]["mlp"])
+    h = _layer_stack(block, layers, h, dec["final_norm"], cfg, fused, remat)
+    return _lm_logits(params, cfg, h, mesh)
+
+
+def _decoder_norms(dec: Params) -> List[torch.Tensor]:
+    return [dec["layers"][k] for k in ("self_norm", "cross_norm", "mlp_norm")] + [
+        dec["final_norm"]]
 
 
 def cross_entropy_loss(
@@ -887,7 +994,6 @@ def decode_step(
     """
     dtype = cfg.compute_dtype
     dec = params["decoder"]
-    eps = cfg.layer_norm_epsilon
     pos = state.step
     dev = token.device
     heads = local_heads(dec["layers"]["self_attn"]["q"], cfg)
@@ -901,11 +1007,13 @@ def decode_step(
         cfg,
     )  # [1, H, 1, pos + 1]
 
-    for i in range(cfg.num_decoder_layers):
+    def block(h: torch.Tensor, delta: Optional[torch.Tensor], i: int, ew: Elementwise
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         lp = layer_params(dec["layers"], i)
         sa, ca = lp["self_attn"], lp["cross_attn"]
 
-        n = copy_to_model(rms_norm(h, lp["self_norm"], eps), mesh)
+        h, n = ew.add_norm(h, delta, lp["self_norm"])
+        n = copy_to_model(n, mesh)
         q = _split_heads(_dense(n, sa["q"], dtype), heads, cfg.d_kv)
         k_new = _split_heads(_dense(n, sa["k"], dtype), heads, cfg.d_kv)
         v_new = _split_heads(_dense(n, sa["v"], dtype), heads, cfg.d_kv)
@@ -918,18 +1026,19 @@ def decode_step(
             self_bias,
             dtype,
         )
-        h = h + reduce_from_model(_dense(_merge_heads(attn), sa["o"], dtype), mesh)
-
-        n = copy_to_model(rms_norm(h, lp["cross_norm"], eps), mesh)
+        h, n = ew.add_norm(h, reduce_from_model(_dense(_merge_heads(attn), sa["o"], dtype), mesh),
+                           lp["cross_norm"])
+        n = copy_to_model(n, mesh)
         q = _split_heads(_dense(n, ca["q"], dtype), heads, cfg.d_kv)
         attn = _cross_attention(
             q, state.cross_k[i], state.cross_v[i], state.cross_bias, state.num_beams, dtype
         )
-        h = h + reduce_from_model(_dense(_merge_heads(attn), ca["o"], dtype), mesh)
+        h, n = ew.add_norm(h, reduce_from_model(_dense(_merge_heads(attn), ca["o"], dtype), mesh),
+                           lp["mlp_norm"])
+        return h, _mlp_block(n, lp["mlp"], cfg, mesh, ew.gated)
 
-        h = h + _mlp_block(rms_norm(h, lp["mlp_norm"], eps), lp["mlp"], cfg, mesh)
-
-    h = rms_norm(h, dec["final_norm"], eps)
+    fused = _fuses(h, _decoder_norms(dec), dec["layers"]["mlp"])
+    h = _layer_stack(block, range(cfg.num_decoder_layers), h, dec["final_norm"], cfg, fused)
     logits = _lm_logits(params, cfg, h, mesh)[:, 0, :]
     return logits, dataclasses.replace(state, step=pos + 1)
 

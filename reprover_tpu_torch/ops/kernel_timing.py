@@ -36,6 +36,10 @@ process, on one card: times from two cards do not compare. ``--engine N``
 adds N samples of the LLaMA-7B int4 streaming engine (seeded random
 weights at full width, 4 slots x 8 beams, prompts of 512 tokens): the
 admission wave's ms and the next 32 steps' ms per step, host clock.
+``--t5-engine N`` adds N samples of the same for the byt5-small streaming
+engine (``StepwiseBeamEngine``: seeded random bf16 weights, 16 slots x 64
+beams, sources of 2048 bytes, reorder by the gather kernel), whose decode
+step runs the T5 blocks.
 ``--reorder LxSxKxHxTxd[:T_live]`` (repeatable) adds kernel 13, the beam-cache
 reorder, on the ``T_live`` prefix (all T by default) of bf16 caches made from
 a seed (int64 parents and positions, a frozen slot, the engines' dtypes) and
@@ -48,6 +52,16 @@ once a child), ``library_ms`` (``index_select`` and the column write), the engin
 ``einsum_ms`` and ``scan_ms`` (queued), and whether the result is bit-equal
 to the plain version; where the checkout's wrapper has
 ``VECTOR_ROW_BYTES``, also each branch forced (``bulk_*``, ``vector_*``).
+``--fused [BxL,...]`` (by default the re-index cell's 64x256, 64x512 and
+64x1024; a checkout that has ``ops/fused_elementwise.py``) adds the T5
+block's fused elementwise kernels at byt5-small's widths: ``add_rms_norm``
+on ``[B, L, 1472]`` and ``gated_gelu`` on the two halves of a ``[B, L,
+7168]`` product, bf16 operands made from a seed and cycled past the L2
+cache: one JSON line a kernel and shape with ``ms`` (CUDA events around
+queued calls, as above), ``bound_ms`` (each operand byte read and each
+output byte written once, at 3.35 TB/s), ``bound_pct``, ``plain_ms`` (the
+model's plain chain, ``h + delta`` then ``rms_norm``, or ``gelu_new(gate)
+* up``) and ``speedup`` (plain over fused).
 """
 
 from __future__ import annotations
@@ -369,6 +383,48 @@ def time_engine(samples: int, seed: int, cfg: object = None, device: str = "cuda
             "steps_per_sample": steps, "admit_ms": admit_ms, "ms_per_step": step_ms}
 
 
+def time_t5_engine(samples: int, seed: int, device: str = "cuda", num_slots: int = 16,
+                   num_beams: int = 64, src: int = 2048, dec: int = 512, chunk: int = 8,
+                   chunks: int = 4) -> Dict[str, object]:
+    """:func:`time_engine` for byt5-small's streaming beam engine: random
+    weights from ``seed`` (bf16 products, fused ``wi``), ``num_slots`` random
+    byte sources of ``src`` bytes, reorder by the gather kernel."""
+    import time
+
+    import torch
+
+    from reprover_tpu_torch.generation.engine import StepwiseBeamEngine
+    from reprover_tpu_torch.models.t5 import byt5_small, fuse_mlp_params, init_params, place_params
+
+    cfg = byt5_small(compute_dtype=torch.bfloat16)
+    params = place_params(fuse_mlp_params(init_params(cfg, torch.Generator().manual_seed(seed))),
+                          cfg, device)
+    engine = StepwiseBeamEngine(params, cfg, num_slots=num_slots, num_beams=num_beams,
+                                max_src_len=src, max_decode_len=dec, chunk_size=chunk,
+                                reorder_mode="gather")
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, cfg.vocab_size, (num_slots, src), generator=gen)
+    mask = torch.ones_like(ids)
+    admit_ms: List[float] = []
+    step_ms: List[float] = []
+    for sample in range(samples + 1):
+        engine.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.admit_batch_tokens(list(range(num_slots)), ids, mask)
+        torch.cuda.synchronize()
+        admit = 1e3 * (time.perf_counter() - t0)
+        steps, t0 = 0, time.perf_counter()
+        for _ in range(chunks):
+            steps += engine.unpack_status(engine.dispatch_run(chunk))[3]
+        torch.cuda.synchronize()
+        if sample:
+            admit_ms.append(admit)
+            step_ms.append(1e3 * (time.perf_counter() - t0) / max(steps, 1))
+    return {"engine": "byt5-small", "slots": num_slots, "beams": num_beams, "src": src,
+            "steps_per_sample": steps, "admit_ms": admit_ms, "ms_per_step": step_ms}
+
+
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -528,6 +584,53 @@ def time_reorder(br: object, te: object, shape: Tuple[int, ...], t_live: int, it
     return row
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+
+
+def time_fused(fe: object, t5: object, b: int, length: int, iters: int, seed: int,
+               d_model: int = 1472, d_ff: int = 3584) -> List[Dict[str, object]]:
+    """``add_rms_norm`` and ``gated_gelu`` at ``[b, length]`` rows of
+    byt5-small's widths beside the plain chains they replace, on operand
+    sets cycled past the L2 cache."""
+    import torch
+
+    rows, eps = b * length, 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape: int) -> "torch.Tensor":
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out: List[Dict[str, object]] = []
+    norm_bytes = rows * d_model * 2 * 4 + d_model * 4  # h, delta in; h_new, normed out
+    gelu_bytes = rows * d_ff * 2 * 3  # gate, up in; out
+    copies = max(1, -(-3 * L2_BYTES // (rows * d_model * 2 * 2)))
+    w = torch.rand(d_model, generator=gen, device="cuda") + 0.5
+    hs = [(rand(b, length, d_model), rand(b, length, d_model)) for _ in range(copies)]
+
+    def plain_norm(i: int) -> object:
+        h = hs[i][0] + hs[i][1]
+        return h, t5.rms_norm(h, w, eps)
+
+    cases = [("add_rms_norm", d_model, norm_bytes, copies,
+              lambda i: fe.add_rms_norm(hs[i][0], hs[i][1], w, eps), plain_norm)]
+    gelu_copies = max(1, -(-3 * L2_BYTES // (rows * d_ff * 2 * 2)))
+    wis = [rand(b, length, 2 * d_ff).chunk(2, dim=-1) for _ in range(gelu_copies)]
+    cases.append(("gated_gelu", d_ff, gelu_bytes, gelu_copies,
+                  lambda i: fe.gated_gelu(*wis[i]),
+                  lambda i: t5.gelu_new(wis[i][0]) * wis[i][1]))
+    for name, width, nbytes, n, fused, plain in cases:
+        ms = queued_ms(fused, n, iters)[0]
+        plain_ms = queued_ms(plain, n, iters)[0]
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        out.append({"kernel": name, "B": b, "L": length, "width": width, "dtype": "bfloat16",
+                    "copies": n, "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "bound_pct": 100 * bound_ms / ms, "plain_ms": plain_ms,
+                    "speedup": plain_ms / ms})
+    del hs, wis
+    torch.cuda.empty_cache()
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", required=True, help="root of the checkout to time")
@@ -545,6 +648,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--reorder", action="append", default=[],
                         help="LxSxKxHxTxd[:T_live] of a kernel 13 row (repeatable), e.g. "
                              "4x2x64x6x512x64:64")
+    parser.add_argument("--t5-engine", type=int, default=0,
+                        help="samples of the byt5-small streaming engine's admission wave and "
+                             "steps")
+    parser.add_argument("--fused", nargs="?", const="64x256,64x512,64x1024", default="",
+                        help="comma-separated BxL of the fused elementwise rows (alone: the "
+                             "re-index cell's 64x256,64x512,64x1024)")
     parser.add_argument("--iters", type=int, default=20)
     return parser
 
@@ -605,6 +714,17 @@ def main(argv: List[str] | None = None) -> None:
     if args.engine:
         print(json.dumps({"label": args.label, "card": card,
                           **time_engine(args.engine, seed=0)}), flush=True)
+    if args.t5_engine:
+        print(json.dumps({"label": args.label, "card": card,
+                          **time_t5_engine(args.t5_engine, seed=0)}), flush=True)
+    if args.fused:
+        from reprover_tpu_torch.models import t5
+        from reprover_tpu_torch.ops import fused_elementwise as fe
+
+        for i, spec in enumerate(filter(None, args.fused.split(","))):
+            b, length = (int(x) for x in spec.split("x"))
+            for row in time_fused(fe, t5, b, length, args.iters, seed=i):
+                print(json.dumps({"label": args.label, "card": card, **row}), flush=True)
 
 
 if __name__ == "__main__":

@@ -78,6 +78,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.beam_reorder_append.restype = i
     lib.quant_matmul_launch.argtypes = [i] + [vp] * 6 + [i] * 9 + [ctypes.c_longlong, i, vp]
     lib.quant_matmul_launch.restype = i
+    ll = ctypes.c_longlong
+    lib.fused_add_rms_norm.argtypes = [vp, ll, vp, ll, vp, vp, vp, ll, i, ctypes.c_float, vp]
+    lib.fused_add_rms_norm.restype = i
+    lib.fused_gated_gelu.argtypes = [vp, ll, vp, ll, vp, ll, i, vp]
+    lib.fused_gated_gelu.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 
